@@ -1,0 +1,235 @@
+// Rotated RoIAlign forward over an FPN pyramid, for Hopper (sm_90a).
+//
+// Replaces: rs_detection_tpu/ops/pallas_roi_align.py, `_pool_kernel` (reached
+// through `roi_align_rotated_pyramid_pallas`), the RoI stage of Oriented
+// R-CNN. It computes the exact function of
+// rs_detection_tpu/ops/roi_align.py:roi_align_rotated_pyramid for every roi:
+//   level  = clip(floor(log2(sqrt(max(w*h, 1e-6)) / finest + 1e-6)), 0, L-1)
+//   grid   = P x P bins x S x S samples at c/stride - 0.5 on the rotated
+//            box, rw = max(w/stride, 1), rh = max(h/stride, 1)
+//   sample = bilinear with the reference border rules: 0 when y < -1,
+//            y > H, x < -1 or x > W; otherwise clamp at 0, and a low index
+//            at or past the last row/column takes that row/column with zero
+//            fraction
+//   out    = mean of the S*S samples of each bin, [R, P, P, C]
+// None of the TPU kernel's window tiers, u8 interpolation matrix, address
+// sort or XLA fallback tail is needed: a GPU thread reads any address.
+//
+// What bounds it on the H100: gathers. At the flagship (16000 rois, C = 256,
+// bf16) it reads 16000 * 49 * 4 samples * 4 corners * 512 bytes (~6.4 GB of
+// corner rows, most of them hits in the 50 MB L2 because neighbouring samples
+// share corners) and writes 400 MB. One block per roi; each warp owns one
+// bin at a time and each lane 8 channels, so every corner read is one 16-byte
+// load per lane and 512 contiguous bytes per warp. The roi's level, rotation
+// and sample coordinates are computed in the kernel; sums are f32 and the
+// result is stored once in the features' dtype.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_LEVELS = 4;
+
+struct Pyramid {
+  const void* f[MAX_LEVELS];
+  int h[MAX_LEVELS];
+  int w[MAX_LEVELS];
+  float stride[MAX_LEVELS];
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// VEC channels per lane: one 16-byte load (VEC = 16 / sizeof(T)) or scalar.
+template <typename T, int VEC> struct Vec;
+
+template <typename T> struct Vec<T, 1> {
+  static __device__ __forceinline__ void fma(const T* p, float w, float* a) {
+    a[0] += w * to_f(p[0]);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* a) {
+    p[0] = from_f<T>(a[0]);
+  }
+};
+
+template <> struct Vec<float, 4> {
+  static __device__ __forceinline__ void fma(const float* p, float w,
+                                             float* a) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    a[0] += w * q.x;
+    a[1] += w * q.y;
+    a[2] += w * q.z;
+    a[3] += w * q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* a) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+
+template <> struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void fma(const __nv_bfloat16* p, float w,
+                                             float* a) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      a[2 * i] += w * f.x;
+      a[2 * i + 1] += w * f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* a) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+    roi_align_rotated_pyramid_kernel(Pyramid pyr, int num_levels, int N,
+                                     int C, const float* __restrict__ rois,
+                                     int P, int S, float finest_scale,
+                                     T* __restrict__ out) {
+  const int r = blockIdx.x;
+  const float* roi = rois + static_cast<size_t>(r) * 6;
+  // a batch index outside [0, N) is clamped (the XLA gather clamps too)
+  const int b = min(max(static_cast<int>(roi[0]), 0), N - 1);
+  const float w0 = roi[3];
+  const float h0 = roi[4];
+  const float scale = sqrtf(fmaxf(w0 * h0, 1e-6f));
+  const float lf = floorf(log2f(scale / finest_scale + 1e-6f));
+  const int lvl =
+      static_cast<int>(fminf(fmaxf(lf, 0.f), static_cast<float>(num_levels - 1)));
+  const int H = pyr.h[lvl];
+  const int W = pyr.w[lvl];
+  const float inv = 1.0f / pyr.stride[lvl];
+  const float cx = roi[1] * inv - 0.5f;
+  const float cy = roi[2] * inv - 0.5f;
+  const float rw = fmaxf(w0 * inv, 1.0f);
+  const float rh = fmaxf(h0 * inv, 1.0f);
+  const float ct = cosf(roi[5]);
+  const float st = sinf(roi[5]);
+  const T* feat = static_cast<const T*>(pyr.f[lvl]) +
+                  static_cast<size_t>(b) * H * W * C;
+  const float inv_count = 1.0f / static_cast<float>(S * S);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ngroups = C / VEC;
+
+  for (int bin = warp; bin < P * P; bin += THREADS / 32) {
+    const int py = bin / P;
+    const int px = bin - py * P;
+    for (int g = lane; g < ngroups; g += 32) {
+      float a[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) a[v] = 0.f;
+      for (int iy = 0; iy < S; ++iy) {
+        const float yy =
+            ((py + (iy + 0.5f) / S) / P - 0.5f) * rh;
+        for (int ix = 0; ix < S; ++ix) {
+          const float xx =
+              ((px + (ix + 0.5f) / S) / P - 0.5f) * rw;
+          float x = xx * ct + yy * st + cx;
+          float y = yy * ct - xx * st + cy;
+          if (y < -1.0f || y > H || x < -1.0f || x > W) continue;
+          y = fmaxf(y, 0.f);
+          x = fmaxf(x, 0.f);
+          int y_lo = static_cast<int>(y);
+          int x_lo = static_cast<int>(x);
+          int y_hi, x_hi;
+          if (y_lo >= H - 1) {
+            y_lo = y_hi = H - 1;
+            y = static_cast<float>(y_lo);
+          } else {
+            y_hi = y_lo + 1;
+          }
+          if (x_lo >= W - 1) {
+            x_lo = x_hi = W - 1;
+            x = static_cast<float>(x_lo);
+          } else {
+            x_hi = x_lo + 1;
+          }
+          const float ly = y - y_lo;
+          const float lx = x - x_lo;
+          const float hy = 1.f - ly;
+          const float hx = 1.f - lx;
+          const int c0 = g * VEC;
+          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_lo) * W + x_lo) * C + c0,
+                           hy * hx, a);
+          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_lo) * W + x_hi) * C + c0,
+                           hy * lx, a);
+          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_hi) * W + x_lo) * C + c0,
+                           ly * hx, a);
+          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_hi) * W + x_hi) * C + c0,
+                           ly * lx, a);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) a[v] *= inv_count;
+      Vec<T, VEC>::store(
+          out + ((static_cast<size_t>(r) * P + py) * P + px) * C + g * VEC, a);
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch(const Pyramid& pyr, int num_levels, int N, int C, const float* rois,
+           int R, int P, int S, float finest_scale, void* out,
+           cudaStream_t stream) {
+  roi_align_rotated_pyramid_kernel<T, VEC><<<R, THREADS, 0, stream>>>(
+      pyr, num_levels, N, C, rois, P, S, finest_scale, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// feats f0..f3: per-level [N, h_l, w_l, C] contiguous NHWC (unused levels may
+// be null); rois [R, 6] f32 (b, cx, cy, w, h, theta) with w/h already
+// inflated; out [R, P, P, C]. dtype: 0 = f32, 1 = bf16. vec: 1, or 16 bytes
+// per lane (4 for f32, 8 for bf16; needs C % vec == 0 and 16-byte aligned
+// rows). Launches on `stream`; returns cudaGetLastError() (0 = success).
+extern "C" int rs_roi_align_rotated_pyramid_fwd(
+    const void* f0, const void* f1, const void* f2, const void* f3,
+    int num_levels, int N, int C, int h0, int w0, int h1, int w1, int h2,
+    int w2, int h3, int w3, float s0, float s1, float s2, float s3,
+    const void* rois, int R, int P, int S, float finest_scale, void* out,
+    int dtype, int vec, void* stream) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS || N < 1 || C < 1 || P < 1 ||
+      S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  Pyramid pyr = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3},
+                 {s0, s1, s2, s3}};
+  const float* r = static_cast<const float*>(rois);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4)
+    return launch<float, 4>(pyr, num_levels, N, C, r, R, P, S, finest_scale,
+                            out, st);
+  if (dtype == 0 && vec == 1)
+    return launch<float, 1>(pyr, num_levels, N, C, r, R, P, S, finest_scale,
+                            out, st);
+  if (dtype == 1 && vec == 8)
+    return launch<__nv_bfloat16, 8>(pyr, num_levels, N, C, r, R, P, S,
+                                    finest_scale, out, st);
+  if (dtype == 1 && vec == 1)
+    return launch<__nv_bfloat16, 1>(pyr, num_levels, N, C, r, R, P, S,
+                                    finest_scale, out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

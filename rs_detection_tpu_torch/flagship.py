@@ -1,0 +1,87 @@
+"""The flagship Oriented R-CNN (counterpart of ``_flagship`` in the
+repository's ``__graft_entry__.py``), with seeded random weights.
+
+``tiny=False`` is the competition model (configs/orcnn_van3_7_anchor_swa_1.py):
+VAN-b3 (dims 64/128/320/512, depths 3/5/27/3, MLP ratios 8/8/4/4),
+FPN-256 with 5 outputs, a 7-ratio Oriented RPN (nms_pre = nms_post =
+2000, pre_nms_cap 4096) and an OrientedHead with 2x1024 FCs and 10
+classes. ``tiny=True`` is the same architecture cut down for CPU tests:
+VAN dims 16/32/40/64, depths 1/1/2/1, FPN-32, nms_pre 256, nms_post 64,
+pre_nms_cap 512, FC width 64.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .models.backbones.van import VAN
+from .models.necks.fpn import FPN
+from .models.networks.rcnn import OrientedRCNN
+from .models.roi_heads.oriented_head import OrientedHead
+from .models.roi_heads.oriented_rpn_head import OrientedRPNHead
+
+# on-device input normalization of the competition config (to_bgr=False)
+PIXEL_MEAN = (123.675, 116.28, 103.53)
+PIXEL_STD = (58.395, 57.12, 57.375)
+RPN_ANCHORS = dict(scales=[8], ratios=[0.125, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0],
+                   strides=[4, 8, 16, 32, 64])
+
+
+def normalize(images_u8):
+    """uint8 NHWC tiles -> normalized f32 NHWC, on the tiles' device."""
+    m = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=images_u8.device)
+    s = torch.tensor(PIXEL_STD, dtype=torch.float32, device=images_u8.device)
+    return (images_u8.float() - m) / s
+
+
+def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
+    """Seeded random init in the spirit of the flax initializers:
+    He-normal (fan_out, truncated) convs, N(0, 0.01) RPN convs, Xavier
+    shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases.
+    BN, LayerNorm and layer scales keep their constructor values."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                k = m.kernel_size[0] * m.kernel_size[1]
+                std = math.sqrt(2.0 / (k * m.out_channels // m.groups))
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Linear):
+                nn.init.xavier_uniform_(m.weight, generator=g)
+                nn.init.zeros_(m.bias)
+        for conv in (model.rpn.rpn_conv, model.rpn.rpn_cls, model.rpn.rpn_reg):
+            conv.weight.normal_(0.0, 0.01, generator=g)
+        model.bbox_head.fc_cls.weight.normal_(0.0, 0.01, generator=g)
+        model.bbox_head.fc_reg.weight.normal_(0.0, 0.001, generator=g)
+
+
+def build_flagship(tiny: bool = False, device="cpu",
+                   dtype: torch.dtype = torch.float32,
+                   generator: Optional[torch.Generator] = None
+                   ) -> OrientedRCNN:
+    """Build the flagship in eval mode on ``device`` in ``dtype``. The
+    weights are drawn on the CPU from ``generator`` (seed 0 if None), so
+    one seed gives the same model on every device."""
+    if tiny:
+        dims, depths, width, fc = (16, 32, 40, 64), (1, 1, 2, 1), 32, 64
+        nms_pre, nms_post, cap = 256, 64, 512
+    else:
+        dims, depths, width, fc = (64, 128, 320, 512), (3, 5, 27, 3), 256, 1024
+        nms_pre, nms_post, cap = 2000, 2000, 4096
+    model = OrientedRCNN(
+        backbone=VAN(embed_dims=dims, mlp_ratios=(8, 8, 4, 4), depths=depths),
+        neck=FPN(in_channels=dims, out_channels=width, num_outs=5),
+        rpn=OrientedRPNHead(in_channels=width, feat_channels=width,
+                            anchor_generator=RPN_ANCHORS, nms_pre=nms_pre,
+                            nms_post=nms_post, pre_nms_cap=cap),
+        bbox_head=OrientedHead(num_classes=10, in_channels=width,
+                               fc_out_channels=fc))
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    _init_weights(model, generator)
+    return model.to(device=device, dtype=dtype).eval()

@@ -1,0 +1,131 @@
+"""VAN (Visual Attention Network) backbone, inference forward.
+
+Counterpart of ``rs_detection_tpu/models/backbones/van.py`` (the
+non-fused block branch). Public layout is the JAX one: NHWC images in,
+a tuple of per-stage NHWC maps out. Inside, activations are NCHW
+tensors in ``channels_last`` memory, so ``permute(0, 2, 3, 1)`` hands
+the MLP kernel a contiguous NHWC buffer and cuDNN convs stay
+NHWC-native. Submodule and parameter names follow the flax tree, so
+``utils/jax_weights.py`` maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.van_attn import sa_core
+from ...ops.van_mlp import van_mlp
+
+
+def _dw(dim: int, k: int, dilation: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(dim, dim, k, padding=dilation * (k - 1) // 2,
+                     dilation=dilation, groups=dim)
+
+
+class LKA(nn.Module):
+    """Large-kernel attention weights: 5x5 dw, 7x7 dw dilation 3, 1x1."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv0 = _dw(dim, 5)
+        self.conv_spatial = _dw(dim, 7, dilation=3)
+        self.conv1 = nn.Conv2d(dim, dim, 1)
+
+
+class SpatialAttention(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.proj_1 = nn.Conv2d(dim, dim, 1)
+        self.sgu = LKA(dim)
+        self.proj_2 = nn.Conv2d(dim, dim, 1)
+
+    def forward(self, h):
+        """h: NHWC -> NHWC."""
+        s = self.sgu
+        return sa_core(h, self.proj_1.weight, self.proj_1.bias,
+                       s.conv0.weight, s.conv0.bias, s.conv_spatial.weight,
+                       s.conv_spatial.bias, s.conv1.weight, s.conv1.bias,
+                       self.proj_2.weight, self.proj_2.bias)
+
+
+class Mlp(nn.Module):
+    """fc1 (1x1) -> dw 3x3 -> GELU -> fc2 (1x1), as one ``van_mlp``."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Conv2d(dim, hidden, 1)
+        self.dwconv = _dw(hidden, 3)
+        self.fc2 = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, h):
+        """h: contiguous NHWC -> NHWC."""
+        hid, dim = self.fc1.weight.shape[:2]
+        return van_mlp(h, self.fc1.weight.view(hid, dim), self.fc1.bias,
+                       self.dwconv.weight.view(hid, 9), self.dwconv.bias,
+                       self.fc2.weight.view(dim, hid), self.fc2.bias)
+
+
+class VANBlock(nn.Module):
+    def __init__(self, dim: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.attn = SpatialAttention(dim)
+        self.norm2 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.layer_scale_1 = nn.Parameter(torch.full((dim,), 1e-2))
+        self.layer_scale_2 = nn.Parameter(torch.full((dim,), 1e-2))
+
+    def forward(self, x):
+        """x: NCHW (channels_last) -> NCHW (channels_last)."""
+        h = self.attn(self.norm1(x).permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = x + self.layer_scale_1.view(1, -1, 1, 1) * h
+        h = self.norm2(x).permute(0, 2, 3, 1).contiguous()
+        h = self.mlp(h).permute(0, 3, 1, 2)
+        return x + self.layer_scale_2.view(1, -1, 1, 1) * h
+
+
+class OverlapPatchEmbed(nn.Module):
+    def __init__(self, cin: int, dim: int, patch: int, stride: int):
+        super().__init__()
+        self.proj = nn.Conv2d(cin, dim, patch, stride, padding=patch // 2)
+        self.norm = nn.BatchNorm2d(dim, eps=1e-5)
+
+    def forward(self, x):
+        return self.norm(self.proj(x))
+
+
+class VAN(nn.Module):
+    def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
+                 mlp_ratios: Sequence[float] = (8, 8, 4, 4),
+                 depths: Sequence[int] = (3, 5, 27, 3)):
+        super().__init__()
+        self.depths = tuple(depths)
+        cin = 3
+        for i, (dim, depth) in enumerate(zip(embed_dims, depths)):
+            self.add_module(f"patch_embed{i + 1}", OverlapPatchEmbed(
+                cin, dim, patch=7 if i == 0 else 3,
+                stride=4 if i == 0 else 2))
+            for j in range(depth):
+                self.add_module(f"block{i + 1}_{j}",
+                                VANBlock(dim, mlp_ratios[i]))
+            self.add_module(f"norm{i + 1}", nn.LayerNorm(dim, eps=1e-6))
+            cin = dim
+
+    def forward(self, images):
+        """images: NHWC [B, H, W, 3] -> the 4 NHWC stage outputs."""
+        x = images.permute(0, 3, 1, 2)
+        outs = []
+        for i, depth in enumerate(self.depths):
+            x = getattr(self, f"patch_embed{i + 1}")(x)
+            for j in range(depth):
+                x = getattr(self, f"block{i + 1}_{j}")(x)
+            norm = getattr(self, f"norm{i + 1}")
+            y = F.layer_norm(x.permute(0, 2, 3, 1), norm.normalized_shape,
+                             norm.weight, norm.bias, norm.eps)
+            outs.append(y)
+            x = y.permute(0, 3, 1, 2)
+        return tuple(outs)
