@@ -11,10 +11,24 @@ Phases, each of which raises (exit code 1) on failure:
      on 16000 seeded rois over the flagship pyramid (bf16) and small f32
   5. the tiny config's ``predict`` on CUDA (kernels) against the CPU
      (plain versions), f32, same seed
-  6. the main path: VAN-b3 Oriented R-CNN in bf16 with seeded random
+  6. the serving path: VAN-b3 Oriented R-CNN in bf16 with seeded random
      weights serves 10 batches of 8 uint8 1024^2 tiles (normalize on the
      device, ``predict``); checks shapes, finiteness and that every
      forward went through K2 38 times and K1 once
+  7. K3, the RoIAlign backward, against autograd of the plain forward on
+     4096 seeded rois over the flagship pyramid (bf16) and small f32,
+     and K1/K3 adjointness in f32 at the flagship shapes
+  8. K6, the depthwise weight gradient, against the plain tap loop at
+     the twelve VAN-b3 depthwise shapes of a batch-8 step (bf16, the
+     model's layouts) and one small f32 shape; also times the ``dx``
+     conv in both layouts
+  9. the tiny config's training step on CUDA (kernels) against the CPU
+     (plain versions), f32, samplers that take every candidate
+ 10. the training path: one warm-up and 5 timed steps of ``train_step``
+     (``OrientedRCNN.loss`` -> backward -> AdamW) on VAN-b3 Oriented
+     R-CNN, batch 8, 1024^2, bf16 compute, f32 master weights, seeded
+     targets; checks finite losses, nonzero bbox losses, finite nonzero
+     gradients and K1 1 / K3 1 / K6 114 launches per step
 Then prints one JSON line of per-kernel results, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -22,6 +36,7 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,10 +49,23 @@ STAGES = [  # (H = W, C, Ch, blocks) of VAN-b3 at 1024^2 tiles
 BATCH = 8
 TILE = 1024
 REQUESTS = 10
+TRAIN_STEPS = 5
+MAX_GT = 42
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
 REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K3: f32 atomics sum in another order than the plain backward, one
+# rounding to the output dtype on both sides (1 bf16 ulp of the largest)
+K3_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# K6: f32 sums over up to 5e5 products, in another order
+K6_TOL = {"bfloat16": 2e-3, "float32": 1e-4}
+# (k, dilation, H = W, C, blocks, channels_last) of every depthwise conv
+# of a VAN-b3 step at 1024^2: dw3 on the MLP hidden tensor, dw5 and the
+# dilated 7x7 in the attention (the latter in NCHW, ops/van_attn.py)
+DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
+    + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
+    + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
 
 
 def log(msg):
@@ -68,12 +96,17 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel, plain, dtype_name):
-    """Max abs error of ``kernel`` against ``plain``; raises past the
-    stated relative tolerance."""
-    err = (kernel.float() - plain.float()).abs().max().item()
-    scale = plain.float().abs().max().item()
-    tol = REL_TOL[dtype_name] * max(scale, 1e-6)
+def compare(name, kernel, plain, dtype_name, rel_tol=REL_TOL):
+    """Max abs error of ``kernel`` against ``plain`` (tensors or equal
+    lists of them); raises past the stated relative tolerance."""
+    if isinstance(kernel, (list, tuple)):
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(kernel, plain))
+        scale = max(b.float().abs().max().item() for b in plain)
+    else:
+        err = (kernel.float() - plain.float()).abs().max().item()
+        scale = plain.float().abs().max().item()
+    tol = rel_tol[dtype_name] * max(scale, 1e-6)
     ok = err <= tol
     log(f"  {name}: max_abs_err {err:.3e}, max|plain| {scale:.3e}, "
         f"tolerance {tol:.3e} -> {'ok' if ok else 'FAIL'}")
@@ -218,6 +251,220 @@ def phase_main(torch, build_flagship, normalize, van_mlp_cuda, roi_cuda, dev,
     return launches
 
 
+def phase_k3(torch, ra, dev):
+    """K3 against the plain backward (autograd of the plain forward),
+    and <K1(f), g> == <f, K3(g)>."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    sizes = [TILE // s for s in (4, 8, 16, 32)]
+    feats32 = [torch.randn(BATCH, s, s, 256, generator=g, device=dev)
+               for s in sizes]
+    feats = [f.to(torch.bfloat16) for f in feats32]
+    rois = flagship_rois(torch, BATCH, BATCH * 512, TILE, dev, 8)
+    grad = torch.randn(rois.shape[0], 7, 7, 256, generator=g,
+                       device=dev).to(torch.bfloat16)
+    err = compare(f"K3 {rois.shape[0]} rois, C=256, bf16",
+                  ra.roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad),
+                  ra.roi_align_rotated_pyramid_bwd_reference(feats, rois,
+                                                             grad),
+                  "bfloat16", K3_TOL)
+    t_plain = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_reference(
+        feats, rois, grad), 3)
+    t_kernel = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
+        feats, rois, grad), 10)
+    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms")
+    small = [torch.randn(2, s, s, 32, generator=g, device=dev)
+             for s in (64, 32, 16, 8)]
+    small_rois = flagship_rois(torch, 2, 500, 256, dev, 9)
+    small_g = torch.randn(500, 7, 7, 32, generator=g, device=dev)
+    compare("K3 500 rois, C=32, f32",
+            ra.roi_align_rotated_pyramid_bwd_cuda(small, small_rois, small_g),
+            ra.roi_align_rotated_pyramid_bwd_reference(small, small_rois,
+                                                       small_g),
+            "float32", K3_TOL)
+    grad32 = grad.float()
+    lhs = (ra.roi_align_rotated_pyramid_cuda(feats32, rois).double()
+           * grad32.double()).sum().item()
+    rhs = sum((f.double() * d.double()).sum().item() for f, d in zip(
+        feats32, ra.roi_align_rotated_pyramid_bwd_cuda(feats32, rois,
+                                                       grad32)))
+    rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+    log(f"  K1/K3 adjointness, f32: <K1 f, g> {lhs:.6e}, <f, K3 g> "
+        f"{rhs:.6e}, relative difference {rel:.2e} (tolerance 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError("K3 is not the adjoint of K1")
+    return err, t_kernel, t_plain
+
+
+def phase_k6(torch, dwc, dev):
+    """K6 against the tap loop at the VAN-b3 shapes, in the model's
+    layouts; per-step totals weigh each shape by its block count. Also
+    the ``dx`` conv (flipped-kernel depthwise conv) in both layouts."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    for k, d, h, c, blocks, cl in DW_SHAPES:
+        fmt = torch.channels_last if cl else torch.contiguous_format
+
+        def r():
+            return torch.randn(BATCH, c, h, h, generator=g, device=dev) \
+                .to(torch.bfloat16).contiguous(memory_format=fmt)
+
+        x, gr = r(), r()
+        layout = "NHWC" if cl else "NCHW"
+        err = compare(f"K6 k{k}d{d} [{BATCH},{h},{h},{c}] {layout} bf16",
+                      dwc.dw_wgrad_cuda(x, gr, k, d),
+                      dwc.dw_wgrad_reference(x, gr, k, d), "bfloat16",
+                      K6_TOL)
+        t_plain = cuda_ms(lambda: dwc.dw_wgrad_reference(x, gr, k, d), 2)
+        t_kernel = cuda_ms(lambda: dwc.dw_wgrad_cuda(x, gr, k, d), 5)
+        w = torch.randn(c, 1, k, k, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        dx_ms = {}
+        for name, f in (("NHWC", torch.channels_last),
+                        ("NCHW", torch.contiguous_format)):
+            gf = gr.contiguous(memory_format=f)
+            dx_ms[name] = cuda_ms(lambda: F.conv2d(
+                gf, w.flip((2, 3)), padding=d * (k - 1) // 2, dilation=d,
+                groups=c), 5)
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms "
+            f"(x{blocks} blocks per step); dx conv NHWC "
+            f"{dx_ms['NHWC']:.3f} ms, NCHW {dx_ms['NCHW']:.3f} ms")
+        err_max = max(err_max, err)
+        ms += blocks * t_kernel
+        plain_ms += blocks * t_plain
+        del x, gr
+    x = torch.randn(2, 40, 37, 45, generator=g, device=dev)
+    gr = torch.randn(2, 40, 37, 45, generator=g, device=dev)
+    compare("K6 k7d3 [2,37,45,40] f32", dwc.dw_wgrad_cuda(x, gr, 7, 3),
+            dwc.dw_wgrad_reference(x, gr, 7, 3), "float32", K6_TOL)
+    log(f"  K6 per step: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return err_max, ms, plain_ms
+
+
+def _before_bn(name):
+    """Conv biases that feed a BatchNorm: the batch mean removes them,
+    so their gradient is zero up to rounding."""
+    return name.startswith("backbone.patch_embed") and name.endswith(
+        "proj.bias")
+
+
+def phase_train_tiny(torch, build_flagship, make_targets, train_mod, dev):
+    """The tiny config's training step on CUDA against the CPU, f32,
+    TF32 off, every candidate sampled (the two devices draw different
+    random numbers)."""
+    from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import AdamW
+
+    rng = torch.Generator().manual_seed(11)
+    images = torch.randn(2, 64, 64, 3, generator=rng)
+    targets = make_targets(2, 64, 6, rng)
+    # axis-aligned ground truths: sin/cos differ in the last ulp between
+    # the CPU and CUDA, and the RPN's low-quality rescue keeps every
+    # anchor that ties a ground truth's best IoU, so one ulp can change
+    # the sampled set (rotated boxes still reach the head as proposals)
+    targets["rboxes"][..., 4] = 0.0
+    out = {}
+    for device in ("cpu", dev):
+        model = build_flagship(tiny=True, device=device, train=True)
+        model.rpn.sampler = RandomSampler(num=4096, pos_fraction=1.0)
+        model.bbox_head.sampler = RandomSampler(num=64 + 6, pos_fraction=1.0)
+        opt = AdamW(model.parameters(), grad_clip=dict(max_norm=35))
+        losses = train_mod.train_step(
+            model, opt, StepLR([7, 10]), images.to(device),
+            {k: v.to(device) for k, v in targets.items()},
+            torch.Generator(device=device).manual_seed(0))
+        out[str(device)] = ({k: float(v) for k, v in losses.items()},
+                            {k: p.grad.cpu() for k, p in
+                             model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    for k, v in l_cpu.items():
+        rel = abs(l_gpu[k] - v) / max(abs(v), 1e-6)
+        log(f"  tiny train {k}: CPU {v:.6f}, CUDA {l_gpu[k]:.6f}, "
+            f"relative {rel:.2e} (tolerance 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"tiny train: {k} differs")
+    worst = 0.0
+    for k, a in g_cpu.items():
+        if _before_bn(k):
+            continue
+        scale = max(a.abs().max().item(), g_gpu[k].abs().max().item(), 1e-12)
+        worst = max(worst, (g_gpu[k] - a).abs().max().item() / scale)
+    log(f"  tiny train gradients: worst scaled max error {worst:.2e} "
+        f"(tolerance 1e-3) over {len(g_cpu)} parameters")
+    if not worst <= 1e-3:
+        raise AssertionError("tiny train: gradients differ")
+
+
+def phase_train(torch, build_flagship, make_targets, normalize, train_mod,
+                kernels, dev, card):
+    """The training path at full width: 1 warm-up + TRAIN_STEPS timed
+    steps; ``kernels`` maps names to the wrappers whose launches count."""
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import AdamW
+
+    model = build_flagship(tiny=False, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0),
+                           train=True)
+    opt = AdamW(model.parameters(), lr=1e-4, weight_decay=0.05,
+                grad_clip=dict(max_norm=35))
+    sched = StepLR([7, 10], warmup="linear", warmup_iters=500,
+                   warmup_ratio=1.0 / 3)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tiles = torch.randint(0, 256, (BATCH, TILE, TILE, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    images = normalize(tiles)
+    targets = make_targets(BATCH, TILE, MAX_GT, gen)
+
+    def step():
+        return train_mod.train_step(model, opt, sched, images, targets, gen)
+
+    step()  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"van_mlp": 0, "roi_align_rotated_pyramid": TRAIN_STEPS,
+            "roi_align_rotated_pyramid_bwd": TRAIN_STEPS,
+            "dw_wgrad": 3 * sum(s[3] for s in STAGES) * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"training path kernel launches {launches}, "
+                             f"expected {want}")
+    for ls in losses:
+        vals = {k: float(v) for k, v in ls.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"training losses not finite: {vals}")
+        if not (vals["loss_rpn_bbox"] > 0 and vals["orcnn_bbox_loss"] > 0):
+            raise AssertionError(f"a bbox loss is zero: {vals}")
+    bad = [k for k, p in model.named_parameters() if not _before_bn(k) and (
+        p.grad is None or not torch.isfinite(p.grad).all()
+        or not p.grad.abs().max() > 0)]
+    if bad:
+        raise AssertionError(f"parameters without a finite nonzero "
+                             f"gradient: {bad}")
+    dt = sum(times) / len(times)
+    times.sort()
+    first, last = losses[0], losses[-1]
+    log(f"  VAN-b3 Oriented R-CNN train step, batch {BATCH}, {TILE}^2, bf16 "
+        f"compute, f32 master weights: {1e3 * dt:.1f} ms/step (min "
+        f"{1e3 * times[0]:.1f}, max {1e3 * times[-1]:.1f}) = "
+        f"{BATCH / dt:.2f} tiles/s, peak memory {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    log("  losses, first and last timed step: " + ", ".join(
+        f"{k} {float(first[k]):.4f} -> {float(last[k]):.4f}" for k in first))
+    log(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -228,12 +475,14 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    from rs_detection_tpu_torch.flagship import build_flagship, normalize
+    from rs_detection_tpu_torch.flagship import (build_flagship,
+                                                 make_targets, normalize)
     from rs_detection_tpu_torch.ops import _build
-    from rs_detection_tpu_torch.ops.roi_align import (
-        roi_align_rotated_pyramid_cuda, roi_align_rotated_pyramid_reference)
+    from rs_detection_tpu_torch.ops import dw_conv as dwc
+    from rs_detection_tpu_torch.ops import roi_align as ra
     from rs_detection_tpu_torch.ops.van_mlp import (van_mlp_cuda,
                                                     van_mlp_reference)
+    from rs_detection_tpu_torch.parallel import train_step as train_mod
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -250,14 +499,29 @@ def main():
     log("[3] K2 fused VAN MLP vs plain")
     k2 = phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev)
     log("[4] K1 rotated pyramid RoIAlign vs plain")
-    k1 = phase_k1(torch, roi_align_rotated_pyramid_cuda,
-                  roi_align_rotated_pyramid_reference, dev)
+    k1 = phase_k1(torch, ra.roi_align_rotated_pyramid_cuda,
+                  ra.roi_align_rotated_pyramid_reference, dev)
     log("[5] tiny config predict: CUDA (kernels) vs CPU (plain), f32")
     phase_slice(torch, build_flagship, normalize, dev)
-    log("[6] main path")
+    log("[6] serving path")
     launches = phase_main(torch, build_flagship, normalize, van_mlp_cuda,
-                          roi_align_rotated_pyramid_cuda, dev, card)
+                          ra.roi_align_rotated_pyramid_cuda, dev, card)
+    log("[7] K3 RoIAlign backward vs plain, K1/K3 adjointness")
+    k3 = phase_k3(torch, ra, dev)
+    log("[8] K6 depthwise weight gradient vs plain")
+    k6 = phase_k6(torch, dwc, dev)
+    log("[9] tiny config training step: CUDA (kernels) vs CPU (plain), f32")
+    phase_train_tiny(torch, build_flagship, make_targets, train_mod, dev)
+    log("[10] training path")
+    train_launches = phase_train(
+        torch, build_flagship, make_targets, normalize, train_mod,
+        {"van_mlp": van_mlp_cuda,
+         "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
+         "roi_align_rotated_pyramid_bwd":
+             ra.roi_align_rotated_pyramid_bwd_cuda,
+         "dw_wgrad": dwc.dw_wgrad_cuda}, dev, card)
 
+    roi_src = "rs_detection_tpu_torch/csrc/roi_align_rotated.cu"
     kernels = [
         {"name": "van_mlp", "route": "cuda",
          "source": "rs_detection_tpu_torch/csrc/van_mlp.cu",
@@ -265,10 +529,20 @@ def main():
          "launches": launches["van_mlp"], "max_abs_err": k2[0],
          "ms": k2[1], "plain_ms": k2[2]},
         {"name": "roi_align_rotated_pyramid", "route": "cuda",
-         "source": "rs_detection_tpu_torch/csrc/roi_align_rotated.cu",
+         "source": roi_src,
          "replaces": "rs_detection_tpu/ops/pallas_roi_align.py:116",
          "launches": launches["roi_align_rotated_pyramid"],
          "max_abs_err": k1[0], "ms": k1[1], "plain_ms": k1[2]},
+        {"name": "roi_align_rotated_pyramid_bwd", "route": "cuda",
+         "source": roi_src,
+         "replaces": "rs_detection_tpu/ops/pallas_roi_align.py:721",
+         "launches": train_launches["roi_align_rotated_pyramid_bwd"],
+         "max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2]},
+        {"name": "dw_wgrad", "route": "cuda",
+         "source": "rs_detection_tpu_torch/csrc/dw_wgrad.cu",
+         "replaces": "rs_detection_tpu/ops/pallas_dw_wgrad.py:41",
+         "launches": train_launches["dw_wgrad"], "max_abs_err": k6[0],
+         "ms": k6[1], "plain_ms": k6[2]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

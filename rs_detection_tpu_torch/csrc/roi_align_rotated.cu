@@ -1,8 +1,10 @@
-// Rotated RoIAlign forward over an FPN pyramid, for Hopper (sm_90a).
+// Rotated RoIAlign over an FPN pyramid, forward (K1) and backward (K3), for
+// Hopper (sm_90a).
 //
-// Replaces: rs_detection_tpu/ops/pallas_roi_align.py, `_pool_kernel` (reached
-// through `roi_align_rotated_pyramid_pallas`), the RoI stage of Oriented
-// R-CNN. It computes the exact function of
+// Replaces: rs_detection_tpu/ops/pallas_roi_align.py, `_pool_kernel` (K1,
+// reached through `roi_align_rotated_pyramid_pallas`) and `_scatter_kernel`
+// (K3, reached through `_pallas_bwd` / `_pyramid_pallas_bwd_impl`), the RoI
+// stage of Oriented R-CNN. The forward computes the exact function of
 // rs_detection_tpu/ops/roi_align.py:roi_align_rotated_pyramid for every roi:
 //   level  = clip(floor(log2(sqrt(max(w*h, 1e-6)) / finest + 1e-6)), 0, L-1)
 //   grid   = P x P bins x S x S samples at c/stride - 0.5 on the rotated
@@ -12,21 +14,34 @@
 //            at or past the last row/column takes that row/column with zero
 //            fraction
 //   out    = mean of the S*S samples of each bin, [R, P, P, C]
-// None of the TPU kernel's window tiers, u8 interpolation matrix, address
-// sort or XLA fallback tail is needed: a GPU thread reads any address.
+// and the backward its exact adjoint, d_feats[l] = sum over the level's rois
+// of A^T g. Both go through the same `roi_geom` / `sample_corners` code, so
+// the two cannot drift apart. None of the TPU kernels' window tiers, u8
+// interpolation matrix, address sort or XLA fallback tail (which clamps
+// oversize rois to a window) is needed: a GPU thread reads and adds to any
+// address.
 //
-// What bounds it on the H100: gathers. At the flagship (16000 rois, C = 256,
-// bf16) it reads 16000 * 49 * 4 samples * 4 corners * 512 bytes (~6.4 GB of
+// What bounds the forward on the H100: gathers. At 16000 rois, C = 256,
+// bf16 it reads 16000 * 49 * 4 samples * 4 corners * 512 bytes (~6.4 GB of
 // corner rows, most of them hits in the 50 MB L2 because neighbouring samples
 // share corners) and writes 400 MB. One block per roi; each warp owns one
 // bin at a time and each lane 8 channels, so every corner read is one 16-byte
-// load per lane and 512 contiguous bytes per warp. The roi's level, rotation
-// and sample coordinates are computed in the kernel; sums are f32 and the
+// load per lane and 512 contiguous bytes per warp. Sums are f32 and the
 // result is stored once in the features' dtype.
+//
+// The backward has the same shape with atomics in place of loads: one block
+// per roi, one warp per bin, each lane 8 (bf16) or 4 (f32) channels, and for
+// every live sample 4 corners x VEC f32 atomicAdds into an f32 scratch
+// pyramid (a clamped sample whose corners coincide adds twice, as the
+// adjoint must). At the training shape (4096 rois, C = 256) that is ~820 M
+// f32 atomics, bound by the L2's atomic rate; the scratch is then cast once
+// to the features' dtype. Atomics make the low bits run-dependent.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -38,6 +53,10 @@ struct Pyramid {
   int h[MAX_LEVELS];
   int w[MAX_LEVELS];
   float stride[MAX_LEVELS];
+};
+
+struct GradPyramid {
+  float* d[MAX_LEVELS];
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -60,6 +79,9 @@ template <typename T> struct Vec<T, 1> {
   static __device__ __forceinline__ void fma(const T* p, float w, float* a) {
     a[0] += w * to_f(p[0]);
   }
+  static __device__ __forceinline__ void load(const T* p, float* a) {
+    a[0] = to_f(p[0]);
+  }
   static __device__ __forceinline__ void store(T* p, const float* a) {
     p[0] = from_f<T>(a[0]);
   }
@@ -73,6 +95,13 @@ template <> struct Vec<float, 4> {
     a[1] += w * q.y;
     a[2] += w * q.z;
     a[3] += w * q.w;
+  }
+  static __device__ __forceinline__ void load(const float* p, float* a) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    a[0] = q.x;
+    a[1] = q.y;
+    a[2] = q.z;
+    a[3] = q.w;
   }
   static __device__ __forceinline__ void store(float* p, const float* a) {
     *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
@@ -91,6 +120,17 @@ template <> struct Vec<__nv_bfloat16, 8> {
       a[2 * i + 1] += w * f.y;
     }
   }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* a) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      a[2 * i] = f.x;
+      a[2 * i + 1] = f.y;
+    }
+  }
   static __device__ __forceinline__ void store(__nv_bfloat16* p,
                                                const float* a) {
     uint4 q;
@@ -101,6 +141,83 @@ template <> struct Vec<__nv_bfloat16, 8> {
   }
 };
 
+// A roi's level and its sampling frame on that level.
+struct RoiGeom {
+  int lvl, H, W;
+  size_t img;  // first pixel of the roi's image in its level: b * H * W
+  float cx, cy, rw, rh, ct, st;
+};
+
+__device__ __forceinline__ RoiGeom roi_geom(const Pyramid& pyr,
+                                            int num_levels, int N,
+                                            const float* roi,
+                                            float finest_scale) {
+  RoiGeom q;
+  // a batch index outside [0, N) is clamped (the XLA gather clamps too)
+  const int b = min(max(static_cast<int>(roi[0]), 0), N - 1);
+  const float w0 = roi[3];
+  const float h0 = roi[4];
+  const float scale = sqrtf(fmaxf(w0 * h0, 1e-6f));
+  const float lf = floorf(log2f(scale / finest_scale + 1e-6f));
+  q.lvl = static_cast<int>(
+      fminf(fmaxf(lf, 0.f), static_cast<float>(num_levels - 1)));
+  q.H = pyr.h[q.lvl];
+  q.W = pyr.w[q.lvl];
+  const float inv = 1.0f / pyr.stride[q.lvl];
+  q.cx = roi[1] * inv - 0.5f;
+  q.cy = roi[2] * inv - 0.5f;
+  q.rw = fmaxf(w0 * inv, 1.0f);
+  q.rh = fmaxf(h0 * inv, 1.0f);
+  q.ct = cosf(roi[5]);
+  q.st = sinf(roi[5]);
+  q.img = static_cast<size_t>(b) * q.H * q.W;
+  return q;
+}
+
+// Sample (iy, ix) of bin (py, px): the pixel index (y * W + x, within the
+// roi's image) and bilinear weight of each of its 4 corners. False for a
+// sample outside the border band, which contributes nothing.
+__device__ __forceinline__ bool sample_corners(const RoiGeom& q, int py,
+                                               int px, int iy, int ix, int P,
+                                               int S, int (&o)[4],
+                                               float (&wt)[4]) {
+  const float yy = ((py + (iy + 0.5f) / S) / P - 0.5f) * q.rh;
+  const float xx = ((px + (ix + 0.5f) / S) / P - 0.5f) * q.rw;
+  float x = xx * q.ct + yy * q.st + q.cx;
+  float y = yy * q.ct - xx * q.st + q.cy;
+  if (y < -1.0f || y > q.H || x < -1.0f || x > q.W) return false;
+  y = fmaxf(y, 0.f);
+  x = fmaxf(x, 0.f);
+  int y_lo = static_cast<int>(y);
+  int x_lo = static_cast<int>(x);
+  int y_hi, x_hi;
+  if (y_lo >= q.H - 1) {
+    y_lo = y_hi = q.H - 1;
+    y = static_cast<float>(y_lo);
+  } else {
+    y_hi = y_lo + 1;
+  }
+  if (x_lo >= q.W - 1) {
+    x_lo = x_hi = q.W - 1;
+    x = static_cast<float>(x_lo);
+  } else {
+    x_hi = x_lo + 1;
+  }
+  const float ly = y - y_lo;
+  const float lx = x - x_lo;
+  const float hy = 1.f - ly;
+  const float hx = 1.f - lx;
+  o[0] = y_lo * q.W + x_lo;
+  o[1] = y_lo * q.W + x_hi;
+  o[2] = y_hi * q.W + x_lo;
+  o[3] = y_hi * q.W + x_hi;
+  wt[0] = hy * hx;
+  wt[1] = hy * lx;
+  wt[2] = ly * hx;
+  wt[3] = ly * lx;
+  return true;
+}
+
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
     roi_align_rotated_pyramid_kernel(Pyramid pyr, int num_levels, int N,
@@ -108,26 +225,9 @@ __global__ void __launch_bounds__(THREADS)
                                      int P, int S, float finest_scale,
                                      T* __restrict__ out) {
   const int r = blockIdx.x;
-  const float* roi = rois + static_cast<size_t>(r) * 6;
-  // a batch index outside [0, N) is clamped (the XLA gather clamps too)
-  const int b = min(max(static_cast<int>(roi[0]), 0), N - 1);
-  const float w0 = roi[3];
-  const float h0 = roi[4];
-  const float scale = sqrtf(fmaxf(w0 * h0, 1e-6f));
-  const float lf = floorf(log2f(scale / finest_scale + 1e-6f));
-  const int lvl =
-      static_cast<int>(fminf(fmaxf(lf, 0.f), static_cast<float>(num_levels - 1)));
-  const int H = pyr.h[lvl];
-  const int W = pyr.w[lvl];
-  const float inv = 1.0f / pyr.stride[lvl];
-  const float cx = roi[1] * inv - 0.5f;
-  const float cy = roi[2] * inv - 0.5f;
-  const float rw = fmaxf(w0 * inv, 1.0f);
-  const float rh = fmaxf(h0 * inv, 1.0f);
-  const float ct = cosf(roi[5]);
-  const float st = sinf(roi[5]);
-  const T* feat = static_cast<const T*>(pyr.f[lvl]) +
-                  static_cast<size_t>(b) * H * W * C;
+  const RoiGeom q = roi_geom(pyr, num_levels, N,
+                             rois + static_cast<size_t>(r) * 6, finest_scale);
+  const T* feat = static_cast<const T*>(pyr.f[q.lvl]) + q.img * C;
   const float inv_count = 1.0f / static_cast<float>(S * S);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -137,56 +237,78 @@ __global__ void __launch_bounds__(THREADS)
     const int py = bin / P;
     const int px = bin - py * P;
     for (int g = lane; g < ngroups; g += 32) {
+      const int c0 = g * VEC;
       float a[VEC];
 #pragma unroll
       for (int v = 0; v < VEC; ++v) a[v] = 0.f;
       for (int iy = 0; iy < S; ++iy) {
-        const float yy =
-            ((py + (iy + 0.5f) / S) / P - 0.5f) * rh;
         for (int ix = 0; ix < S; ++ix) {
-          const float xx =
-              ((px + (ix + 0.5f) / S) / P - 0.5f) * rw;
-          float x = xx * ct + yy * st + cx;
-          float y = yy * ct - xx * st + cy;
-          if (y < -1.0f || y > H || x < -1.0f || x > W) continue;
-          y = fmaxf(y, 0.f);
-          x = fmaxf(x, 0.f);
-          int y_lo = static_cast<int>(y);
-          int x_lo = static_cast<int>(x);
-          int y_hi, x_hi;
-          if (y_lo >= H - 1) {
-            y_lo = y_hi = H - 1;
-            y = static_cast<float>(y_lo);
-          } else {
-            y_hi = y_lo + 1;
-          }
-          if (x_lo >= W - 1) {
-            x_lo = x_hi = W - 1;
-            x = static_cast<float>(x_lo);
-          } else {
-            x_hi = x_lo + 1;
-          }
-          const float ly = y - y_lo;
-          const float lx = x - x_lo;
-          const float hy = 1.f - ly;
-          const float hx = 1.f - lx;
-          const int c0 = g * VEC;
-          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_lo) * W + x_lo) * C + c0,
-                           hy * hx, a);
-          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_lo) * W + x_hi) * C + c0,
-                           hy * lx, a);
-          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_hi) * W + x_lo) * C + c0,
-                           ly * hx, a);
-          Vec<T, VEC>::fma(feat + (static_cast<size_t>(y_hi) * W + x_hi) * C + c0,
-                           ly * lx, a);
+          int o[4];
+          float wt[4];
+          if (!sample_corners(q, py, px, iy, ix, P, S, o, wt)) continue;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            Vec<T, VEC>::fma(feat + static_cast<size_t>(o[k]) * C + c0,
+                             wt[k], a);
         }
       }
 #pragma unroll
       for (int v = 0; v < VEC; ++v) a[v] *= inv_count;
       Vec<T, VEC>::store(
-          out + ((static_cast<size_t>(r) * P + py) * P + px) * C + g * VEC, a);
+          out + ((static_cast<size_t>(r) * P + py) * P + px) * C + c0, a);
     }
   }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+    roi_align_rotated_pyramid_bwd_kernel(Pyramid pyr, GradPyramid grad,
+                                         int num_levels, int N, int C,
+                                         const float* __restrict__ rois,
+                                         int P, int S, float finest_scale,
+                                         const T* __restrict__ g) {
+  const int r = blockIdx.x;
+  const RoiGeom q = roi_geom(pyr, num_levels, N,
+                             rois + static_cast<size_t>(r) * 6, finest_scale);
+  float* d = grad.d[q.lvl] + q.img * C;
+  const float inv_count = 1.0f / static_cast<float>(S * S);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ngroups = C / VEC;
+
+  for (int bin = warp; bin < P * P; bin += THREADS / 32) {
+    const int py = bin / P;
+    const int px = bin - py * P;
+    for (int grp = lane; grp < ngroups; grp += 32) {
+      const int c0 = grp * VEC;
+      float gv[VEC];
+      Vec<T, VEC>::load(
+          g + ((static_cast<size_t>(r) * P + py) * P + px) * C + c0, gv);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) gv[v] *= inv_count;
+      for (int iy = 0; iy < S; ++iy) {
+        for (int ix = 0; ix < S; ++ix) {
+          int o[4];
+          float wt[4];
+          if (!sample_corners(q, py, px, iy, ix, P, S, o, wt)) continue;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float* p = d + static_cast<size_t>(o[k]) * C + c0;
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) atomicAdd(p + v, wt[k] * gv[v]);
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void f32_to_bf16_kernel(const float* __restrict__ in,
+                                   __nv_bfloat16* __restrict__ out,
+                                   size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    out[i] = __float2bfloat16(in[i]);
 }
 
 template <typename T, int VEC>
@@ -195,6 +317,16 @@ int launch(const Pyramid& pyr, int num_levels, int N, int C, const float* rois,
            cudaStream_t stream) {
   roi_align_rotated_pyramid_kernel<T, VEC><<<R, THREADS, 0, stream>>>(
       pyr, num_levels, N, C, rois, P, S, finest_scale, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_bwd(const Pyramid& pyr, const GradPyramid& grad, int num_levels,
+               int N, int C, const float* rois, int R, int P, int S,
+               float finest_scale, const void* g, cudaStream_t stream) {
+  roi_align_rotated_pyramid_bwd_kernel<T, VEC><<<R, THREADS, 0, stream>>>(
+      pyr, grad, num_levels, N, C, rois, P, S, finest_scale,
+      static_cast<const T*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,4 +364,55 @@ extern "C" int rs_roi_align_rotated_pyramid_fwd(
     return launch<__nv_bfloat16, 1>(pyr, num_levels, N, C, r, R, P, S,
                                     finest_scale, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The adjoint of rs_roi_align_rotated_pyramid_fwd with the same roi, level
+// and dtype arguments. g: [R, P, P, C] contiguous in `dtype`. d0..d3: per
+// level [N, h_l, w_l, C] f32 scratch, zeroed by the caller, that receives the
+// sums. o0..o3: per-level outputs in `dtype`; for bf16 each scratch level is
+// cast into them, for f32 the scratch is the output and they are ignored.
+// vec as in the forward (C % vec == 0, 16-byte aligned g rows).
+extern "C" int rs_roi_align_rotated_pyramid_bwd(
+    const void* g, int num_levels, int N, int C, int h0, int w0, int h1,
+    int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2,
+    float s3, const void* rois, int R, int P, int S, float finest_scale,
+    void* d0, void* d1, void* d2, void* d3, void* o0, void* o1, void* o2,
+    void* o3, int dtype, int vec, void* stream) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS || N < 1 || C < 1 || P < 1 ||
+      S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Pyramid pyr = {{nullptr, nullptr, nullptr, nullptr},
+                 {h0, h1, h2, h3},
+                 {w0, w1, w2, w3},
+                 {s0, s1, s2, s3}};
+  GradPyramid grad = {{static_cast<float*>(d0), static_cast<float*>(d1),
+                       static_cast<float*>(d2), static_cast<float*>(d3)}};
+  const float* r = static_cast<const float*>(rois);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0)
+    err = 0;
+  else if (dtype == 0 && vec == 4)
+    err = launch_bwd<float, 4>(pyr, grad, num_levels, N, C, r, R, P, S,
+                               finest_scale, g, st);
+  else if (dtype == 0 && vec == 1)
+    err = launch_bwd<float, 1>(pyr, grad, num_levels, N, C, r, R, P, S,
+                               finest_scale, g, st);
+  else if (dtype == 1 && vec == 8)
+    err = launch_bwd<__nv_bfloat16, 8>(pyr, grad, num_levels, N, C, r, R, P,
+                                       S, finest_scale, g, st);
+  else if (dtype == 1 && vec == 1)
+    err = launch_bwd<__nv_bfloat16, 1>(pyr, grad, num_levels, N, C, r, R, P,
+                                       S, finest_scale, g, st);
+  if (err != 0 || dtype == 0) return err;
+  void* outs[MAX_LEVELS] = {o0, o1, o2, o3};
+  for (int l = 0; l < num_levels; ++l) {
+    const size_t n = static_cast<size_t>(N) * pyr.h[l] * pyr.w[l] * C;
+    const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+    f32_to_bf16_kernel<<<blocks, 256, 0, st>>>(
+        grad.d[l], static_cast<__nv_bfloat16*>(outs[l]), n);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  return 0;
 }

@@ -1,5 +1,6 @@
 """The flagship Oriented R-CNN (counterpart of ``_flagship`` in the
-repository's ``__graft_entry__.py``), with seeded random weights.
+repository's ``__graft_entry__.py``), with seeded random weights, and
+seeded training targets (``make_targets``).
 
 ``tiny=False`` is the competition model (configs/orcnn_van3_7_anchor_swa_1.py):
 VAN-b3 (dims 64/128/320/512, depths 3/5/27/3, MLP ratios 8/8/4/4),
@@ -7,7 +8,8 @@ FPN-256 with 5 outputs, a 7-ratio Oriented RPN (nms_pre = nms_post =
 2000, pre_nms_cap 4096) and an OrientedHead with 2x1024 FCs and 10
 classes. ``tiny=True`` is the same architecture cut down for CPU tests:
 VAN dims 16/32/40/64, depths 1/1/2/1, FPN-32, nms_pre 256, nms_post 64,
-pre_nms_cap 512, FC width 64.
+pre_nms_cap 512, FC width 64. Both carry the config's training
+assigners and samplers.
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 RPN_ANCHORS = dict(scales=[8], ratios=[0.125, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0],
                    strides=[4, 8, 16, 32, 64])
+# training assignment and sampling of configs/orcnn_van3_7_anchor_swa_1.py
+RPN_ASSIGNER = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
+                    match_low_quality=True)
+RPN_SAMPLER = dict(num=256, pos_fraction=0.5, add_gt_as_proposals=False)
+HEAD_ASSIGNER = dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5,
+                     match_low_quality=False,
+                     iou_calculator=dict(type="BboxOverlaps2D_rotated_v1"))
+HEAD_SAMPLER = dict(num=512, pos_fraction=0.25, add_gt_as_proposals=True)
+NUM_CLASSES = 10
 
 
 def normalize(images_u8):
@@ -62,11 +73,14 @@ def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
 
 def build_flagship(tiny: bool = False, device="cpu",
                    dtype: torch.dtype = torch.float32,
-                   generator: Optional[torch.Generator] = None
-                   ) -> OrientedRCNN:
-    """Build the flagship in eval mode on ``device`` in ``dtype``. The
-    weights are drawn on the CPU from ``generator`` (seed 0 if None), so
-    one seed gives the same model on every device."""
+                   generator: Optional[torch.Generator] = None,
+                   train: bool = False) -> OrientedRCNN:
+    """Build the flagship on ``device``, computing in ``dtype``. For
+    inference (``train=False``) it is in eval mode with its parameters
+    in ``dtype``; for training it is in train mode with f32 master
+    parameters, and the activations are cast to ``dtype``. The weights
+    are drawn on the CPU from ``generator`` (seed 0 if None), so one seed
+    gives the same model on every device."""
     if tiny:
         dims, depths, width, fc = (16, 32, 40, 64), (1, 1, 2, 1), 32, 64
         nms_pre, nms_post, cap = 256, 64, 512
@@ -78,10 +92,48 @@ def build_flagship(tiny: bool = False, device="cpu",
         neck=FPN(in_channels=dims, out_channels=width, num_outs=5),
         rpn=OrientedRPNHead(in_channels=width, feat_channels=width,
                             anchor_generator=RPN_ANCHORS, nms_pre=nms_pre,
-                            nms_post=nms_post, pre_nms_cap=cap),
-        bbox_head=OrientedHead(num_classes=10, in_channels=width,
-                               fc_out_channels=fc))
+                            nms_post=nms_post, pre_nms_cap=cap,
+                            assigner=RPN_ASSIGNER, sampler=RPN_SAMPLER),
+        bbox_head=OrientedHead(num_classes=NUM_CLASSES, in_channels=width,
+                               fc_out_channels=fc, assigner=HEAD_ASSIGNER,
+                               sampler=HEAD_SAMPLER),
+        compute_dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     _init_weights(model, generator)
+    if train:
+        return model.to(device=device).train()
     return model.to(device=device, dtype=dtype).eval()
+
+
+def make_targets(b: int, img: int, max_gt: int,
+                 generator: torch.Generator):
+    """Seeded training targets for ``b`` square ``img`` tiles, on the
+    generator's device: per image the two anchor-matched boxes of
+    ``__graft_entry__.py:_dummy_targets`` scaled to ``img`` (so both
+    regression losses have positives), then ``max_gt - 2`` boxes with
+    centres in the tile, sides 12-400 px (log-uniform, capped at the
+    tile) and any angle; 1-based labels of the 10 classes."""
+    dev = generator.device
+    n = max_gt - 2
+
+    def u(lo, hi):
+        return torch.rand(b, n, generator=generator, device=dev) \
+            * (hi - lo) + lo
+
+    hi = min(400.0, float(img))
+    side = torch.exp(u(math.log(12.0), math.log(hi)))
+    rand = torch.stack([u(0, img), u(0, img), side,
+                        torch.exp(u(math.log(12.0), math.log(hi))),
+                        u(-math.pi / 2, math.pi / 2)], -1)
+    fixed = torch.tensor([[0.40625, 0.40625, 0.5, 0.5, 0.05 / img],
+                          [0.65625, 0.53125, 0.6875, 0.34375, -0.08 / img]],
+                         device=dev) * img
+    rboxes = torch.cat([fixed.expand(b, 2, 5), rand], 1)
+    labels = torch.cat([
+        torch.tensor([1, 2], device=dev).expand(b, 2),
+        torch.randint(1, NUM_CLASSES + 1, (b, n), generator=generator,
+                      device=dev)], 1)
+    return dict(rboxes=rboxes, labels=labels,
+                gt_mask=torch.ones(b, max_gt, dtype=torch.bool, device=dev),
+                img_hw=torch.full((b, 2), float(img), device=dev))

@@ -1,4 +1,4 @@
-"""VAN (Visual Attention Network) backbone, inference forward.
+"""VAN (Visual Attention Network) backbone.
 
 Counterpart of ``rs_detection_tpu/models/backbones/van.py`` (the
 non-fused block branch). Public layout is the JAX one: NHWC images in,
@@ -7,18 +7,28 @@ tensors in ``channels_last`` memory, so ``permute(0, 2, 3, 1)`` hands
 the MLP kernel a contiguous NHWC buffer and cuDNN convs stay
 NHWC-native. Submodule and parameter names follow the flax tree, so
 ``utils/jax_weights.py`` maps one onto the other by name.
+
+In training (``model.train()``) BatchNorm uses batch statistics with the
+flax running update, the MLP runs its plain composition (K2 has no
+backward), every depthwise conv goes through ``ops.dw_conv`` (weight
+gradient K6 on CUDA), and each block is checkpointed, recomputing its
+forward in the backward as the JAX ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.van_attn import sa_core
-from ...ops.van_mlp import van_mlp
+from ...ops.van_mlp import van_mlp, van_mlp_reference
+from ..utils.modules import BatchNorm2d, DropPath, conv2d, frozen_stats
 
 
 def _dw(dim: int, k: int, dilation: int = 1) -> nn.Conv2d:
@@ -46,14 +56,17 @@ class SpatialAttention(nn.Module):
     def forward(self, h):
         """h: NHWC -> NHWC."""
         s = self.sgu
-        return sa_core(h, self.proj_1.weight, self.proj_1.bias,
-                       s.conv0.weight, s.conv0.bias, s.conv_spatial.weight,
-                       s.conv_spatial.bias, s.conv1.weight, s.conv1.bias,
-                       self.proj_2.weight, self.proj_2.bias)
+        return sa_core(h, *(t.to(h.dtype) for t in (
+            self.proj_1.weight, self.proj_1.bias, s.conv0.weight,
+            s.conv0.bias, s.conv_spatial.weight, s.conv_spatial.bias,
+            s.conv1.weight, s.conv1.bias, self.proj_2.weight,
+            self.proj_2.bias)))
 
 
 class Mlp(nn.Module):
-    """fc1 (1x1) -> dw 3x3 -> GELU -> fc2 (1x1), as one ``van_mlp``."""
+    """fc1 (1x1) -> dw 3x3 -> GELU -> fc2 (1x1): one ``van_mlp`` (K2 on
+    CUDA) in eval; in training its plain composition, as the JAX ``Mlp``
+    (``van.py:174-181``), since K2 has no backward."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -64,68 +77,92 @@ class Mlp(nn.Module):
     def forward(self, h):
         """h: contiguous NHWC -> NHWC."""
         hid, dim = self.fc1.weight.shape[:2]
-        return van_mlp(h, self.fc1.weight.view(hid, dim), self.fc1.bias,
-                       self.dwconv.weight.view(hid, 9), self.dwconv.bias,
-                       self.fc2.weight.view(dim, hid), self.fc2.bias)
+        args = (h, *(t.to(h.dtype) for t in (
+            self.fc1.weight.view(hid, dim), self.fc1.bias,
+            self.dwconv.weight.view(hid, 9), self.dwconv.bias,
+            self.fc2.weight.view(dim, hid), self.fc2.bias)))
+        if self.training:
+            return van_mlp_reference(*args)
+        return van_mlp(*args)
 
 
 class VANBlock(nn.Module):
-    def __init__(self, dim: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, mlp_ratio: float = 4.0,
+                 drop_path: float = 0.0):
         super().__init__()
-        self.norm1 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.norm1 = BatchNorm2d(dim)
         self.attn = SpatialAttention(dim)
-        self.norm2 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.norm2 = BatchNorm2d(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.layer_scale_1 = nn.Parameter(torch.full((dim,), 1e-2))
         self.layer_scale_2 = nn.Parameter(torch.full((dim,), 1e-2))
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
         """x: NCHW (channels_last) -> NCHW (channels_last)."""
+        ls1 = self.layer_scale_1.to(x.dtype).view(1, -1, 1, 1)
+        ls2 = self.layer_scale_2.to(x.dtype).view(1, -1, 1, 1)
         h = self.attn(self.norm1(x).permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        x = x + self.layer_scale_1.view(1, -1, 1, 1) * h
+        x = x + self.drop_path(ls1 * h)
         h = self.norm2(x).permute(0, 2, 3, 1).contiguous()
         h = self.mlp(h).permute(0, 3, 1, 2)
-        return x + self.layer_scale_2.view(1, -1, 1, 1) * h
+        return x + self.drop_path(ls2 * h)
+
+    def checkpoint_contexts(self):
+        """``torch.utils.checkpoint`` contexts (forward, recompute): the
+        recomputed forward leaves the BN running statistics alone."""
+        return contextlib.nullcontext(), frozen_stats(self.norm1, self.norm2)
 
 
 class OverlapPatchEmbed(nn.Module):
     def __init__(self, cin: int, dim: int, patch: int, stride: int):
         super().__init__()
         self.proj = nn.Conv2d(cin, dim, patch, stride, padding=patch // 2)
-        self.norm = nn.BatchNorm2d(dim, eps=1e-5)
+        self.norm = BatchNorm2d(dim)
 
     def forward(self, x):
-        return self.norm(self.proj(x))
+        return self.norm(conv2d(self.proj, x))
 
 
 class VAN(nn.Module):
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
-                 depths: Sequence[int] = (3, 5, 27, 3)):
+                 depths: Sequence[int] = (3, 5, 27, 3),
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.depths = tuple(depths)
-        cin = 3
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
+        cin, cur = 3, 0
         for i, (dim, depth) in enumerate(zip(embed_dims, depths)):
             self.add_module(f"patch_embed{i + 1}", OverlapPatchEmbed(
                 cin, dim, patch=7 if i == 0 else 3,
                 stride=4 if i == 0 else 2))
             for j in range(depth):
-                self.add_module(f"block{i + 1}_{j}",
-                                VANBlock(dim, mlp_ratios[i]))
+                self.add_module(f"block{i + 1}_{j}", VANBlock(
+                    dim, mlp_ratios[i], float(dpr[cur + j])))
             self.add_module(f"norm{i + 1}", nn.LayerNorm(dim, eps=1e-6))
-            cin = dim
+            cin, cur = dim, cur + depth
 
     def forward(self, images):
         """images: NHWC [B, H, W, 3] -> the 4 NHWC stage outputs."""
         x = images.permute(0, 3, 1, 2)
         outs = []
+        remat = self.training and torch.is_grad_enabled()
         for i, depth in enumerate(self.depths):
             x = getattr(self, f"patch_embed{i + 1}")(x)
             for j in range(depth):
-                x = getattr(self, f"block{i + 1}_{j}")(x)
+                block = getattr(self, f"block{i + 1}_{j}")
+                if remat:
+                    # saves each block's input only: the 38 blocks' MLP
+                    # hidden tensors (4-8x wide) would not fit otherwise
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=block.checkpoint_contexts)
+                else:
+                    x = block(x)
             norm = getattr(self, f"norm{i + 1}")
             y = F.layer_norm(x.permute(0, 2, 3, 1), norm.normalized_shape,
-                             norm.weight, norm.bias, norm.eps)
+                             norm.weight.to(x.dtype), norm.bias.to(x.dtype),
+                             norm.eps)
             outs.append(y)
             x = y.permute(0, 3, 1, 2)
         return tuple(outs)

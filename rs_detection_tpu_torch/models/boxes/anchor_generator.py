@@ -5,6 +5,7 @@ grids depend only on feature-map sizes and are cached per size."""
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 import numpy as np
@@ -63,3 +64,20 @@ class AnchorGenerator:
                        + shifts[:, None, :]).reshape(-1, 4)
             self._cache[key] = anchors.astype(np.float32)
         return self._cache[key]
+
+    def valid_flags(self, featmap_sizes, pad_shape) -> List[np.ndarray]:
+        """Per-level [H_l * W_l * A] bool: anchors whose grid cell lies in
+        the ``pad_shape`` (h, w) region of the image."""
+        out = []
+        for i in range(self.num_levels):
+            fh, fw = featmap_sizes[i]
+            s = self.strides[i]
+            vh = min(int(math.ceil(pad_shape[0] / s)), fh)
+            vw = min(int(math.ceil(pad_shape[1] / s)), fw)
+            vx = np.zeros(fw, bool)
+            vy = np.zeros(fh, bool)
+            vx[:vw] = True
+            vy[:vh] = True
+            xx, yy = _meshgrid(vx, vy)
+            out.append(np.repeat(xx & yy, self.num_base_anchors[i]))
+        return out

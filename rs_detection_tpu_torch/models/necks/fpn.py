@@ -9,6 +9,8 @@ from typing import Sequence
 
 from torch import nn
 
+from ..utils.modules import conv2d
+
 
 def _upsample_nearest(x, shape):
     """Integer-ratio nearest upsample of NCHW ``x`` cropped to ``shape``
@@ -41,12 +43,13 @@ class FPN(nn.Module):
         if len(inputs) != len(self.in_channels):
             raise ValueError(f"FPN takes {len(self.in_channels)} inputs, "
                              f"got {len(inputs)}")
-        lat = [getattr(self, f"lateral_{i}")(f.permute(0, 3, 1, 2))
+        lat = [conv2d(getattr(self, f"lateral_{i}"), f.permute(0, 3, 1, 2))
                for i, f in enumerate(inputs)]
         for i in range(len(lat) - 1, 0, -1):
             lat[i - 1] = lat[i - 1] + _upsample_nearest(lat[i],
                                                         lat[i - 1].shape[2:])
-        outs = [getattr(self, f"fpn_conv_{i}")(x) for i, x in enumerate(lat)]
+        outs = [conv2d(getattr(self, f"fpn_conv_{i}"), x)
+                for i, x in enumerate(lat)]
         for _ in range(self.num_outs - len(outs)):
             outs.append(outs[-1][:, :, ::2, ::2])
         return tuple(o.permute(0, 2, 3, 1) for o in outs)

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes/restype of each exported function; every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
@@ -34,6 +35,11 @@ SIGNATURES = {
     "rs_roi_align_rotated_pyramid_fwd": (
         [_P] * 4 + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F, _P, _I, _I, _P],
         _I),
+    "rs_roi_align_rotated_pyramid_bwd": (
+        [_P] + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F] + [_P] * 8
+        + [_I, _I, _P], _I),
+    "rs_dw_wgrad_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_dw_wgrad": ([_P, _P] + [_L] * 8 + [_I] * 8 + [_P] * 3, _I),
 }
 
 

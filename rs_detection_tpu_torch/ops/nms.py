@@ -1,9 +1,28 @@
-"""Horizontal-box NMS pieces of the RPN (counterpart of
+"""Horizontal-box IoU and the NMS pieces of the RPN (counterpart of
 ``rs_detection_tpu/ops/nms.py``), batched over a leading image axis."""
 
 from __future__ import annotations
 
 import torch
+
+
+def bbox_overlaps_hbb(boxes1, boxes2, mode: str = "iou", offset: float = 0.0):
+    """Pairwise hbb IoU: [..., N, 4] x [..., M, 4] -> [..., N, M]
+    (``mode="iof"``: intersection over the area of ``boxes1``); 0 where
+    the denominator is not positive. Per-coordinate [..., N, M] terms,
+    no [..., N, M, 2] stack: the RPN calls it on 600k anchors."""
+    ax1, ay1, ax2, ay2 = (t[..., :, None] for t in boxes1[..., :4].unbind(-1))
+    bx1, by1, bx2, by2 = (t[..., None, :] for t in boxes2[..., :4].unbind(-1))
+    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1) + offset).clamp(min=0)
+    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1) + offset).clamp(min=0)
+    inter = iw * ih
+    area1 = (ax2 - ax1 + offset) * (ay2 - ay1 + offset)
+    if mode == "iof":
+        denom = area1
+    else:
+        denom = area1 + (bx2 - bx1 + offset) * (by2 - by1 + offset) - inter
+    ok = denom > 0
+    return torch.where(ok, inter / torch.where(ok, denom, 1.0), 0.0)
 
 
 def overlap_gt_mask_hbb(boxes, thresh: float, offset: float = 0.0):

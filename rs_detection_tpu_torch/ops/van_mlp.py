@@ -15,30 +15,38 @@ Layouts: ``x`` is NHWC ``[N, H, W, C]``; the weights are as
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ._build import kernel_library
 from .activations import exact_gelu
+from .dw_conv import dw_conv
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def van_mlp_reference(x, w1, b1, wdw, bdw, w2, b2):
     """Plain PyTorch composition; SAME zero padding on the hidden
-    tensor, as the reference's nn.Conv2d chain."""
+    tensor, as the reference's nn.Conv2d chain. Differentiable: the
+    depthwise conv is ``dw_conv``, whose weight gradient is K6 on CUDA
+    (the JAX ``_ref_mlp`` under ``RS_DW_TAP_BWD=1``)."""
     ch = w1.shape[0]
     h = torch.matmul(x, w1.t()) + b1
-    h = F.conv2d(h.permute(0, 3, 1, 2), wdw.reshape(ch, 1, 3, 3), bdw,
-                 padding=1, groups=ch)
+    h = dw_conv(h.permute(0, 3, 1, 2), wdw.reshape(ch, 1, 3, 3), bdw)
     h = exact_gelu(h).permute(0, 2, 3, 1)
     return torch.matmul(h, w2.t()) + b2
 
 
 def van_mlp_cuda(x, w1, b1, wdw, bdw, w2, b2):
-    """Launch the fused kernel on CUDA tensors (f32 or bf16)."""
+    """Launch the fused kernel on CUDA tensors (f32 or bf16). Raises when
+    grad mode is on and an input requires a gradient: the kernel has no
+    backward, and autograd does not see the launch, so its result would
+    be cut off from the graph (training runs ``van_mlp_reference``)."""
     n, h, w, c = x.shape
     ch = w1.shape[0]
     args = (x, w1, b1, wdw, bdw, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError("van_mlp_cuda: an input requires a gradient; the "
+                           "fused kernel is inference-only, train with "
+                           "van_mlp_reference")
     shapes = ((n, h, w, c), (ch, c), (ch,), (ch, 9), (ch,), (c, ch), (c,))
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"van_mlp kernel takes float32 or bfloat16, not "

@@ -3,15 +3,26 @@ CUDA GPU: ``python -m pytest -m cuda --noconftest
 tests/test_torch_port_cuda.py`` (``--noconftest`` where jax is not
 installed: ``tests/conftest.py`` imports it). Without a GPU every test
 here skips; ``chip_smoke.py`` runs the same checks at the flagship
-shapes."""
+shapes. Covers K1 and K2 (serving), K3 and K6 (training), the rule that
+a kernel wrapper never hands autograd a detached result, and the tiny
+config's predict and training step, CUDA against CPU."""
 
 import pytest
 import torch
 
-from rs_detection_tpu_torch.flagship import build_flagship, normalize
+from rs_detection_tpu_torch.flagship import (build_flagship, make_targets,
+                                             normalize)
+from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
+from rs_detection_tpu_torch.ops.dw_conv import (dw_wgrad_cuda,
+                                                dw_wgrad_reference)
 from rs_detection_tpu_torch.ops.roi_align import (
-    roi_align_rotated_pyramid_cuda, roi_align_rotated_pyramid_reference)
+    roi_align_rotated_pyramid, roi_align_rotated_pyramid_bwd_cuda,
+    roi_align_rotated_pyramid_bwd_reference, roi_align_rotated_pyramid_cuda,
+    roi_align_rotated_pyramid_reference)
 from rs_detection_tpu_torch.ops.van_mlp import van_mlp_cuda, van_mlp_reference
+from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+from rs_detection_tpu_torch.optims.optimizer import AdamW
+from rs_detection_tpu_torch.parallel.train_step import train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -57,14 +68,10 @@ def test_van_mlp_kernel_matches_plain(dev, shape, dtype):
     _assert_close(got, van_mlp_reference(*args), dtype)
 
 
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 16),
-                                     (torch.float32, 30),
-                                     (torch.bfloat16, 256)])
-def test_roi_align_kernel_matches_plain(dev, dtype, c):
-    g = torch.Generator(device=dev).manual_seed(1)
+def _pyramid(dev, dtype, c, seed, r=600):
+    g = torch.Generator(device=dev).manual_seed(seed)
     feats = [torch.randn(2, s, s, c, generator=g, device=dev).to(dtype)
              for s in (64, 32, 16, 8)]
-    r = 600
 
     def u(lo, hi):
         return torch.rand(r, generator=g, device=dev) * (hi - lo) + lo
@@ -74,6 +81,14 @@ def test_roi_align_kernel_matches_plain(dev, dtype, c):
                                       device=dev).float(),
                         u(-50, 300), u(-50, 300), scale * aspect,
                         scale / aspect, u(-3.2, 3.2)], 1)
+    return feats, rois
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 16),
+                                     (torch.float32, 30),
+                                     (torch.bfloat16, 256)])
+def test_roi_align_kernel_matches_plain(dev, dtype, c):
+    feats, rois = _pyramid(dev, dtype, c, seed=1)
     got = roi_align_rotated_pyramid_cuda(feats, rois)
     torch.cuda.synchronize()
     _assert_close(got, roi_align_rotated_pyramid_reference(feats, rois),
@@ -92,3 +107,114 @@ def test_tiny_predict_cuda_matches_cpu(dev):
                                rtol=0, atol=1e-5)
     torch.testing.assert_close(gpu["polys"].cpu(), cpu["polys"],
                                rtol=0, atol=1e-2)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(dev):
+    """Autograd does not see a ctypes launch: a wrapper given an input
+    that requires a gradient must raise, never return a detached output
+    (the VAN MLP trains through its plain version, the RoIAlign through
+    its autograd function, whose backward is K3)."""
+    x = torch.randn(1, 4, 4, 32, device=dev)
+    mlp = [x, torch.randn(64, 32, device=dev), torch.zeros(64, device=dev),
+           torch.randn(64, 9, device=dev), torch.zeros(64, device=dev),
+           torch.randn(32, 64, device=dev), torch.zeros(32, device=dev)]
+    mlp[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        van_mlp_cuda(*mlp)
+    feats, rois = _pyramid(dev, torch.float32, 16, seed=5, r=20)
+    feats[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        roi_align_rotated_pyramid_cuda(feats, rois)
+    out = roi_align_rotated_pyramid(feats, rois)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        assert van_mlp_cuda(*mlp).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype,c,tol", [(torch.float32, 16, 1e-5),
+                                         (torch.float32, 30, 1e-5),
+                                         (torch.bfloat16, 256, 1e-2)])
+def test_roi_align_backward_kernel_matches_plain(dev, dtype, c, tol):
+    """K3 against autograd of the plain forward (f32 sums, one rounding
+    on both sides; atomics reorder the sums), relative to max|plain|."""
+    feats, rois = _pyramid(dev, dtype, c, seed=3)
+    grad = torch.randn(rois.shape[0], 7, 7, c, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4)
+                       ).to(dtype)
+    before = roi_align_rotated_pyramid_bwd_cuda.launches
+    got = roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid_bwd_cuda.launches == before + 1
+    ref = roi_align_rotated_pyramid_bwd_reference(feats, rois, grad)
+    scale = max(r.float().abs().max().item() for r in ref)
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+def test_roi_align_kernels_are_adjoint(dev):
+    """<K1(f), g> == <f, K3(g)> in f32, to 1e-5 relative."""
+    feats, rois = _pyramid(dev, torch.float32, 32, seed=6)
+    grad = torch.randn(rois.shape[0], 7, 7, 32, device=dev)
+    lhs = (roi_align_rotated_pyramid_cuda(feats, rois).double()
+           * grad.double()).sum()
+    rhs = sum((f.double() * d.double()).sum() for f, d in zip(
+        feats, roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)))
+    assert abs(lhs - rhs).item() <= 1e-5 * abs(lhs).item()
+
+
+@pytest.mark.parametrize("k,d", [(3, 1), (5, 1), (7, 3)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_dw_wgrad_kernel_matches_plain(dev, k, d, dtype, tol, channels_last):
+    """K6 against the tap loop, odd sizes and a ragged channel tile;
+    max|diff| / max|plain| (f32 sums in another order)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (2, 40, 37, 45)
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    gr = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    before = dw_wgrad_cuda.launches
+    got = dw_wgrad_cuda(x, gr, k, d)
+    torch.cuda.synchronize()
+    assert dw_wgrad_cuda.launches == before + 1
+    ref = dw_wgrad_reference(x, gr, k, d)
+    assert got.shape == (k * k, 40) and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_tiny_train_step_cuda_matches_cpu(dev):
+    """One training step of the tiny config: CUDA (K1, K3, K6) against
+    the CPU (plain versions), f32 with TF32 off, samplers that take every
+    candidate. Losses to 1e-4 relative, gradients to 1e-3 of each
+    parameter's largest (the biases ahead of a BatchNorm have none)."""
+    rng = torch.Generator().manual_seed(3)
+    images = torch.randn(2, 64, 64, 3, generator=rng)
+    targets = make_targets(2, 64, 6, rng)
+    # axis-aligned: CPU and CUDA sin/cos differ in the last ulp, which
+    # can break the exact IoU ties that the RPN's low-quality rescue
+    # keeps, and so change the sampled set
+    targets["rboxes"][..., 4] = 0.0
+    runs = []
+    for device in ("cpu", dev):
+        model = build_flagship(tiny=True, device=device, train=True)
+        model.rpn.sampler = RandomSampler(num=4096, pos_fraction=1.0)
+        model.bbox_head.sampler = RandomSampler(num=70, pos_fraction=1.0)
+        before = dw_wgrad_cuda.launches
+        losses = train_step(model, AdamW(model.parameters()), StepLR([7]),
+                            images.to(device),
+                            {k: v.to(device) for k, v in targets.items()},
+                            torch.Generator(device=device).manual_seed(0))
+        runs.append((losses, {k: p.grad.cpu() for k, p in
+                              model.named_parameters()}))
+    assert dw_wgrad_cuda.launches == before + 15      # 5 blocks x 3 convs
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs
+    for k, v in l_cpu.items():
+        assert abs(l_gpu[k].item() - v.item()) <= 1e-4 * abs(v.item()), k
+    for k, a in g_cpu.items():
+        if k.startswith("backbone.patch_embed") and k.endswith("proj.bias"):
+            continue
+        scale = max(a.abs().max().item(), g_gpu[k].abs().max().item(), 1e-12)
+        assert (g_gpu[k] - a).abs().max().item() <= 1e-3 * scale, k

@@ -129,12 +129,25 @@ def test_tiny_predict_matches_jax(tiny_pair):
 
 
 def test_port_imports_no_jax():
-    """The package and the tiny model never pull in jax or flax."""
-    code = ("import sys, torch\n"
-            "from rs_detection_tpu_torch.flagship import build_flagship\n"
-            "import rs_detection_tpu_torch.utils.jax_weights\n"
+    """The package, the tiny model's predict and its training step
+    never pull in jax or flax."""
+    code = ("import pkgutil, importlib, sys, torch\n"
+            "import rs_detection_tpu_torch as pkg\n"
+            "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from rs_detection_tpu_torch.flagship import (build_flagship,\n"
+            "                                            make_targets)\n"
+            "from rs_detection_tpu_torch.optims.lr_scheduler import StepLR\n"
+            "from rs_detection_tpu_torch.optims.optimizer import AdamW\n"
+            "from rs_detection_tpu_torch.parallel.train_step import "
+            "train_step\n"
             "m = build_flagship(tiny=True)\n"
             "m.predict(torch.zeros(1, 64, 64, 3))\n"
+            "m = build_flagship(tiny=True, train=True)\n"
+            "g = torch.Generator().manual_seed(0)\n"
+            "train_step(m, AdamW(m.parameters()), StepLR([7, 10]),\n"
+            "           torch.zeros(1, 64, 64, 3), make_targets(1, 64, 4, g),"
+            " g)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in\n"
             "       ('jax', 'flax', 'rs_detection_tpu')]\n"
             "assert not bad, bad\n")
