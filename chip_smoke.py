@@ -29,8 +29,27 @@ Phases, each of which raises (exit code 1) on failure:
      R-CNN, batch 8, 1024^2, bf16 compute, f32 master weights, seeded
      targets; checks finite losses, nonzero bbox losses, finite nonzero
      gradients and K1 1 / K3 1 / K6 114 launches per step
-Then prints one JSON line of per-kernel results, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+ 11. K5, the depthwise forward kernel, against ``F.conv2d`` at (5,1) and
+     (7,3) on the four attention shapes and (3,1) on the four MLP hidden
+     shapes (batch 8, bf16, NHWC), its ``[N, H, C, W]`` form (K7's
+     layout) at [8, 256, 64, 256], one small odd f32 shape, and ``dx`` /
+     ``dw`` of ``depthwise_conv2d`` against autograd of the plain
+     version; times ``F.conv2d`` in NCHW and channels_last beside it.
+     Then the prototype's own path: ``dw_chw`` at (5,1) and (7,3) held
+     against the NHWC kernel, transposed
+ 12. K2r, the residual form of the MLP kernel, against its plain version
+     at the four stage shapes (bf16) and one small f32 shape
+ 13. K4, the fused attention half-block, against its plain version at
+     the four stage shapes (bf16) and small f32 shapes
+ 14. the tiny config's fused ``predict`` on CUDA (kernels) against the
+     CPU (plain versions), and fused against non-fused on CUDA, f32
+ 15. the fused serving path: as phase 6 with ``build_flagship(fused=
+     True)``; every forward must go through K4 38 times, K2r 38 times,
+     K5's kernel 76 times (inside K4), K1 once and K2 never
+Then prints one JSON line of per-kernel results (time, plain time, the
+card's bound for the same work, the library call's time where PyTorch
+has one), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,6 +82,16 @@ K6_TOL = {"bfloat16": 2e-3, "float32": 1e-4}
 # (k, dilation, H = W, C, blocks, channels_last) of every depthwise conv
 # of a VAN-b3 step at 1024^2: dw3 on the MLP hidden tensor, dw5 and the
 # dilated 7x7 in the attention (the latter in NCHW, ops/van_attn.py)
+# K5 against F.conv2d: both sum the taps in f32 and round once, in another
+# order (one bf16 ulp, 2^-8, of the largest values)
+K5_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# K4 against the plain chain, bf16: both round g, d5, d7 and the gated
+# product at the same points, but the plain chain also rounds c1, p2, the
+# inner shortcut and the layer-scale product, and sums in another order
+K4_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# published peaks of one H100 SXM: HBM bytes/s, dense bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
     + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
     + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
@@ -96,6 +125,28 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, tc_flops=0.0, f32_flops=0.0):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and each kind of
+    operation over its peak rate."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(tc_flops / PEAK_BF16, f32_flops / PEAK_F32)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def add_bounds(parts):
+    """Bound of work done one part after the other: the times add, and
+    the kind is the one that holds the larger share."""
+    ms = sum(p[0] for p in parts)
+    by_bytes = sum(p[0] for p in parts if p[1] == "bytes")
+    return ms, "bytes" if by_bytes >= ms - by_bytes else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def compare(name, kernel, plain, dtype_name, rel_tol=REL_TOL):
     """Max abs error of ``kernel`` against ``plain`` (tensors or equal
     lists of them); raises past the stated relative tolerance."""
@@ -115,7 +166,10 @@ def compare(name, kernel, plain, dtype_name, rel_tol=REL_TOL):
     return err
 
 
-def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev):
+def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
+    """The MLP kernel (``name`` K2) or its residual form (K2r) against
+    its plain version; returns (max error, kernel ms, plain ms, bound)
+    per forward, each shape weighed by its block count."""
     g = torch.Generator(device=dev).manual_seed(1)
 
     def inputs(n, h, c, ch, dt):
@@ -125,24 +179,30 @@ def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev):
                 r(ch, 9, scale=1 / 3), r(ch, scale=0.1),
                 r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
 
-    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
     for h, c, ch, blocks in STAGES:
         args = inputs(BATCH, h, c, ch, torch.bfloat16)
-        err = compare(f"K2 [{BATCH},{h},{h},{c}] Ch={ch} bf16",
+        err = compare(f"{name} [{BATCH},{h},{h},{c}] Ch={ch} bf16",
                       van_mlp_cuda(*args), van_mlp_reference(*args),
                       "bfloat16")
         t_plain = cuda_ms(lambda: van_mlp_reference(*args), 5)
         t_kernel = cuda_ms(lambda: van_mlp_cuda(*args), 5)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms "
-            f"(x{blocks} blocks per forward)")
+        pixels = BATCH * h * h
+        # x and the weights read, y written; two 1x1 convs on the tensor
+        # cores, the 3x3 taps in f32
+        b = bound(nbytes(*args) + nbytes(args[0]), 4.0 * pixels * c * ch,
+                  18.0 * pixels * ch)
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]} (x{blocks} blocks per forward)")
         err_max = max(err_max, err)
         ms += blocks * t_kernel
         plain_ms += blocks * t_plain
+        bounds += [b] * blocks
         del args
     args = inputs(2, 21, 32, 96, torch.float32)
-    compare("K2 [2,21,21,32] Ch=96 f32", van_mlp_cuda(*args),
+    compare(f"{name} [2,21,21,32] Ch=96 f32", van_mlp_cuda(*args),
             van_mlp_reference(*args), "float32")
-    return err_max, ms, plain_ms
+    return err_max, ms, plain_ms, add_bounds(bounds)
 
 
 def flagship_rois(torch, n, r, img, dev, seed):
@@ -171,36 +231,55 @@ def phase_k1(torch, roi_cuda, roi_reference, dev):
                   "bfloat16")
     t_plain = cuda_ms(lambda: roi_reference(feats, rois), 3)
     t_kernel = cuda_ms(lambda: roi_cuda(feats, rois), 10)
-    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms")
+    out = roi_cuda(feats, rois)
+    # 4 samples per bin, 4 corners each, a multiply-add per channel
+    b = bound(nbytes(*feats, rois, out), 0.0, 32.0 * out.numel())
+    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
+        f"{b[0]:.3f} ms by {b[1]}")
     small = [torch.randn(2, s, s, 32, generator=g, device=dev)
              for s in (64, 32, 16, 8)]
     small_rois = flagship_rois(torch, 2, 500, 256, dev, 4)
     compare("K1 500 rois, C=32, f32", roi_cuda(small, small_rois),
             roi_reference(small, small_rois), "float32")
-    return err, t_kernel, t_plain
+    return err, t_kernel, t_plain, b
 
 
-def phase_slice(torch, build_flagship, normalize, dev):
+def phase_slice(torch, build_flagship, normalize, dev, fused=False):
+    """The tiny config's predict, CUDA (kernels) against the CPU (plain
+    versions); with ``fused`` also fused against non-fused on CUDA."""
     g = torch.Generator().manual_seed(5)
     tiles = torch.randint(0, 256, (2, 128, 128, 3), generator=g,
                           dtype=torch.uint8)
-    cpu = build_flagship(tiny=True).predict(normalize(tiles))
-    gpu = build_flagship(tiny=True, device=dev).predict(
+    cpu = build_flagship(tiny=True, device="cpu", fused=fused).predict(
+        normalize(tiles))
+    gpu = build_flagship(tiny=True, device=dev, fused=fused).predict(
         normalize(tiles.to(dev)))
-    if not torch.equal(gpu["valid"].cpu(), cpu["valid"]):
-        raise AssertionError("tiny config: valid masks differ")
-    # f32 with TF32 off on both: cuDNN/cuBLAS and CPU summation orders
-    for key, atol in (("polys", 1e-2), ("scores", 1e-5)):
-        err = (gpu[key].cpu() - cpu[key]).abs().max().item()
-        log(f"  tiny predict {key}: max_abs_err {err:.3e} (atol {atol})")
-        if not err <= atol:
-            raise AssertionError(f"tiny config: {key} differ by {err}")
+    pairs = [("CUDA vs CPU", gpu, cpu)]
+    if fused:
+        pairs.append(("fused vs non-fused on CUDA", gpu, build_flagship(
+            tiny=True, device=dev).predict(normalize(tiles.to(dev)))))
+    for what, got, ref in pairs:
+        if not torch.equal(got["valid"].cpu(), ref["valid"].cpu()):
+            raise AssertionError(f"tiny config, {what}: valid masks differ")
+        # f32 with TF32 off on both: cuDNN/cuBLAS, CPU and kernel
+        # summation orders (and the folds of the fused mode)
+        for key, atol in (("polys", 1e-2), ("scores", 1e-5)):
+            err = (got[key].cpu() - ref[key].cpu()).abs().max().item()
+            log(f"  tiny predict, {what}, {key}: max_abs_err {err:.3e} "
+                f"(atol {atol})")
+            if not err <= atol:
+                raise AssertionError(f"tiny config, {what}: {key} differ "
+                                     f"by {err}")
 
 
-def phase_main(torch, build_flagship, normalize, van_mlp_cuda, roi_cuda, dev,
-               card):
+def phase_main(torch, build_flagship, normalize, kernels, dev, card,
+               fused=False):
+    """The serving path at full width; ``kernels`` maps names to the
+    wrappers whose launches count. Returns the launches of the timed
+    requests, tiles/s and peak memory in GiB."""
     model = build_flagship(tiny=False, device=dev, dtype=torch.bfloat16,
-                           generator=torch.Generator().manual_seed(0))
+                           generator=torch.Generator().manual_seed(0),
+                           fused=fused)
     rng = torch.Generator().manual_seed(6)
     requests = [torch.randint(0, 256, (BATCH, TILE, TILE, 3), generator=rng,
                               dtype=torch.uint8) for _ in range(REQUESTS + 1)]
@@ -211,8 +290,8 @@ def phase_main(torch, build_flagship, normalize, van_mlp_cuda, roi_cuda, dev,
     serve(requests[0])  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    van_mlp_cuda.launches = 0
-    roi_cuda.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     outs, times = [], []
     for tiles in requests[1:]:
         t0 = time.perf_counter()
@@ -220,13 +299,20 @@ def phase_main(torch, build_flagship, normalize, van_mlp_cuda, roi_cuda, dev,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     dt = sum(times)
-    launches = {"van_mlp": van_mlp_cuda.launches,
-                "roi_align_rotated_pyramid": roi_cuda.launches}
+    launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     n_blocks = sum(s[3] for s in STAGES)
-    if launches != {"van_mlp": n_blocks * REQUESTS,
-                    "roi_align_rotated_pyramid": REQUESTS}:
-        raise AssertionError(f"main path kernel launches {launches}")
+    per_forward = dict.fromkeys(kernels, 0)
+    per_forward["roi_align_rotated_pyramid"] = 1
+    if fused:  # K4 runs K5's kernel twice (dw5, dilated dw7)
+        per_forward.update(van_attn=n_blocks, van_mlp_residual=n_blocks,
+                           depthwise_conv2d=2 * n_blocks)
+    else:
+        per_forward["van_mlp"] = n_blocks
+    want = {k: v * REQUESTS for k, v in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"main path kernel launches {launches}, "
+                             f"expected {want}")
     for out in outs:
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"polys": (BATCH, 2000, 8), "scores": (BATCH, 2000, 10),
@@ -241,14 +327,15 @@ def phase_main(torch, build_flagship, normalize, van_mlp_cuda, roi_cuda, dev,
     valid = sum(int(o["valid"].sum()) for o in outs)
     tiles_s = REQUESTS * BATCH / dt
     times.sort()
-    log(f"  VAN-b3 Oriented R-CNN bf16: {REQUESTS} requests of {BATCH}x"
-        f"{TILE}^2 uint8 tiles in {dt:.3f} s = {tiles_s:.2f} tiles/s "
+    mode = "fused VAN blocks" if fused else "non-fused VAN blocks"
+    log(f"  VAN-b3 Oriented R-CNN bf16, {mode}: {REQUESTS} requests of "
+        f"{BATCH}x{TILE}^2 uint8 tiles in {dt:.3f} s = {tiles_s:.2f} tiles/s "
         f"(request ms min {1e3 * times[0]:.1f}, median "
         f"{1e3 * times[len(times) // 2]:.1f}, max {1e3 * times[-1]:.1f}), "
         f"peak memory {peak / 2**30:.2f} GiB, {valid} valid detection "
         f"slots [{card}]")
     log(f"  launches in the timed requests: {launches}")
-    return launches
+    return launches, tiles_s, peak / 2**30
 
 
 def phase_k3(torch, ra, dev):
@@ -271,7 +358,11 @@ def phase_k3(torch, ra, dev):
         feats, rois, grad), 3)
     t_kernel = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
         feats, rois, grad), 10)
-    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms")
+    # the gradient and the rois read, the pyramid's gradient written; 4
+    # samples per bin, 4 corners each, a multiply-add per channel
+    b = bound(nbytes(grad, rois, *feats), 0.0, 32.0 * grad.numel())
+    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
+        f"{b[0]:.3f} ms by {b[1]}")
     small = [torch.randn(2, s, s, 32, generator=g, device=dev)
              for s in (64, 32, 16, 8)]
     small_rois = flagship_rois(torch, 2, 500, 256, dev, 9)
@@ -292,7 +383,7 @@ def phase_k3(torch, ra, dev):
         f"{rhs:.6e}, relative difference {rel:.2e} (tolerance 1e-5)")
     if not rel <= 1e-5:
         raise AssertionError("K3 is not the adjoint of K1")
-    return err, t_kernel, t_plain
+    return err, t_kernel, t_plain, b
 
 
 def phase_k6(torch, dwc, dev):
@@ -302,7 +393,7 @@ def phase_k6(torch, dwc, dev):
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(10)
-    err_max, ms, plain_ms = 0.0, 0.0, 0.0
+    err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
     for k, d, h, c, blocks, cl in DW_SHAPES:
         fmt = torch.channels_last if cl else torch.contiguous_format
 
@@ -320,6 +411,11 @@ def phase_k6(torch, dwc, dev):
         t_kernel = cuda_ms(lambda: dwc.dw_wgrad_cuda(x, gr, k, d), 5)
         w = torch.randn(c, 1, k, k, generator=g, device=dev) \
             .to(torch.bfloat16)
+        t_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            x, w.shape, gr, padding=d * (k - 1) // 2, dilation=d, groups=c),
+            2)
+        b = bound(nbytes(x, gr) + 4 * k * k * c, 0.0,
+                  2.0 * k * k * x.numel())
         dx_ms = {}
         for name, f in (("NHWC", torch.channels_last),
                         ("NCHW", torch.contiguous_format)):
@@ -327,19 +423,195 @@ def phase_k6(torch, dwc, dev):
             dx_ms[name] = cuda_ms(lambda: F.conv2d(
                 gf, w.flip((2, 3)), padding=d * (k - 1) // 2, dilation=d,
                 groups=c), 5)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms "
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, "
+            f"conv2d_weight {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]} "
             f"(x{blocks} blocks per step); dx conv NHWC "
             f"{dx_ms['NHWC']:.3f} ms, NCHW {dx_ms['NCHW']:.3f} ms")
         err_max = max(err_max, err)
         ms += blocks * t_kernel
         plain_ms += blocks * t_plain
+        lib_ms += blocks * t_lib
+        bounds += [b] * blocks
         del x, gr
     x = torch.randn(2, 40, 37, 45, generator=g, device=dev)
     gr = torch.randn(2, 40, 37, 45, generator=g, device=dev)
     compare("K6 k7d3 [2,37,45,40] f32", dwc.dw_wgrad_cuda(x, gr, 7, 3),
             dwc.dw_wgrad_reference(x, gr, 7, 3), "float32", K6_TOL)
-    log(f"  K6 per step: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return err_max, ms, plain_ms
+    b = add_bounds(bounds)
+    log(f"  K6 per step: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"conv2d_weight {lib_ms:.3f} ms, bound {b[0]:.3f} ms by {b[1]}")
+    return err_max, ms, plain_ms, b, lib_ms
+
+
+def phase_k5(torch, dw, dev):
+    """K5 against ``F.conv2d`` (groups = C). Totals are per fused
+    forward: the 5x5 and the dilated 7x7 of each of the 38 attention
+    half-blocks. Returns (max error, kernel ms, plain ms, bound, library
+    ms) for the NHWC form and for K7's ``[N, H, C, W]`` form."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+
+    def r(*s, scale=1.0, dt=bf16):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dt)
+
+    def dw_bound(x, k):
+        return bound(2 * nbytes(x) + x.element_size() * k * k * x.shape[-1],
+                     0.0, 2.0 * k * k * x.numel())
+
+    err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
+    shapes = [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
+        + [(7, 3, h, c, n, True) for h, c, _, n in STAGES] \
+        + [(3, 1, h, ch, n, False) for h, _, ch, n in STAGES]
+    for k, d, h, c, blocks, on_path in shapes:
+        x, w = r(BATCH, h, h, c), r(k, k, c, scale=1.0 / k)
+        err = compare(f"K5 k{k}d{d} [{BATCH},{h},{h},{c}] NHWC bf16",
+                      dw.depthwise_conv2d_cuda(x, w, k, d),
+                      dw.depthwise_conv2d_reference(x, w, k, d), "bfloat16",
+                      K5_TOL)
+        t_plain = cuda_ms(
+            lambda: dw.depthwise_conv2d_reference(x, w, k, d), 3)
+        t_kernel = cuda_ms(lambda: dw.depthwise_conv2d_cuda(x, w, k, d), 20)
+        # the library call, on the same memory (channels_last) and after
+        # a copy to NCHW (the copy is not timed)
+        wl = w.permute(2, 0, 1).reshape(c, 1, k, k).contiguous()
+        pad = d * (k - 1) // 2
+        t_lib = {}
+        for name, xl in (("channels_last", x.permute(0, 3, 1, 2)),
+                         ("NCHW", x.permute(0, 3, 1, 2).contiguous())):
+            t_lib[name] = cuda_ms(lambda: F.conv2d(
+                xl, wl, padding=pad, dilation=d, groups=c), 3)
+        b = dw_bound(x, k)
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, F.conv2d "
+            f"channels_last {t_lib['channels_last']:.3f} ms, NCHW "
+            f"{t_lib['NCHW']:.3f} ms, bound {b[0]:.3f} ms by {b[1]}"
+            + (f" (x{blocks} blocks per fused forward)" if on_path else ""))
+        err_max = max(err_max, err)
+        if on_path:
+            ms += blocks * t_kernel
+            plain_ms += blocks * t_plain
+            lib_ms += blocks * t_lib["channels_last"]
+            bounds += [b] * blocks
+        del x
+    nhwc = (err_max, ms, plain_ms, add_bounds(bounds), lib_ms)
+    log(f"  K5 per fused forward (76 launches): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, F.conv2d channels_last {lib_ms:.3f} ms, bound "
+        f"{nhwc[3][0]:.3f} ms by {nhwc[3][1]}")
+
+    # K7's layout at the prototype's shape
+    err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
+    for k, d in ((5, 1), (7, 3)):
+        x, wts = r(BATCH, 256, 64, 256), r(64, k * k, scale=1.0 / k)
+        err_max = max(err_max, compare(
+            f"K7 form k{k}d{d} [{BATCH},256,64,256] bf16",
+            dw.dw_chw_cuda(x, wts, k, d), dw.dw_chw_reference(x, wts, k, d),
+            "bfloat16", K5_TOL))
+        t_plain = cuda_ms(lambda: dw.dw_chw_reference(x, wts, k, d), 3)
+        t_kernel = cuda_ms(lambda: dw.dw_chw_cuda(x, wts, k, d), 20)
+        xl = x.permute(0, 2, 1, 3).contiguous()
+        t_lib = cuda_ms(lambda: F.conv2d(
+            xl, wts.reshape(64, 1, k, k), padding=d * (k - 1) // 2,
+            dilation=d, groups=64), 3)
+        b = bound(2 * nbytes(x) + nbytes(wts), 0.0, 2.0 * k * k * x.numel())
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, F.conv2d "
+            f"NCHW {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]}")
+        ms += t_kernel
+        plain_ms += t_plain
+        lib_ms += t_lib
+        bounds.append(b)
+    chw = (err_max, ms, plain_ms, add_bounds(bounds), lib_ms)
+
+    # small f32, odd sizes and a ragged channel tile; both gradients
+    f32 = torch.float32
+    x, w = r(2, 37, 45, 40, dt=f32), r(7, 7, 40, scale=1 / 7, dt=f32)
+    compare("K5 k7d3 [2,37,45,40] f32", dw.depthwise_conv2d_cuda(x, w, 7, 3),
+            dw.depthwise_conv2d_reference(x, w, 7, 3), "float32", K5_TOL)
+    xc = x.permute(0, 1, 3, 2).contiguous()
+    wc = w.reshape(49, 40).t().contiguous()
+    compare("K7 form k7d3 [2,37,40,45] f32", dw.dw_chw_cuda(xc, wc, 7, 3),
+            dw.dw_chw_reference(xc, wc, 7, 3), "float32", K5_TOL)
+    gr = r(2, 37, 45, 40, dt=f32)
+    grads = []
+    for fn in (dw.depthwise_conv2d, dw.depthwise_conv2d_reference):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(xg, wg, 7, 3), (xg, wg), gr))
+    compare("depthwise_conv2d dx (K5 on the flipped taps), f32", grads[0][0],
+            grads[1][0], "float32", K5_TOL)
+    compare("depthwise_conv2d dw (K6), f32", grads[0][1], grads[1][1],
+            "float32", K6_TOL)
+    return nhwc, chw
+
+
+def phase_k7_path(torch, dw, dev):
+    """The prototype's own path (``chw_dw_proto.py:main``): ``dw_chw`` at
+    [8, 256, 64, 256] for dw5 and dw7 dilation 3, held against the NHWC
+    op on the transposed input. Returns its launches."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x_nhwc = torch.randn(BATCH, 256, 256, 64, generator=g,
+                         device=dev).to(torch.bfloat16)
+    x_chw = x_nhwc.permute(0, 1, 3, 2).contiguous()
+    dw.dw_chw_cuda.launches = 0
+    outs = []
+    for k, d in ((5, 1), (7, 3)):
+        wts = (torch.randn(64, k * k, generator=g, device=dev) * 0.1) \
+            .to(torch.bfloat16)
+        outs.append((k, d, wts, dw.dw_chw(x_chw, wts, k, d)))
+    launches = dw.dw_chw_cuda.launches
+    torch.cuda.synchronize()
+    for k, d, wts, y in outs:
+        ref = dw.depthwise_conv2d(x_nhwc, wts.t().reshape(k, k, 64)
+                                  .contiguous(), k, d)
+        compare(f"dw_chw k{k}d{d} vs the NHWC op", y.permute(0, 1, 3, 2),
+                ref, "bfloat16", K5_TOL)
+    if launches != 2:
+        raise AssertionError(f"dw_chw launched its kernel {launches} times")
+    return launches
+
+
+def phase_k4(torch, va, dev):
+    """K4 against its plain version; returns (max error, kernel ms, plain
+    ms, bound) per forward, each stage weighed by its block count."""
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def inputs(n, h, w, c, dt):
+        def r(*s, scale=1.0, t=dt):
+            return (torch.randn(*s, generator=g, device=dev) * scale).to(t)
+        f32 = torch.float32
+        mix = c ** -0.5
+        return (r(n, h, w, c, scale=0.5), 1 + r(c, scale=0.1, t=f32),
+                r(c, scale=0.1, t=f32), r(c, c, 1, 1, scale=mix),
+                r(c, scale=0.1), r(c, 1, 5, 5, scale=0.2), r(c, scale=0.1),
+                r(c, 1, 7, 7, scale=1 / 7), r(c, scale=0.1),
+                r(c, c, 1, 1, scale=mix), r(c, scale=0.1),
+                r(c, c, 1, 1, scale=mix), r(c, scale=0.1), r(c, scale=0.3))
+
+    err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    for h, c, _, blocks in STAGES:
+        args = inputs(BATCH, h, h, c, torch.bfloat16)
+        err = compare(f"K4 [{BATCH},{h},{h},{c}] bf16",
+                      va.van_attn_cuda(*args), va.van_attn_reference(*args),
+                      "bfloat16", K4_TOL)
+        t_plain = cuda_ms(lambda: va.van_attn_reference(*args), 5)
+        t_kernel = cuda_ms(lambda: va.van_attn_cuda(*args), 20)
+        pixels = BATCH * h * h
+        # x and the weights read, out written; three C x C products on
+        # the tensor cores, 25 + 49 taps in f32
+        b = bound(nbytes(*args) + nbytes(args[0]), 6.0 * pixels * c * c,
+                  2.0 * 74 * pixels * c)
+        log(f"    kernel {t_kernel:.3f} ms (4 launches), plain {t_plain:.3f} "
+            f"ms, bound {b[0]:.3f} ms by {b[1]} (x{blocks} blocks per "
+            f"forward)")
+        err_max = max(err_max, err)
+        ms += blocks * t_kernel
+        plain_ms += blocks * t_plain
+        bounds += [b] * blocks
+        del args
+    for shape in ((1, 13, 16, 32), (2, 24, 20, 32), (2, 9, 7, 40)):
+        args = inputs(*shape, torch.float32)
+        compare(f"K4 {list(shape)} f32", va.van_attn_cuda(*args),
+                va.van_attn_reference(*args), "float32", K4_TOL)
+    return err_max, ms, plain_ms, add_bounds(bounds)
 
 
 def _before_bn(name):
@@ -479,9 +751,10 @@ def main():
                                                  make_targets, normalize)
     from rs_detection_tpu_torch.ops import _build
     from rs_detection_tpu_torch.ops import dw_conv as dwc
+    from rs_detection_tpu_torch.ops import dwconv as dw
     from rs_detection_tpu_torch.ops import roi_align as ra
-    from rs_detection_tpu_torch.ops.van_mlp import (van_mlp_cuda,
-                                                    van_mlp_reference)
+    from rs_detection_tpu_torch.ops import van_attn as va
+    from rs_detection_tpu_torch.ops import van_mlp as vm
     from rs_detection_tpu_torch.parallel import train_step as train_mod
 
     dev = torch.device("cuda", 0)
@@ -496,16 +769,21 @@ def main():
     log(f"[2] build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(_build.library_path(), ROOT)}")
 
+    serving = {"van_mlp": vm.van_mlp_cuda,
+               "van_mlp_residual": vm.van_mlp_residual_cuda,
+               "van_attn": va.van_attn_cuda,
+               "depthwise_conv2d": dw.depthwise_conv2d_cuda,
+               "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda}
     log("[3] K2 fused VAN MLP vs plain")
-    k2 = phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev)
+    k2 = phase_k2(torch, vm.van_mlp_cuda, vm.van_mlp_reference, dev)
     log("[4] K1 rotated pyramid RoIAlign vs plain")
     k1 = phase_k1(torch, ra.roi_align_rotated_pyramid_cuda,
                   ra.roi_align_rotated_pyramid_reference, dev)
     log("[5] tiny config predict: CUDA (kernels) vs CPU (plain), f32")
     phase_slice(torch, build_flagship, normalize, dev)
     log("[6] serving path")
-    launches = phase_main(torch, build_flagship, normalize, van_mlp_cuda,
-                          ra.roi_align_rotated_pyramid_cuda, dev, card)
+    launches, plain_tiles_s, plain_peak = phase_main(
+        torch, build_flagship, normalize, serving, dev, card)
     log("[7] K3 RoIAlign backward vs plain, K1/K3 adjointness")
     k3 = phase_k3(torch, ra, dev)
     log("[8] K6 depthwise weight gradient vs plain")
@@ -515,34 +793,60 @@ def main():
     log("[10] training path")
     train_launches = phase_train(
         torch, build_flagship, make_targets, normalize, train_mod,
-        {"van_mlp": van_mlp_cuda,
+        {"van_mlp": vm.van_mlp_cuda,
          "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
          "roi_align_rotated_pyramid_bwd":
              ra.roi_align_rotated_pyramid_bwd_cuda,
          "dw_wgrad": dwc.dw_wgrad_cuda}, dev, card)
+    log("[11] K5 depthwise forward (and K7's layout) vs plain")
+    k5, k7 = phase_k5(torch, dw, dev)
+    k7_launches = phase_k7_path(torch, dw, dev)
+    log("[12] K2r residual form of the VAN MLP kernel vs plain")
+    k2r = phase_k2(torch, vm.van_mlp_residual_cuda,
+                   vm.van_mlp_residual_reference, dev, name="K2r")
+    log("[13] K4 fused VAN attention half-block vs plain")
+    k4 = phase_k4(torch, va, dev)
+    log("[14] tiny config fused predict: CUDA vs CPU, fused vs non-fused")
+    phase_slice(torch, build_flagship, normalize, dev, fused=True)
+    log("[15] fused serving path")
+    fused_launches, fused_tiles_s, fused_peak = phase_main(
+        torch, build_flagship, normalize, serving, dev, card, fused=True)
+    log(f"  serving, same run: fused {fused_tiles_s:.2f} tiles/s at "
+        f"{fused_peak:.2f} GiB, non-fused {plain_tiles_s:.2f} tiles/s at "
+        f"{plain_peak:.2f} GiB [{card}]")
 
-    roi_src = "rs_detection_tpu_torch/csrc/roi_align_rotated.cu"
+    csrc = "rs_detection_tpu_torch/csrc/"
+    jops = "rs_detection_tpu/ops/"
+
+    def entry(name, source, replaces, n_launches, res, library_ms=None):
+        return {"name": name, "route": "cuda", "source": csrc + source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
+                "bound_ms": res[3][0], "bound_by": res[3][1],
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "van_mlp", "route": "cuda",
-         "source": "rs_detection_tpu_torch/csrc/van_mlp.cu",
-         "replaces": "rs_detection_tpu/ops/pallas_van_mlp.py:68",
-         "launches": launches["van_mlp"], "max_abs_err": k2[0],
-         "ms": k2[1], "plain_ms": k2[2]},
-        {"name": "roi_align_rotated_pyramid", "route": "cuda",
-         "source": roi_src,
-         "replaces": "rs_detection_tpu/ops/pallas_roi_align.py:116",
-         "launches": launches["roi_align_rotated_pyramid"],
-         "max_abs_err": k1[0], "ms": k1[1], "plain_ms": k1[2]},
-        {"name": "roi_align_rotated_pyramid_bwd", "route": "cuda",
-         "source": roi_src,
-         "replaces": "rs_detection_tpu/ops/pallas_roi_align.py:721",
-         "launches": train_launches["roi_align_rotated_pyramid_bwd"],
-         "max_abs_err": k3[0], "ms": k3[1], "plain_ms": k3[2]},
-        {"name": "dw_wgrad", "route": "cuda",
-         "source": "rs_detection_tpu_torch/csrc/dw_wgrad.cu",
-         "replaces": "rs_detection_tpu/ops/pallas_dw_wgrad.py:41",
-         "launches": train_launches["dw_wgrad"], "max_abs_err": k6[0],
-         "ms": k6[1], "plain_ms": k6[2]},
+        entry("van_mlp", "van_mlp.cu", jops + "pallas_van_mlp.py:68",
+              launches["van_mlp"], k2),
+        entry("roi_align_rotated_pyramid", "roi_align_rotated.cu",
+              jops + "pallas_roi_align.py:116",
+              launches["roi_align_rotated_pyramid"], k1),
+        entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated.cu",
+              jops + "pallas_roi_align.py:721",
+              train_launches["roi_align_rotated_pyramid_bwd"], k3),
+        entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
+              train_launches["dw_wgrad"], k6, k6[4]),
+        entry("van_attn", "van_attn.cu", jops + "pallas_van_attn.py:89",
+              fused_launches["van_attn"], k4),
+        entry("van_mlp_residual", "van_mlp.cu",
+              jops + "pallas_van_mlp.py:303",
+              fused_launches["van_mlp_residual"], k2r),
+        entry("depthwise_conv2d", "dw_conv_fwd.cu",
+              jops + "pallas_dwconv.py:27",
+              fused_launches["depthwise_conv2d"], k5, k5[4]),
+        entry("dw_chw", "dw_conv_fwd.cu",
+              "tools/analysis_tools/chw_dw_proto.py:25", k7_launches, k7,
+              k7[4]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,7 +9,9 @@
 //   h1 = 0 outside the image          (SAME padding of the *hidden* tensor:
 //                                      fc1 of a padded zero is b1, not 0)
 //   h2 = gelu_erf(dw3x3(h1) + bdw)    rounded to the input dtype
-//   y  = h2 @ w2^T + b2
+//   y  = h2 @ w2^T + b2            (+ x with `residual`, added in f32 from the
+//                                    x tile in shared memory before the one
+//                                    cast: `van_mlp_residual`, :187-191)
 // The two rounding points are the TPU kernel's (pallas_van_mlp.py:121, :168).
 //
 // What bounds it on the H100: unfused, the Ch-wide hidden tensor (4-8x the
@@ -28,12 +30,13 @@
 // barriers per chunk, the haloed fc1 recompute (100/64 pixels) and WMMA
 // instead of wgmma. The f32 form (tests and small shapes) uses plain FMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stddef.h>
+
+#include "rs_common.cuh"
 
 namespace {
+
+using namespace rs;
 
 constexpr int TILE = 8;              // output tile is TILE x TILE pixels
 constexpr int HALO = TILE + 2;       // haloed tile side
@@ -46,26 +49,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int HS_LD = KC + 4;        // f32 row stride of the fc1 chunk
 constexpr int GS_LD = KC + 8;        // row stride of the gelu chunk
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
 // Row strides: bf16 rows are padded by 8 elements (WMMA wants a multiple of
 // 8 and 32-byte aligned fragments); f32 rows by one element, which spreads
 // the FMA path's strided reads over all 32 banks.
@@ -74,10 +57,6 @@ template <typename T> __host__ __device__ constexpr int ld_x(int c) {
 }
 template <typename T> __host__ __device__ constexpr int ld_w2() {
   return sizeof(T) == 2 ? KC + 8 : KC + 1;
-}
-
-__host__ __device__ inline size_t up128(size_t v) {
-  return (v + 127) & ~static_cast<size_t>(127);
 }
 
 struct Layout {
@@ -115,27 +94,6 @@ __host__ __device__ inline Layout layout_of(int c, int nbuf) {
   return l;
 }
 
-// Issues copies of `count` 16-byte vectors from global to shared memory,
-// vector i from src(i) to dst(i); src(i) == nullptr zero-fills. cp.async
-// keeps all of a thread's copies in flight with no register round trip;
-// they land after cp_async_wait_all() and a __syncthreads().
-template <typename Src, typename Dst>
-__device__ __forceinline__ void copy_vec16(int count, const void* any_valid,
-                                           Src src, Dst dst) {
-  for (int i = threadIdx.x; i < count; i += THREADS) {
-    const void* p = src(i);
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst(i)));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(p ? p : any_valid), "r"(p ? 16 : 0)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // NFW: fc2 accumulator fragments per warp in the bf16 path (C = 32 * NFW);
 // unused (0) in the f32 path. nbuf: 2 double-buffers the weight chunks
 // (chunk k+1 is copied while chunk k computes), 1 when shared memory is
@@ -148,7 +106,7 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
                    const T* __restrict__ b1, const T* __restrict__ wdw,
                    const T* __restrict__ bdw, const T* __restrict__ w2,
                    const T* __restrict__ b2, T* __restrict__ y, int H, int W,
-                   int C, int Ch, int tiles_x, int nbuf) {
+                   int C, int Ch, int tiles_x, int nbuf, int residual) {
   using namespace nvcuda;
   constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -386,7 +344,14 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
     }
   }
 
-  // + b2 and store the tile's in-image pixels
+  // + b2 (+ x's centre pixel, still in the haloed patch xs, in f32) and
+  // store the tile's in-image pixels
+  auto finish_y = [&](int q, int c, float s) {
+    s += to_f(b2[c]);
+    if (residual)
+      s += to_f(xs[((q / TILE + 1) * HALO + q % TILE + 1) * ldx + c]);
+    return from_f<T>(s);
+  };
   T* yn = y + static_cast<size_t>(n) * H * W * C;
   if constexpr (kBf16) {
     const int mi = warp & 3;
@@ -403,7 +368,7 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
         const int gx = tx0 + q % TILE;
         if (gy < H && gx < W)
           yn[(static_cast<size_t>(gy) * W + gx) * C + c] =
-              from_f<T>(tile_out[e] + to_f(b2[c]));
+              finish_y(q, c, tile_out[e]);
       }
       __syncwarp();
     }
@@ -416,23 +381,22 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
       const int gx = tx0 + q % TILE;
       if (gy < H && gx < W)
         yn[(static_cast<size_t>(gy) * W + gx) * C + c] =
-            from_f<T>(extra[i] + to_f(b2[c]));
+            finish_y(q, c, extra[i]);
     }
   }
 }
 
 // Two staging buffers when they fit in the device's shared memory.
 template <typename T> int pick_nbuf(int C) {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return layout_of<T>(C, 2).total <= static_cast<size_t>(limit) ? 2 : 1;
+  return layout_of<T>(C, 2).total <= static_cast<size_t>(smem_optin_limit())
+             ? 2
+             : 1;
 }
 
 template <typename T, int NFW>
 int launch(const void* x, const void* w1, const void* b1, const void* wdw,
            const void* bdw, const void* w2, const void* b2, void* y, int N,
-           int H, int W, int C, int Ch, cudaStream_t stream) {
+           int H, int W, int C, int Ch, int residual, cudaStream_t stream) {
   const int nbuf = pick_nbuf<T>(C);
   const size_t smem = layout_of<T>(C, nbuf).total;
   auto kernel = van_mlp_kernel<T, NFW>;
@@ -447,7 +411,7 @@ int launch(const void* x, const void* w1, const void* b1, const void* wdw,
       static_cast<const T*>(b1), static_cast<const T*>(wdw),
       static_cast<const T*>(bdw), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<T*>(y), H, W, C, Ch, tiles_x,
-      nbuf);
+      nbuf, residual);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,19 +436,23 @@ extern "C" size_t rs_van_mlp_smem_bytes(int C, int dtype) {
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = success).
+// residual != 0 writes x + mlp(x) (y must not alias x: neighbouring tiles
+// read x's halo).
 extern "C" int rs_van_mlp_fwd(const void* x, const void* w1, const void* b1,
                               const void* wdw, const void* bdw, const void* w2,
                               const void* b2, void* y, int N, int H, int W,
-                              int C, int Ch, int dtype, void* stream) {
+                              int C, int Ch, int dtype, int residual,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, 0>(x, w1, b1, wdw, bdw, w2, b2, y, N, H, W, C, Ch, s);
+    return launch<float, 0>(x, w1, b1, wdw, bdw, w2, b2, y, N, H, W, C, Ch,
+                            residual, s);
   if (dtype != 1 || !bf16_width_supported(C))
     return static_cast<int>(cudaErrorInvalidValue);
 #define RS_VAN_MLP_CASE(k)                                                    \
   case k:                                                                     \
     return launch<__nv_bfloat16, k>(x, w1, b1, wdw, bdw, w2, b2, y, N, H, W, \
-                                    C, Ch, s);
+                                    C, Ch, residual, s);
   switch (C / 32) {
     RS_VAN_MLP_CASE(1)
     RS_VAN_MLP_CASE(2)

@@ -71,16 +71,24 @@ def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
         model.bbox_head.fc_reg.weight.normal_(0.0, 0.001, generator=g)
 
 
-def build_flagship(tiny: bool = False, device="cpu",
+def build_flagship(tiny: bool = False, device=None,
                    dtype: torch.dtype = torch.float32,
                    generator: Optional[torch.Generator] = None,
-                   train: bool = False) -> OrientedRCNN:
-    """Build the flagship on ``device``, computing in ``dtype``. For
+                   train: bool = False, fused: bool = False) -> OrientedRCNN:
+    """Build the flagship on ``device`` (None: the CUDA card, an error
+    where there is none), computing in ``dtype``. ``fused=True`` serves
+    with the fused VAN blocks (``van_attn`` + ``van_mlp_residual`` per
+    block; off by default, ignored in training). For
     inference (``train=False``) it is in eval mode with its parameters
     in ``dtype``; for training it is in train mode with f32 master
     parameters, and the activations are cast to ``dtype``. The weights
     are drawn on the CPU from ``generator`` (seed 0 if None), so one seed
     gives the same model on every device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card by "
+                               "default; pass device='cpu' to run on the CPU")
+        device = torch.device("cuda")
     if tiny:
         dims, depths, width, fc = (16, 32, 40, 64), (1, 1, 2, 1), 32, 64
         nms_pre, nms_post, cap = 256, 64, 512
@@ -88,7 +96,8 @@ def build_flagship(tiny: bool = False, device="cpu",
         dims, depths, width, fc = (64, 128, 320, 512), (3, 5, 27, 3), 256, 1024
         nms_pre, nms_post, cap = 2000, 2000, 4096
     model = OrientedRCNN(
-        backbone=VAN(embed_dims=dims, mlp_ratios=(8, 8, 4, 4), depths=depths),
+        backbone=VAN(embed_dims=dims, mlp_ratios=(8, 8, 4, 4), depths=depths,
+                     fused=fused),
         neck=FPN(in_channels=dims, out_channels=width, num_outs=5),
         rpn=OrientedRPNHead(in_channels=width, feat_channels=width,
                             anchor_generator=RPN_ANCHORS, nms_pre=nms_pre,

@@ -1,12 +1,20 @@
 """VAN (Visual Attention Network) backbone.
 
-Counterpart of ``rs_detection_tpu/models/backbones/van.py`` (the
-non-fused block branch). Public layout is the JAX one: NHWC images in,
+Counterpart of ``rs_detection_tpu/models/backbones/van.py``. Public layout is the JAX one: NHWC images in,
 a tuple of per-stage NHWC maps out. Inside, activations are NCHW
 tensors in ``channels_last`` memory, so ``permute(0, 2, 3, 1)`` hands
 the MLP kernel a contiguous NHWC buffer and cuDNN convs stay
 NHWC-native. Submodule and parameter names follow the flax tree, so
 ``utils/jax_weights.py`` maps one onto the other by name.
+
+``fused=True`` (off by default, ``RS_VAN_FUSED=1`` in the JAX package)
+is a serving mode: in eval each block is two fused calls, ``van_attn``
+(K4) and ``van_mlp_residual`` (K2r), with the eval-mode BatchNorms folded
+to affines and the layer scales and both residual adds inside the
+kernels. It makes no layout copy: a block's input is NCHW in
+channels_last memory, whose ``permute(0, 2, 3, 1)`` is the contiguous
+NHWC both kernels take. The parameters are the same in both modes.
+Training ignores the flag.
 
 In training (``model.train()``) BatchNorm uses batch statistics with the
 flax running update, the MLP runs its plain composition (K2 has no
@@ -26,8 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.van_attn import sa_core
-from ...ops.van_mlp import van_mlp, van_mlp_reference
+from ...ops.van_attn import sa_core, van_attn
+from ...ops.van_mlp import van_mlp, van_mlp_reference, van_mlp_residual
 from ..utils.modules import BatchNorm2d, DropPath, conv2d, frozen_stats
 
 
@@ -53,14 +61,19 @@ class SpatialAttention(nn.Module):
         self.sgu = LKA(dim)
         self.proj_2 = nn.Conv2d(dim, dim, 1)
 
-    def forward(self, h):
-        """h: NHWC -> NHWC."""
+    def weights(self, dtype):
+        """The ten tensors ``sa_core`` and ``van_attn`` take, in
+        ``dtype``."""
         s = self.sgu
-        return sa_core(h, *(t.to(h.dtype) for t in (
+        return tuple(t.to(dtype) for t in (
             self.proj_1.weight, self.proj_1.bias, s.conv0.weight,
             s.conv0.bias, s.conv_spatial.weight, s.conv_spatial.bias,
             s.conv1.weight, s.conv1.bias, self.proj_2.weight,
-            self.proj_2.bias)))
+            self.proj_2.bias))
+
+    def forward(self, h):
+        """h: NHWC -> NHWC."""
+        return sa_core(h, *self.weights(h.dtype))
 
 
 class Mlp(nn.Module):
@@ -85,11 +98,29 @@ class Mlp(nn.Module):
             return van_mlp_reference(*args)
         return van_mlp(*args)
 
+    def forward_fused(self, x, a2, b2, ls2):
+        """``x + ls2 * mlp(a2 * x + b2)`` on the raw block input x
+        (contiguous NHWC), as one ``van_mlp_residual``: the bn2 affine
+        folds into fc1 and the layer scale into fc2. The folds are made
+        in f32 and cast once, or bf16 would lose the ``w1 @ b2`` term at
+        wide C."""
+        hid, dim = self.fc1.weight.shape[:2]
+        dt = x.dtype
+        w1 = self.fc1.weight.view(hid, dim).float()
+        w2 = self.fc2.weight.view(dim, hid).float()
+        ls2 = ls2.float()
+        return van_mlp_residual(
+            x, (w1 * a2).to(dt),
+            (self.fc1.bias.float() + (w1 * b2).sum(1)).to(dt),
+            self.dwconv.weight.view(hid, 9).to(dt), self.dwconv.bias.to(dt),
+            (w2 * ls2[:, None]).to(dt), (self.fc2.bias.float() * ls2).to(dt))
+
 
 class VANBlock(nn.Module):
     def __init__(self, dim: int, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.norm1 = BatchNorm2d(dim)
         self.attn = SpatialAttention(dim)
         self.norm2 = BatchNorm2d(dim)
@@ -100,6 +131,15 @@ class VANBlock(nn.Module):
 
     def forward(self, x):
         """x: NCHW (channels_last) -> NCHW (channels_last)."""
+        if self.fused and not self.training:
+            # two kernels per block; the permutes are views both ways
+            xh = x.permute(0, 2, 3, 1)
+            xh = van_attn(xh, *self.norm1.folded_affine(),
+                          *self.attn.weights(x.dtype),
+                          self.layer_scale_1.to(x.dtype))
+            xh = self.mlp.forward_fused(xh, *self.norm2.folded_affine(),
+                                        self.layer_scale_2)
+            return xh.permute(0, 3, 1, 2)
         ls1 = self.layer_scale_1.to(x.dtype).view(1, -1, 1, 1)
         ls2 = self.layer_scale_2.to(x.dtype).view(1, -1, 1, 1)
         h = self.attn(self.norm1(x).permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -128,7 +168,7 @@ class VAN(nn.Module):
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  depths: Sequence[int] = (3, 5, 27, 3),
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, fused: bool = False):
         super().__init__()
         self.depths = tuple(depths)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
@@ -139,7 +179,7 @@ class VAN(nn.Module):
                 stride=4 if i == 0 else 2))
             for j in range(depth):
                 self.add_module(f"block{i + 1}_{j}", VANBlock(
-                    dim, mlp_ratios[i], float(dpr[cur + j])))
+                    dim, mlp_ratios[i], float(dpr[cur + j]), fused=fused))
             self.add_module(f"norm{i + 1}", nn.LayerNorm(dim, eps=1e-6))
             cin, cur = dim, cur + depth
 

@@ -65,6 +65,14 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y
 
+    def folded_affine(self):
+        """The eval-mode norm as an affine ``y = a * x + b`` over the
+        channels, ``(a, b)`` in f32 from the running statistics, so a
+        fused kernel can apply or absorb it."""
+        a = self.weight.float() / torch.sqrt(self.running_var.float()
+                                             + self.eps)
+        return a, self.bias.float() - self.running_mean.float() * a
+
 
 @contextlib.contextmanager
 def frozen_stats(*norms: BatchNorm2d):

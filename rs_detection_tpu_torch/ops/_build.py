@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``build/torch_kernels/`` at the repository root, named
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library
+lands in ``build/torch_kernels/`` at the repository root, named
 by a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads in milliseconds. Nothing here runs at import time:
 the CPU tests import every module without a CUDA toolkit.
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +32,12 @@ _L = ctypes.c_longlong
 # stream are c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "rs_van_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "rs_van_mlp_fwd": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "rs_van_mlp_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "rs_van_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "rs_van_attn_proj1": ([_P] * 6 + [_L, _I, _I, _P], _I),
+    "rs_van_attn_tail": ([_P] * 11 + [_L, _I, _I, _P], _I),
+    "rs_dw_conv_fwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "rs_dw_conv_fwd": ([_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
     "rs_roi_align_rotated_pyramid_fwd": (
         [_P] * 4 + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F, _P, _I, _I, _P],
         _I),
@@ -74,15 +80,37 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objs = {s: tmp.with_name(f"{tmp.name}.{s.stem}.o")
+            for s in _sources() if s.suffix == ".cu"}
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in objs.items()]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            output, _ = proc.communicate()
+            _check(cmd, proc.returncode, output)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs.values()]]
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        _check(cmd, done.returncode, done.stdout + done.stderr)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for o in objs.values():
+            o.unlink(missing_ok=True)
     os.replace(tmp, path)  # atomic: a concurrent process never sees a torn file
     return path
+
+
+def _check(cmd, returncode, output):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {returncode}):\n"
+                           f"{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)

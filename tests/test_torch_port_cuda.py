@@ -3,9 +3,10 @@ CUDA GPU: ``python -m pytest -m cuda --noconftest
 tests/test_torch_port_cuda.py`` (``--noconftest`` where jax is not
 installed: ``tests/conftest.py`` imports it). Without a GPU every test
 here skips; ``chip_smoke.py`` runs the same checks at the flagship
-shapes. Covers K1 and K2 (serving), K3 and K6 (training), the rule that
-a kernel wrapper never hands autograd a detached result, and the tiny
-config's predict and training step, CUDA against CPU."""
+shapes. Covers K1 and K2 (serving), K3 and K6 (training), K4, K2r, K5
+and K7's layout (fused serving), the rule that a kernel wrapper never
+hands autograd a detached result, and the tiny config's predict (fused
+and not) and training step, CUDA against CPU."""
 
 import pytest
 import torch
@@ -19,7 +20,15 @@ from rs_detection_tpu_torch.ops.roi_align import (
     roi_align_rotated_pyramid, roi_align_rotated_pyramid_bwd_cuda,
     roi_align_rotated_pyramid_bwd_reference, roi_align_rotated_pyramid_cuda,
     roi_align_rotated_pyramid_reference)
-from rs_detection_tpu_torch.ops.van_mlp import van_mlp_cuda, van_mlp_reference
+from rs_detection_tpu_torch.ops.dwconv import (
+    depthwise_conv2d, depthwise_conv2d_cuda, depthwise_conv2d_reference,
+    dw_chw_cuda, dw_chw_reference)
+from rs_detection_tpu_torch.ops.van_attn import (van_attn_cuda,
+                                                 van_attn_reference)
+from rs_detection_tpu_torch.ops.van_mlp import (van_mlp_cuda,
+                                                van_mlp_reference,
+                                                van_mlp_residual_cuda,
+                                                van_mlp_residual_reference)
 from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
 from rs_detection_tpu_torch.optims.optimizer import AdamW
 from rs_detection_tpu_torch.parallel.train_step import train_step
@@ -99,7 +108,7 @@ def test_tiny_predict_cuda_matches_cpu(dev):
     tiles = torch.randint(0, 256, (2, 128, 128, 3),
                           generator=torch.Generator().manual_seed(2),
                           dtype=torch.uint8)
-    cpu = build_flagship(tiny=True).predict(normalize(tiles))
+    cpu = build_flagship(tiny=True, device="cpu").predict(normalize(tiles))
     gpu = build_flagship(tiny=True, device=dev).predict(
         normalize(tiles.to(dev)))
     assert torch.equal(gpu["valid"].cpu(), cpu["valid"])
@@ -218,3 +227,154 @@ def test_tiny_train_step_cuda_matches_cpu(dev):
             continue
         scale = max(a.abs().max().item(), g_gpu[k].abs().max().item(), 1e-12)
         assert (g_gpu[k] - a).abs().max().item() <= 1e-3 * scale, k
+
+
+def _mlp_args(dev, shape, dtype, seed=0):
+    n, h, w, c, ch = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)
+
+    return (r(n, h, w, c), r(ch, c, scale=c ** -0.5), r(ch, scale=0.1),
+            r(ch, 9, scale=1 / 3), r(ch, scale=0.1),
+            r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 9, 11, 32, 64), torch.float32),
+    ((2, 13, 17, 64, 512), torch.bfloat16),
+    ((1, 8, 8, 512, 2048), torch.bfloat16)])
+def test_van_mlp_residual_kernel_matches_plain(dev, shape, dtype):
+    """K2r: the kernel's residual flag, against ``x + mlp(x)`` summed in
+    f32; its launches count apart from K2's."""
+    args = _mlp_args(dev, shape, dtype, seed=8)
+    before, before_k2 = van_mlp_residual_cuda.launches, van_mlp_cuda.launches
+    got = van_mlp_residual_cuda(*args)
+    torch.cuda.synchronize()
+    assert van_mlp_residual_cuda.launches == before + 1
+    assert van_mlp_cuda.launches == before_k2
+    _assert_close(got, van_mlp_residual_reference(*args), dtype)
+
+
+def _attn_args(dev, shape, dtype, seed=9):
+    n, h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, scale=1.0, dt=dtype):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dt)
+
+    f32, mix = torch.float32, c ** -0.5
+    return (r(n, h, w, c, scale=0.5), 1 + r(c, scale=0.1, dt=f32),
+            r(c, scale=0.1, dt=f32), r(c, c, 1, 1, scale=mix),
+            r(c, scale=0.1), r(c, 1, 5, 5, scale=0.2), r(c, scale=0.1),
+            r(c, 1, 7, 7, scale=1 / 7), r(c, scale=0.1),
+            r(c, c, 1, 1, scale=mix), r(c, scale=0.1),
+            r(c, c, 1, 1, scale=mix), r(c, scale=0.1), r(c, scale=0.3))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 13, 16, 32), torch.float32),      # H no multiple of any tile
+    ((2, 24, 20, 32), torch.float32),
+    ((2, 9, 7, 40), torch.float32),        # C no multiple of 32
+    ((2, 30, 41, 64), torch.bfloat16),
+    ((1, 16, 16, 320), torch.bfloat16),
+    ((1, 8, 8, 512), torch.bfloat16)])
+def test_van_attn_kernel_matches_plain(dev, shape, dtype):
+    """K4 against bn1 affine + ``sa_core`` + layer scale + residual. bf16
+    rounds at fewer points in the kernel than in the plain chain."""
+    args = _attn_args(dev, shape, dtype)
+    before = van_attn_cuda.launches
+    before_dw = depthwise_conv2d_cuda.launches
+    got = van_attn_cuda(*args)
+    torch.cuda.synchronize()
+    assert van_attn_cuda.launches == before + 1
+    assert depthwise_conv2d_cuda.launches == before_dw + 2  # dw5, dw7d3
+    _assert_close(got, van_attn_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("k,d", [(3, 1), (5, 1), (7, 3)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_depthwise_conv2d_kernel_matches_plain(dev, k, d, dtype, tol):
+    """K5 and its ``[N, H, C, W]`` form against ``F.conv2d``: odd sizes,
+    a ragged channel tile, f32 tap sums and one rounding on both sides
+    (one bf16 ulp of the largest value)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(2, 37, 45, 40, generator=g, device=dev).to(dtype)
+    w = (torch.randn(k, k, 40, generator=g, device=dev) / k).to(dtype)
+    before = depthwise_conv2d_cuda.launches
+    got = depthwise_conv2d_cuda(x, w, k, d)
+    torch.cuda.synchronize()
+    assert depthwise_conv2d_cuda.launches == before + 1
+    ref = depthwise_conv2d_reference(x, w, k, d)
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+    xc = x.permute(0, 1, 3, 2).contiguous()
+    wc = w.reshape(k * k, 40).t().contiguous()
+    before = dw_chw_cuda.launches
+    got = dw_chw_cuda(xc, wc, k, d)
+    torch.cuda.synchronize()
+    assert dw_chw_cuda.launches == before + 1
+    ref = dw_chw_reference(xc, wc, k, d)
+    assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+def test_depthwise_conv2d_gradients_match_plain(dev):
+    """``dx`` (K5 on the flipped taps) and ``dw`` (K6) against autograd
+    of the plain version, f32."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(2, 21, 19, 40, generator=g, device=dev)
+    w = torch.randn(7, 7, 40, generator=g, device=dev) / 7
+    gr = torch.randn(2, 21, 19, 40, generator=g, device=dev)
+    grads = []
+    for fn in (depthwise_conv2d, depthwise_conv2d_reference):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(xg, wg, 7, 3), (xg, wg), gr))
+    for got, ref, tol in zip(grads[0], grads[1], (1e-5, 1e-4)):
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_fused_wrappers_refuse_inputs_that_require_grad(dev):
+    attn = list(_attn_args(dev, (1, 6, 6, 32), torch.float32))
+    attn[3].requires_grad_()
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        van_attn_cuda(*attn)
+    mlp = list(_mlp_args(dev, (1, 4, 4, 32, 64), torch.float32))
+    mlp[5].requires_grad_()
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        van_mlp_residual_cuda(*mlp)
+    x = torch.randn(1, 6, 6, 32, device=dev, requires_grad=True)
+    w = torch.randn(5, 5, 32, device=dev)
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        depthwise_conv2d_cuda(x, w, 5, 1)
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        dw_chw_cuda(x, torch.randn(6, 25, device=dev), 5, 1)
+    assert depthwise_conv2d(x, w, 5, 1).grad_fn is not None
+    with torch.no_grad():
+        assert van_attn_cuda(*attn).grad_fn is None
+        assert van_mlp_residual_cuda(*mlp).grad_fn is None
+
+
+def test_tiny_fused_predict_cuda_matches_cpu(dev):
+    """The fused serving mode of the tiny config: CUDA (K4, K2r, K5, K1)
+    against the CPU (plain versions), and against the non-fused mode on
+    CUDA; f32 with TF32 off."""
+    tiles = torch.randint(0, 256, (2, 128, 128, 3),
+                          generator=torch.Generator().manual_seed(2),
+                          dtype=torch.uint8)
+    cpu = build_flagship(tiny=True, device="cpu", fused=True).predict(
+        normalize(tiles))
+    before = van_attn_cuda.launches, van_mlp_residual_cuda.launches
+    gpu = build_flagship(tiny=True, device=dev, fused=True).predict(
+        normalize(tiles.to(dev)))
+    assert van_attn_cuda.launches == before[0] + 5          # 5 blocks
+    assert van_mlp_residual_cuda.launches == before[1] + 5
+    plain = build_flagship(tiny=True, device=dev).predict(
+        normalize(tiles.to(dev)))
+    for ref in (cpu, plain):
+        assert torch.equal(gpu["valid"].cpu(), ref["valid"].cpu())
+        torch.testing.assert_close(gpu["scores"].cpu(), ref["scores"].cpu(),
+                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(gpu["polys"].cpu(), ref["polys"].cpu(),
+                                   rtol=0, atol=1e-2)

@@ -78,7 +78,7 @@ def tiny_pair():
     variables = jax.jit(lambda i: model.init(
         {"params": jax.random.PRNGKey(0)}, i))(x)
     variables = perturb(variables, seed=3)
-    port = build_flagship(tiny=True)
+    port = build_flagship(tiny=True, device="cpu")
     load_jax_variables(port, variables)
     return model, variables, port
 
@@ -93,7 +93,7 @@ def test_bridge_covers_every_tensor(tiny_pair):
 
 def test_bridge_rejects_missing_and_misshapen(tiny_pair):
     _, variables, _ = tiny_pair
-    port = build_flagship(tiny=True)
+    port = build_flagship(tiny=True, device="cpu")
     short = {c: dict(t) for c, t in variables.items()}
     short["params"] = {k: v for k, v in short["params"].items()
                        if k != "rpn"}
@@ -141,9 +141,9 @@ def test_port_imports_no_jax():
             "from rs_detection_tpu_torch.optims.optimizer import AdamW\n"
             "from rs_detection_tpu_torch.parallel.train_step import "
             "train_step\n"
-            "m = build_flagship(tiny=True)\n"
+            "m = build_flagship(tiny=True, device='cpu')\n"
             "m.predict(torch.zeros(1, 64, 64, 3))\n"
-            "m = build_flagship(tiny=True, train=True)\n"
+            "m = build_flagship(tiny=True, device='cpu', train=True)\n"
             "g = torch.Generator().manual_seed(0)\n"
             "train_step(m, AdamW(m.parameters()), StepLR([7, 10]),\n"
             "           torch.zeros(1, 64, 64, 3), make_targets(1, 64, 4, g),"

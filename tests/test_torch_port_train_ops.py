@@ -449,9 +449,16 @@ def test_roi_align_plain_backward_matches_jax_vjp():
                      [jnp.asarray(f) for f in feats])
     (ref,) = vjp(jnp.asarray(g))
     leaves = [t(f).requires_grad_() for f in feats]
-    roi_align_rotated_pyramid(leaves, t(rois)).backward(t(g))
-    plain = roi_align_rotated_pyramid_bwd_reference(
-        [t(f) for f in feats], t(rois), t(g))
+    # on the CPU ``index_put_(accumulate=True)`` otherwise adds with atomics
+    # from several threads, in an order that changes with the machine's
+    # load: the two backward passes below then differ by a few ulps
+    torch.use_deterministic_algorithms(True)
+    try:
+        roi_align_rotated_pyramid(leaves, t(rois)).backward(t(g))
+        plain = roi_align_rotated_pyramid_bwd_reference(
+            [t(f) for f in feats], t(rois), t(g))
+    finally:
+        torch.use_deterministic_algorithms(False)
     for lf, p, r in zip(leaves, plain, ref):
         np.testing.assert_allclose(lf.grad.numpy(), np.asarray(r), atol=1e-4)
         np.testing.assert_allclose(p.numpy(), lf.grad.numpy(), atol=1e-6)

@@ -128,7 +128,7 @@ def one_step():
         stats=jax_to_state_dict({"batch_stats": jax.tree_util.tree_map(
             np.asarray, new_state.batch_stats["batch_stats"])}))
 
-    port = build_flagship(tiny=True, train=True)
+    port = build_flagship(tiny=True, device="cpu", train=True)
     load_jax_variables(port, variables)
     port.rpn.sampler = RandomSampler(num=RPN_TAKE_ALL, pos_fraction=1.0)
     port.bbox_head.sampler = RandomSampler(
