@@ -46,6 +46,23 @@ Phases, each of which raises (exit code 1) on failure:
  15. the fused serving path: as phase 6 with ``build_flagship(fused=
      True)``; every forward must go through K4 38 times, K2r 38 times,
      K5's kernel 76 times (inside K4), K1 once and K2 never
+ 16. K2q, the int8 form of the MLP kernel, and its residual form against
+     their plain version (the kernel's tile group of activation scales)
+     at the four stage shapes (bf16) and one small odd f32 shape; also
+     prints the quantization error against the float MLP
+ 17. the integer products of the int8 mode outside the kernel
+     (``int_matmul``, ``int_conv2d``) on the card against the CPU, bit
+     for bit in their s32 sums, at a stage-3 mix and the FPN 3x3 conv
+ 18. the tiny config served int8 on CUDA (kernels) against the CPU (plain
+     versions, same scale groups), non-fused and fused: the first block
+     on one input, the backbone per pyramid level, ``predict``; and the
+     int8 backbone against the float one on CUDA
+ 19. the int8 serving path: as phase 6 with ``build_flagship(int8=
+     True)``; every forward must go through K2q 38 times, K1 once and
+     K2, K2r, K4 never
+ 20. the fused int8 serving path (3 requests): K4 38, the residual form
+     of K2q 38, K5's kernel 76, K1 once, K2, K2r and K2q's plain form
+     never
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one), the card's name and power limit, and last ``{"ok": true,
@@ -89,9 +106,26 @@ K5_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # product at the same points, but the plain chain also rounds c1, p2, the
 # inner shortcut and the layer-scale product, and sums in another order
 K4_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K2q against its plain version: the same scale groups and the same
+# arithmetic; the s32 sums are exact and the dequantization is written to be
+# bit-equal, so what differs is f32 rounding in the depthwise sum and the
+# erf, ~1e-7 relative. A quantizer is a step function: a value that close to
+# a rounding boundary lands one int8 step apart on the two sides (about 1e-5
+# of the GELU outputs). One step moves an output by at most sg * max|w2|
+# (sg = max|g| / 127 of the chunk), some 1e-3 of the largest output. In f32
+# that is the whole difference (5e-3 leaves room for a few steps in one
+# output). In bf16 it carries an output across a rounding boundary now and
+# then: one bf16 ulp of the largest value, at most 2^-7 of it. An output
+# sums Ch quantized values, so about Ch * 1e-5 of the outputs see a step at
+# all (2% at Ch = 2048): at most INT8_SHARE of the elements may differ by
+# more than one bf16 ulp of themselves (in f32: by more than 1e-5 of the
+# largest value, 100x the summation noise).
+INT8_TOL = {"bfloat16": 1e-2, "float32": 5e-3}
+INT8_SHARE = 0.03
 # published peaks of one H100 SXM: HBM bytes/s, dense bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# FLOP/s, dense int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_INT8, PEAK_F32 = 3.35e12, 989e12, 1979e12, 67e12
+INT8_REQUESTS_FUSED = 3  # timed requests of the fused int8 serving path
 DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
     + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
     + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
@@ -125,12 +159,13 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, tc_flops=0.0, f32_flops=0.0):
+def bound(nbytes, tc_flops=0.0, f32_flops=0.0, int8_ops=0.0):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over the memory rate and each kind of
     operation over its peak rate."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(tc_flops / PEAK_BF16, f32_flops / PEAK_F32)
+    t_ops = max(tc_flops / PEAK_BF16, f32_flops / PEAK_F32,
+                int8_ops / PEAK_INT8)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -166,6 +201,15 @@ def compare(name, kernel, plain, dtype_name, rel_tol=REL_TOL):
     return err
 
 
+def mlp_inputs(torch, g, n, h, w, c, ch, dt):
+    """Seeded VAN MLP operands on the generator's device."""
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=g.device) * scale).to(dt)
+    return (r(n, h, w, c), r(ch, c, scale=c ** -0.5), r(ch, scale=0.1),
+            r(ch, 9, scale=1 / 3), r(ch, scale=0.1),
+            r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
+
+
 def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
     """The MLP kernel (``name`` K2) or its residual form (K2r) against
     its plain version; returns (max error, kernel ms, plain ms, bound)
@@ -173,11 +217,7 @@ def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
     g = torch.Generator(device=dev).manual_seed(1)
 
     def inputs(n, h, c, ch, dt):
-        def r(*s, scale=1.0):
-            return (torch.randn(*s, generator=g, device=dev) * scale).to(dt)
-        return (r(n, h, h, c), r(ch, c, scale=c ** -0.5), r(ch, scale=0.1),
-                r(ch, 9, scale=1 / 3), r(ch, scale=0.1),
-                r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
+        return mlp_inputs(torch, g, n, h, h, c, ch, dt)
 
     err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
     for h, c, ch, blocks in STAGES:
@@ -203,6 +243,143 @@ def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
     compare(f"{name} [2,21,21,32] Ch=96 f32", van_mlp_cuda(*args),
             van_mlp_reference(*args), "float32")
     return err_max, ms, plain_ms, add_bounds(bounds)
+
+
+def compare_int8(torch, name, kernel, plain, fp, dtype_name):
+    """K2q against its plain version, by INT8_TOL and INT8_SHARE; also
+    prints its distance from the float MLP ``fp``, the quantization
+    error itself. Returns the max abs error against the plain version."""
+    k, p = kernel.float(), plain.float()
+    diff = (k - p).abs()
+    scale = p.abs().max().item()
+    err = diff.max().item()
+    if dtype_name == "bfloat16":  # |v| = m * 2^e, m in [0.5, 1): ulp 2^(e-8)
+        ulp = torch.ldexp(torch.ones_like(p), torch.frexp(
+            p.abs().clamp(min=1e-3 * scale)).exponent - 8)
+    else:
+        ulp = torch.full_like(p, 1e-5 * scale)
+    share = (diff > ulp).float().mean().item()
+    qerr = (k - fp.float()).abs().max().item() / fp.float().abs().max().item()
+    tol = INT8_TOL[dtype_name] * max(scale, 1e-6)
+    ok = err <= tol and share <= INT8_SHARE and math.isfinite(err)
+    log(f"  {name}: max_abs_err {err:.3e}, max|plain| {scale:.3e}, tolerance "
+        f"{tol:.3e}; {100 * share:.3f}% of the elements differ by more than "
+        f"one ulp (limit {100 * INT8_SHARE:.0f}%); {100 * qerr:.2f}% of the "
+        f"largest value from the float MLP -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    if not 1e-3 < qerr < 5e-2:
+        raise AssertionError(f"{name}: {qerr:.3e} from the float MLP is not "
+                             f"an int8 quantization error")
+    return err
+
+
+def phase_k2q(torch, vm, dev, residual):
+    """K2q (or, with ``residual``, its residual form) against the plain
+    version with the kernel's scale groups; returns (max error, kernel
+    ms, plain ms, bound) per forward, each shape weighed by its block
+    count. The kernel's time includes the per-call weight quantization
+    of its wrapper."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    if residual:
+        name, kernel = "K2q residual", vm.van_mlp_residual_int8_cuda
+        plain, fp = (vm.van_mlp_residual_int8_reference,
+                     vm.van_mlp_residual_reference)
+    else:
+        name, kernel = "K2q", vm.van_mlp_int8_cuda
+        plain, fp = vm.van_mlp_int8_reference, vm.van_mlp_reference
+    err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    for h, c, ch, blocks in STAGES:
+        args = mlp_inputs(torch, g, BATCH, h, h, c, ch, torch.bfloat16)
+        err = compare_int8(torch, f"{name} [{BATCH},{h},{h},{c}] Ch={ch} bf16",
+                           kernel(*args), plain(*args), fp(*args), "bfloat16")
+        t_plain = cuda_ms(lambda: plain(*args), 3)
+        t_kernel = cuda_ms(lambda: kernel(*args), 5)
+        pixels = BATCH * h * h
+        # x and the float weights read, y written; two 1x1 products in
+        # int8 on the tensor cores, the 3x3 taps in f32
+        b = bound(nbytes(*args) + nbytes(args[0]), 0.0, 18.0 * pixels * ch,
+                  4.0 * pixels * c * ch)
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]} (x{blocks} blocks per forward)")
+        err_max = max(err_max, err)
+        ms += blocks * t_kernel
+        plain_ms += blocks * t_plain
+        bounds += [b] * blocks
+        del args
+    # H and W no multiples of the tile: border tiles, the zero padding
+    args = mlp_inputs(torch, g, 2, 21, 19, 32, 96, torch.float32)
+    compare_int8(torch, f"{name} [2,21,19,32] Ch=96 f32", kernel(*args),
+                 plain(*args), fp(*args), "float32")
+    b = add_bounds(bounds)
+    log(f"  {name} per forward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b[0]:.3f} ms by {b[1]}")
+    return err_max, ms, plain_ms, b
+
+
+def phase_int_products(torch, quant, dev):
+    """``int_matmul`` and ``int_conv2d`` on the card against the CPU: the
+    s8 operands and the s32 sums bit for bit, at the mix of a stage-3
+    attention ([8*64*64, 320] x [320, 320]) and the FPN 3x3 conv at 256
+    channels on [4, 128, 128] (the flagship's is [8, 256, 256], cut to
+    what the CPU sums in seconds); then the dequantized outputs."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(18)
+    bf16 = torch.bfloat16
+
+    def same(what, a, b):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{what}: CUDA and CPU differ")
+
+    x = torch.randn(BATCH * 64 * 64, 320, generator=g).to(bf16)
+    w = (torch.randn(320, 320, generator=g) * 320 ** -0.5).to(bf16)
+    bias = (torch.randn(320, generator=g) * 0.1).to(bf16)
+    (xq, sx), (wq, sw) = quant.qact(x), quant.qweight(w)
+    (xq_d, sx_d), (wq_d, sw_d) = quant.qact(x.to(dev)), quant.qweight(
+        w.to(dev))
+    for what, a, b in (("qact values", xq, xq_d), ("qact scale", sx, sx_d),
+                       ("qweight values", wq, wq_d),
+                       ("qweight scales", sw, sw_d)):
+        same(what, a, b)
+    acc = quant.int_matmul(xq, wq.t())
+    same("int_matmul s32 sums", acc, quant.int_matmul(xq_d, wq_d.t()))
+    y = quant.int8_channel_matmul(x, w, bias)
+    y_d = quant.int8_channel_matmul(x.to(dev), w.to(dev), bias.to(dev))
+    err = (y.float() - y_d.cpu().float()).abs().max().item()
+    log(f"  int8_channel_matmul {list(x.shape)} x [320, 320]: s8 operands "
+        f"and s32 sums (|sum| up to {acc.abs().max().item()}) bit-equal on "
+        f"CUDA and CPU; outputs differ by {err:.3e}")
+    if err != 0.0:
+        raise AssertionError("int8_channel_matmul: outputs differ")
+
+    x = torch.randn(4, 256, 128, 128, generator=g).to(bf16) \
+        .contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(256, 256, 3, 3, generator=g) / 48).to(bf16)
+    bias = (torch.randn(256, generator=g) * 0.1).to(bf16)
+    xq, wq = quant.qact(x.permute(0, 2, 3, 1))[0], quant.qweight(w)[0]
+    for stride in (1, 2):
+        acc = quant.int_conv2d(xq, wq, (stride, stride), (1, 1))
+        same(f"int_conv2d stride {stride} s32 sums", acc, quant.int_conv2d(
+            xq.to(dev), wq.to(dev), (stride, stride), (1, 1)))
+        # the tap sum itself against the library's integer conv on the CPU
+        ref = F.conv2d(xq[:1, :32, :32].permute(0, 3, 1, 2).int(), wq.int(),
+                       None, stride, 1).permute(0, 2, 3, 1)
+        same(f"int_conv2d stride {stride} against F.conv2d on int32",
+             quant.int_conv2d(xq[:1, :32, :32].to(dev), wq.to(dev),
+                              (stride, stride), (1, 1)), ref)
+    y = quant.int8_conv(x, w, bias, (1, 1), (1, 1))
+    y_d = quant.int8_conv(x.to(dev), w.to(dev), bias.to(dev), (1, 1), (1, 1))
+    err = (y.float() - y_d.cpu().float()).abs().max().item()
+    xd, wd, bd = x.to(dev), w.to(dev), bias.to(dev)
+    t_int8 = cuda_ms(lambda: quant.int8_conv(xd, wd, bd, (1, 1), (1, 1)), 3)
+    t_fp = cuda_ms(lambda: F.conv2d(xd, wd, bd, 1, 1), 3)
+    log(f"  int8_conv 3x3 [4,128,128,256] -> 256, strides 1 and 2: s32 sums "
+        f"(|sum| up to {acc.abs().max().item()}) bit-equal on CUDA and CPU "
+        f"and equal to F.conv2d on int32; outputs differ by {err:.3e}; "
+        f"int8_conv {t_int8:.3f} ms, F.conv2d bf16 {t_fp:.3f} ms")
+    if err != 0.0:
+        raise AssertionError("int8_conv: outputs differ")
 
 
 def flagship_rois(torch, n, r, img, dev, seed):
@@ -272,17 +449,82 @@ def phase_slice(torch, build_flagship, normalize, dev, fused=False):
                                      f"by {err}")
 
 
+def phase_slice_int8(torch, build_flagship, normalize, dev, fused):
+    """The tiny config served int8, CUDA (kernels) against the CPU (plain
+    versions with the kernels' scale groups), f32.
+
+    An int8 step that the two devices' f32 noise sets off (a value
+    within ~1e-7 of a rounding boundary) moves its neighbourhood by
+    ~1e-3 of the tensor's largest value, which sets off further steps in
+    the next layer, so after a few blocks the two runs carry independent
+    quantization noise and agree only as closely as int8 agrees with
+    float. So: the first block on one input, where steps are still rare
+    (at most 2% of the elements off by more than 1e-5 of the largest
+    value, none by more than 4 steps of 1/127); the whole backbone, CUDA
+    against CPU, within relative difference 0.05 and correlation 0.999
+    per level, and int8 against float on CUDA within the JAX package's
+    own bound (0.15, 0.995; tests/test_int8_serving.py); ``predict``
+    without regard to rank (that noise reorders near-tied proposals):
+    the count of valid slots within 2%, per class the sorted scores
+    within 0.05."""
+    g = torch.Generator().manual_seed(5)
+    tiles = torch.randint(0, 256, (2, 128, 128, 3), generator=g,
+                          dtype=torch.uint8)
+    images = normalize(tiles)
+    cpu = build_flagship(tiny=True, device="cpu", fused=fused, int8=True)
+    gpu = build_flagship(tiny=True, device=dev, fused=fused, int8=True)
+    fp = build_flagship(tiny=True, device=dev, fused=fused)
+    mode = "fused int8" if fused else "int8"
+    with torch.no_grad():
+        stem = cpu.backbone.patch_embed1(images.permute(0, 3, 1, 2))
+        ref = cpu.backbone.block1_0(stem)
+        got = gpu.backbone.block1_0(stem.to(dev)).cpu()
+        diff, scale = (got - ref).abs(), ref.abs().max().item()
+        share = (diff > 1e-5 * scale).float().mean().item()
+        log(f"  tiny {mode}, first block on one input, CUDA vs CPU: "
+            f"max_abs_err {diff.max().item():.3e} (limit "
+            f"{4 * scale / 127:.3e}), {100 * share:.3f}% of the elements "
+            f"off by more than 1e-5 of the largest (limit 2%)")
+        if not (diff.max().item() <= 4 * scale / 127 and share <= 0.02):
+            raise AssertionError(f"tiny {mode}: first block differs")
+        feats = {"CPU": cpu.backbone(images),
+                 "CUDA": [f.cpu() for f in gpu.backbone(images.to(dev))],
+                 "float": [f.cpu() for f in fp.backbone(images.to(dev))]}
+    for what, other, max_rel, min_corr in (("CUDA vs CPU", "CPU", 0.05, 0.999),
+                                           ("int8 vs float on CUDA", "float",
+                                            0.15, 0.995)):
+        for lvl, (q, r) in enumerate(zip(feats["CUDA"], feats[other])):
+            rel = ((q - r).abs().max() / r.abs().max()).item()
+            corr = torch.corrcoef(torch.stack(
+                [r.flatten(), q.flatten()]))[0, 1].item()
+            log(f"  tiny {mode} backbone, {what}, level {lvl}: relative "
+                f"difference {rel:.5f} (< {max_rel}), correlation "
+                f"{corr:.6f} (> {min_corr})")
+            if not (rel < max_rel and corr > min_corr):
+                raise AssertionError(f"tiny {mode} backbone, {what}, differs")
+    out_cpu = cpu.predict(images)
+    out_gpu = gpu.predict(images.to(dev))
+    n_cpu, n_gpu = int(out_cpu["valid"].sum()), int(out_gpu["valid"].sum())
+    err = (out_gpu["scores"].cpu().sort(dim=1).values
+           - out_cpu["scores"].sort(dim=1).values).abs().max().item()
+    log(f"  tiny {mode} predict, CUDA vs CPU: {n_gpu} and {n_cpu} valid "
+        f"slots, sorted scores per class differ by {err:.3e} (limit 0.05)")
+    if abs(n_cpu - n_gpu) > out_cpu["valid"].numel() // 50 or not err <= 0.05:
+        raise AssertionError(f"tiny {mode} predict differs")
+
+
 def phase_main(torch, build_flagship, normalize, kernels, dev, card,
-               fused=False):
+               fused=False, int8=False, n_requests=REQUESTS):
     """The serving path at full width; ``kernels`` maps names to the
     wrappers whose launches count. Returns the launches of the timed
-    requests, tiles/s and peak memory in GiB."""
+    requests, tiles/s, peak memory in GiB and the median request in ms."""
     model = build_flagship(tiny=False, device=dev, dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(0),
-                           fused=fused)
+                           fused=fused, int8=int8)
     rng = torch.Generator().manual_seed(6)
     requests = [torch.randint(0, 256, (BATCH, TILE, TILE, 3), generator=rng,
-                              dtype=torch.uint8) for _ in range(REQUESTS + 1)]
+                              dtype=torch.uint8)
+                for _ in range(n_requests + 1)]
 
     def serve(tiles_u8):
         return model.predict(normalize(tiles_u8.to(dev, non_blocking=True)))
@@ -304,12 +546,12 @@ def phase_main(torch, build_flagship, normalize, kernels, dev, card,
     n_blocks = sum(s[3] for s in STAGES)
     per_forward = dict.fromkeys(kernels, 0)
     per_forward["roi_align_rotated_pyramid"] = 1
+    mlp = "van_mlp" + ("_residual" if fused else "") + ("_int8" if int8
+                                                         else "")
+    per_forward[mlp] = n_blocks
     if fused:  # K4 runs K5's kernel twice (dw5, dilated dw7)
-        per_forward.update(van_attn=n_blocks, van_mlp_residual=n_blocks,
-                           depthwise_conv2d=2 * n_blocks)
-    else:
-        per_forward["van_mlp"] = n_blocks
-    want = {k: v * REQUESTS for k, v in per_forward.items()}
+        per_forward.update(van_attn=n_blocks, depthwise_conv2d=2 * n_blocks)
+    want = {k: v * n_requests for k, v in per_forward.items()}
     if launches != want:
         raise AssertionError(f"main path kernel launches {launches}, "
                              f"expected {want}")
@@ -325,17 +567,18 @@ def phase_main(torch, build_flagship, normalize, kernels, dev, card,
         if not ((out["scores"] >= 0) & (out["scores"] <= 1)).all():
             raise AssertionError("main path scores outside [0, 1]")
     valid = sum(int(o["valid"].sum()) for o in outs)
-    tiles_s = REQUESTS * BATCH / dt
+    tiles_s = n_requests * BATCH / dt
     times.sort()
-    mode = "fused VAN blocks" if fused else "non-fused VAN blocks"
-    log(f"  VAN-b3 Oriented R-CNN bf16, {mode}: {REQUESTS} requests of "
+    mode = ("fused VAN blocks" if fused else "non-fused VAN blocks") + (
+        ", int8 serving mode" if int8 else "")
+    log(f"  VAN-b3 Oriented R-CNN bf16, {mode}: {n_requests} requests of "
         f"{BATCH}x{TILE}^2 uint8 tiles in {dt:.3f} s = {tiles_s:.2f} tiles/s "
         f"(request ms min {1e3 * times[0]:.1f}, median "
         f"{1e3 * times[len(times) // 2]:.1f}, max {1e3 * times[-1]:.1f}), "
         f"peak memory {peak / 2**30:.2f} GiB, {valid} valid detection "
         f"slots [{card}]")
     log(f"  launches in the timed requests: {launches}")
-    return launches, tiles_s, peak / 2**30
+    return launches, tiles_s, peak / 2**30, 1e3 * times[len(times) // 2]
 
 
 def phase_k3(torch, ra, dev):
@@ -752,6 +995,7 @@ def main():
     from rs_detection_tpu_torch.ops import _build
     from rs_detection_tpu_torch.ops import dw_conv as dwc
     from rs_detection_tpu_torch.ops import dwconv as dw
+    from rs_detection_tpu_torch.ops import quant
     from rs_detection_tpu_torch.ops import roi_align as ra
     from rs_detection_tpu_torch.ops import van_attn as va
     from rs_detection_tpu_torch.ops import van_mlp as vm
@@ -771,6 +1015,8 @@ def main():
 
     serving = {"van_mlp": vm.van_mlp_cuda,
                "van_mlp_residual": vm.van_mlp_residual_cuda,
+               "van_mlp_int8": vm.van_mlp_int8_cuda,
+               "van_mlp_residual_int8": vm.van_mlp_residual_int8_cuda,
                "van_attn": va.van_attn_cuda,
                "depthwise_conv2d": dw.depthwise_conv2d_cuda,
                "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda}
@@ -782,7 +1028,8 @@ def main():
     log("[5] tiny config predict: CUDA (kernels) vs CPU (plain), f32")
     phase_slice(torch, build_flagship, normalize, dev)
     log("[6] serving path")
-    launches, plain_tiles_s, plain_peak = phase_main(
+    modes = {}
+    launches, *modes["non-fused"] = phase_main(
         torch, build_flagship, normalize, serving, dev, card)
     log("[7] K3 RoIAlign backward vs plain, K1/K3 adjointness")
     k3 = phase_k3(torch, ra, dev)
@@ -809,11 +1056,28 @@ def main():
     log("[14] tiny config fused predict: CUDA vs CPU, fused vs non-fused")
     phase_slice(torch, build_flagship, normalize, dev, fused=True)
     log("[15] fused serving path")
-    fused_launches, fused_tiles_s, fused_peak = phase_main(
+    fused_launches, *modes["fused"] = phase_main(
         torch, build_flagship, normalize, serving, dev, card, fused=True)
-    log(f"  serving, same run: fused {fused_tiles_s:.2f} tiles/s at "
-        f"{fused_peak:.2f} GiB, non-fused {plain_tiles_s:.2f} tiles/s at "
-        f"{plain_peak:.2f} GiB [{card}]")
+    log("[16] K2q int8 form of the VAN MLP kernel, and its residual form, "
+        "vs plain")
+    k2q = phase_k2q(torch, vm, dev, residual=False)
+    k2qr = phase_k2q(torch, vm, dev, residual=True)
+    log("[17] integer products of the int8 mode: CUDA vs CPU, bit for bit")
+    phase_int_products(torch, quant, dev)
+    log("[18] tiny config int8 predict: CUDA vs CPU, int8 vs float")
+    phase_slice_int8(torch, build_flagship, normalize, dev, fused=False)
+    phase_slice_int8(torch, build_flagship, normalize, dev, fused=True)
+    log("[19] int8 serving path")
+    int8_launches, *modes["int8 non-fused"] = phase_main(
+        torch, build_flagship, normalize, serving, dev, card, int8=True)
+    log("[20] fused int8 serving path")
+    int8_fused_launches, *modes["int8 fused"] = phase_main(
+        torch, build_flagship, normalize, serving, dev, card, fused=True,
+        int8=True, n_requests=INT8_REQUESTS_FUSED)
+    log("  serving, same run: " + "; ".join(
+        f"{mode} {t:.2f} tiles/s, request median {med:.1f} ms, peak "
+        f"{peak:.2f} GiB" for mode, (t, peak, med) in modes.items())
+        + f" [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -841,6 +1105,11 @@ def main():
         entry("van_mlp_residual", "van_mlp.cu",
               jops + "pallas_van_mlp.py:303",
               fused_launches["van_mlp_residual"], k2r),
+        entry("van_mlp_int8", "van_mlp.cu", jops + "pallas_van_mlp.py:68",
+              int8_launches["van_mlp_int8"], k2q),
+        entry("van_mlp_residual_int8", "van_mlp.cu",
+              jops + "pallas_van_mlp.py:68",
+              int8_fused_launches["van_mlp_residual_int8"], k2qr),
         entry("depthwise_conv2d", "dw_conv_fwd.cu",
               jops + "pallas_dwconv.py:27",
               fused_launches["depthwise_conv2d"], k5, k5[4]),

@@ -74,11 +74,17 @@ def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
 def build_flagship(tiny: bool = False, device=None,
                    dtype: torch.dtype = torch.float32,
                    generator: Optional[torch.Generator] = None,
-                   train: bool = False, fused: bool = False) -> OrientedRCNN:
+                   train: bool = False, fused: bool = False,
+                   int8: bool = False) -> OrientedRCNN:
     """Build the flagship on ``device`` (None: the CUDA card, an error
     where there is none), computing in ``dtype``. ``fused=True`` serves
     with the fused VAN blocks (``van_attn`` + ``van_mlp_residual`` per
-    block; off by default, ignored in training). For
+    block; off by default, ignored in training). ``int8=True`` serves
+    in the int8 mode of ``ops/quant.py``: the attention's 1x1 mixes, the
+    VAN MLP (its kernel's int8 form), the patch-embed convs of stages
+    2-4, the FPN convs and the RPN tower conv run s8 x s8 -> s32 (off by
+    default, ignored in training; composes with ``fused``, and changes
+    no parameter). For
     inference (``train=False``) it is in eval mode with its parameters
     in ``dtype``; for training it is in train mode with f32 master
     parameters, and the activations are cast to ``dtype``. The weights
@@ -97,12 +103,14 @@ def build_flagship(tiny: bool = False, device=None,
         nms_pre, nms_post, cap = 2000, 2000, 4096
     model = OrientedRCNN(
         backbone=VAN(embed_dims=dims, mlp_ratios=(8, 8, 4, 4), depths=depths,
-                     fused=fused),
-        neck=FPN(in_channels=dims, out_channels=width, num_outs=5),
+                     fused=fused, int8=int8),
+        neck=FPN(in_channels=dims, out_channels=width, num_outs=5,
+                 int8=int8),
         rpn=OrientedRPNHead(in_channels=width, feat_channels=width,
                             anchor_generator=RPN_ANCHORS, nms_pre=nms_pre,
                             nms_post=nms_post, pre_nms_cap=cap,
-                            assigner=RPN_ASSIGNER, sampler=RPN_SAMPLER),
+                            assigner=RPN_ASSIGNER, sampler=RPN_SAMPLER,
+                            int8=int8),
         bbox_head=OrientedHead(num_classes=NUM_CLASSES, in_channels=width,
                                fc_out_channels=fc, assigner=HEAD_ASSIGNER,
                                sampler=HEAD_SAMPLER),

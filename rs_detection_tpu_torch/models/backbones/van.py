@@ -16,6 +16,16 @@ channels_last memory, whose ``permute(0, 2, 3, 1)`` is the contiguous
 NHWC both kernels take. The parameters are the same in both modes.
 Training ignores the flag.
 
+``int8=True`` (off by default, ``RS_INT8=1`` in the JAX package) is the
+int8 serving mode of ``ops/quant.py``: in eval the three 1x1 mixes of
+the attention, the MLP's two 1x1 products (K2q, the int8 form of the MLP
+kernel) and the patch-embed convs of stages 2-4 run s8 x s8 -> s32. It
+composes with ``fused``: a fused int8 block is K4 as it is (it has no
+int8 form) and the residual form of K2q. The parameters are the same in
+every mode, and the weights are quantized on every call, so weights
+loaded after construction are the ones served. Training ignores the
+flag.
+
 In training (``model.train()``) BatchNorm uses batch statistics with the
 flax running update, the MLP runs its plain composition (K2 has no
 backward), every depthwise conv goes through ``ops.dw_conv`` (weight
@@ -35,8 +45,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.van_attn import sa_core, van_attn
-from ...ops.van_mlp import van_mlp, van_mlp_reference, van_mlp_residual
-from ..utils.modules import BatchNorm2d, DropPath, conv2d, frozen_stats
+from ...ops.van_mlp import (van_mlp, van_mlp_int8, van_mlp_reference,
+                            van_mlp_residual, van_mlp_residual_int8)
+from ..utils.modules import (BatchNorm2d, DropPath, frozen_stats,
+                             maybe_int8_conv2d)
 
 
 def _dw(dim: int, k: int, dilation: int = 1) -> nn.Conv2d:
@@ -55,8 +67,9 @@ class LKA(nn.Module):
 
 
 class SpatialAttention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.proj_1 = nn.Conv2d(dim, dim, 1)
         self.sgu = LKA(dim)
         self.proj_2 = nn.Conv2d(dim, dim, 1)
@@ -73,16 +86,23 @@ class SpatialAttention(nn.Module):
 
     def forward(self, h):
         """h: NHWC -> NHWC."""
-        return sa_core(h, *self.weights(h.dtype))
+        return sa_core(h, *self.weights(h.dtype),
+                       int8=self.int8 and not self.training)
 
 
 class Mlp(nn.Module):
     """fc1 (1x1) -> dw 3x3 -> GELU -> fc2 (1x1): one ``van_mlp`` (K2 on
     CUDA) in eval; in training its plain composition, as the JAX ``Mlp``
-    (``van.py:174-181``), since K2 has no backward."""
+    (``van.py:174-181``), since K2 has no backward. With ``int8`` the
+    eval calls are the int8 forms (K2q on CUDA). ``int8_group`` is the
+    activation-scale group of their plain version on the CPU
+    (``ops/van_mlp.py``): the CUDA kernel's by default; the tests set the
+    JAX package's to hold the port against it."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
+        self.int8_group = "tile"
         self.fc1 = nn.Conv2d(dim, hidden, 1)
         self.dwconv = _dw(hidden, 3)
         self.fc2 = nn.Conv2d(hidden, dim, 1)
@@ -96,6 +116,8 @@ class Mlp(nn.Module):
             self.fc2.weight.view(dim, hid), self.fc2.bias)))
         if self.training:
             return van_mlp_reference(*args)
+        if self.int8:
+            return van_mlp_int8(*args, group=self.int8_group)
         return van_mlp(*args)
 
     def forward_fused(self, x, a2, b2, ls2):
@@ -103,28 +125,33 @@ class Mlp(nn.Module):
         (contiguous NHWC), as one ``van_mlp_residual``: the bn2 affine
         folds into fc1 and the layer scale into fc2. The folds are made
         in f32 and cast once, or bf16 would lose the ``w1 @ b2`` term at
-        wide C."""
+        wide C. The int8 form quantizes the folded, cast weights, as the
+        JAX ``Mlp`` hands them to its kernel."""
         hid, dim = self.fc1.weight.shape[:2]
         dt = x.dtype
         w1 = self.fc1.weight.view(hid, dim).float()
         w2 = self.fc2.weight.view(dim, hid).float()
         ls2 = ls2.float()
-        return van_mlp_residual(
+        args = (
             x, (w1 * a2).to(dt),
             (self.fc1.bias.float() + (w1 * b2).sum(1)).to(dt),
             self.dwconv.weight.view(hid, 9).to(dt), self.dwconv.bias.to(dt),
             (w2 * ls2[:, None]).to(dt), (self.fc2.bias.float() * ls2).to(dt))
+        if self.int8:
+            return van_mlp_residual_int8(*args, group=self.int8_group)
+        return van_mlp_residual(*args)
 
 
 class VANBlock(nn.Module):
     def __init__(self, dim: int, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0, fused: bool = False):
+                 drop_path: float = 0.0, fused: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.fused = fused
         self.norm1 = BatchNorm2d(dim)
-        self.attn = SpatialAttention(dim)
+        self.attn = SpatialAttention(dim, int8=int8)
         self.norm2 = BatchNorm2d(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), int8=int8)
         self.layer_scale_1 = nn.Parameter(torch.full((dim,), 1e-2))
         self.layer_scale_2 = nn.Parameter(torch.full((dim,), 1e-2))
         self.drop_path = DropPath(drop_path)
@@ -155,20 +182,25 @@ class VANBlock(nn.Module):
 
 
 class OverlapPatchEmbed(nn.Module):
-    def __init__(self, cin: int, dim: int, patch: int, stride: int):
+    def __init__(self, cin: int, dim: int, patch: int, stride: int,
+                 int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.proj = nn.Conv2d(cin, dim, patch, stride, padding=patch // 2)
         self.norm = BatchNorm2d(dim)
 
     def forward(self, x):
-        return self.norm(conv2d(self.proj, x))
+        # the RGB stem (3 input channels) stays as it is under int8
+        return self.norm(maybe_int8_conv2d(
+            self.proj, x, self.int8 and not self.training))
 
 
 class VAN(nn.Module):
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  depths: Sequence[int] = (3, 5, 27, 3),
-                 drop_path_rate: float = 0.0, fused: bool = False):
+                 drop_path_rate: float = 0.0, fused: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.depths = tuple(depths)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
@@ -176,10 +208,11 @@ class VAN(nn.Module):
         for i, (dim, depth) in enumerate(zip(embed_dims, depths)):
             self.add_module(f"patch_embed{i + 1}", OverlapPatchEmbed(
                 cin, dim, patch=7 if i == 0 else 3,
-                stride=4 if i == 0 else 2))
+                stride=4 if i == 0 else 2, int8=int8))
             for j in range(depth):
                 self.add_module(f"block{i + 1}_{j}", VANBlock(
-                    dim, mlp_ratios[i], float(dpr[cur + j]), fused=fused))
+                    dim, mlp_ratios[i], float(dpr[cur + j]), fused=fused,
+                    int8=int8))
             self.add_module(f"norm{i + 1}", nn.LayerNorm(dim, eps=1e-6))
             cin, cur = dim, cur + depth
 

@@ -25,7 +25,7 @@ from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coder import MidpointOffsetCoder
 from ..boxes.sampler import RandomSampler
 from ..losses.common import binary_cross_entropy, smooth_l1_loss
-from ..utils.modules import conv2d
+from ..utils.modules import conv2d, maybe_int8_conv2d
 
 
 def _take(x, idx):
@@ -55,8 +55,9 @@ class OrientedRPNHead(nn.Module):
     def __init__(self, in_channels: int, feat_channels: int,
                  anchor_generator, nms_pre: int = 2000, nms_post: int = 2000,
                  pre_nms_cap: int = 4096, assigner: Optional[dict] = None,
-                 sampler: Optional[dict] = None):
+                 sampler: Optional[dict] = None, int8: bool = False):
         super().__init__()
+        self.int8 = int8  # serve the 3x3 tower conv through int8_conv
         self.anchor_gen = AnchorGenerator(**anchor_generator)
         self.coder = MidpointOffsetCoder(
             target_stds=(1.0, 1.0, 1.0, 1.0, 0.5, 0.5))
@@ -75,7 +76,9 @@ class OrientedRPNHead(nn.Module):
         """Per-level (cls [B, H, W, A], reg [B, H, W, A*6]), NHWC."""
         cls_scores, bbox_preds = [], []
         for f in feats:
-            x = F.relu(conv2d(self.rpn_conv, f.permute(0, 3, 1, 2)))
+            x = F.relu(maybe_int8_conv2d(
+                self.rpn_conv, f.permute(0, 3, 1, 2),
+                self.int8 and not self.training))
             cls_scores.append(conv2d(self.rpn_cls, x).permute(0, 2, 3, 1))
             bbox_preds.append(conv2d(self.rpn_reg, x).permute(0, 2, 3, 1))
         return cls_scores, bbox_preds

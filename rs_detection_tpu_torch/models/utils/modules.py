@@ -1,6 +1,7 @@
 """Shared layers (counterpart of ``rs_detection_tpu/models/utils/
-modules.py``): the flax-semantics BatchNorm, DropPath, and conv / linear
-calls that run a module in its input's dtype.
+modules.py``): the flax-semantics BatchNorm, DropPath, conv / linear
+calls that run a module in its input's dtype, and the conv call of the
+int8 serving mode.
 
 Training keeps f32 master weights and computes in the input's dtype
 (bf16 on the card), as the JAX model with ``compute_dtype`` does:
@@ -17,12 +18,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.quant import int8_conv
+
 
 def conv2d(m: nn.Conv2d, x):
     """``m(x)`` with ``m``'s weights in x's dtype."""
     b = None if m.bias is None else m.bias.to(x.dtype)
     return F.conv2d(x, m.weight.to(x.dtype), b, m.stride, m.padding,
                     m.dilation, m.groups)
+
+
+def maybe_int8_conv2d(m: nn.Conv2d, x, int8: bool):
+    """``conv2d(m, x)``, or with ``int8`` its int8 serving form
+    (``ops.quant.int8_conv``) on the same parameters: the drop-in of the
+    JAX ``MaybeInt8Conv``. Dense convs only. A conv over fewer than 16
+    input channels (the RGB stem) stays as it is: it has the worst
+    relative quantization error and the least to gain."""
+    if not int8 or x.shape[1] < 16:
+        return conv2d(m, x)
+    if m.groups != 1 or m.dilation != (1, 1):
+        raise ValueError("maybe_int8_conv2d: dense undilated convs only")
+    return int8_conv(x, m.weight, m.bias, m.stride, m.padding)
 
 
 def linear(m: nn.Linear, x):

@@ -33,6 +33,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "rs_van_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "rs_van_mlp_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "rs_van_mlp_int8_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "rs_van_mlp_int8_fwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     "rs_van_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "rs_van_attn_proj1": ([_P] * 6 + [_L, _I, _I, _P], _I),
     "rs_van_attn_tail": ([_P] * 11 + [_L, _I, _I, _P], _I),

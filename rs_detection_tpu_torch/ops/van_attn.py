@@ -3,7 +3,9 @@
 
 ``sa_core`` is the attention body (the JAX ``_sa_core``), plain PyTorch
 around ``dw_conv``, whose weight gradient is the K6 kernel on CUDA; the
-non-fused VAN block and training run it.
+non-fused VAN block and training run it. Its ``int8`` argument is the
+int8 serving mode of the three 1x1 mixes (``ops/quant.py``); the fused
+half-block below has no int8 form, as the JAX ``_attn_kernel`` has none.
 
 ``van_attn`` is the fused attention half-block of the fused serving mode
 (the JAX ``van_attn``, opt-in there as here): eval-mode bn1 folded to an
@@ -26,27 +28,39 @@ from ._build import kernel_library
 from .activations import exact_gelu
 from .dw_conv import dw_conv
 from .dwconv import depthwise_conv2d_cuda
+from .quant import int8_channel_matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def sa_core(h, wp1, bp1, w0, b0, ws, bs, wc1, bc1, wp2, bp2):
+def sa_core(h, wp1, bp1, w0, b0, ws, bs, wc1, bc1, wp2, bp2, int8=False):
     """``proj_2(g * conv1(dw7d3(dw5(g)))) + h`` with
     ``g = gelu(proj_1(h))``, the module's inner shortcut included.
 
     ``h`` is NHWC ``[N, H, W, C]``; the weights are as ``nn.Conv2d``
     holds them: 1x1 ``[C, C, 1, 1]``, depthwise ``[C, 1, k, k]``.
-    Returns NHWC (a view of a channels-last NCHW result)."""
+    Returns NHWC (a view of a channels-last NCHW result). With ``int8``
+    (serving) the three 1x1 mixes run as ``int8_channel_matmul``; the
+    depthwise convs, the GELU, the gate and the shortcut stay in h's
+    dtype."""
     x = h.permute(0, 3, 1, 2)
-    g = exact_gelu(F.conv2d(x, wp1, bp1))
+    if int8:
+        def mix(t, w, b):   # NCHW view of an NHWC product
+            c = w.shape[0]
+            return int8_channel_matmul(t.permute(0, 2, 3, 1), w.view(c, c),
+                                       b).permute(0, 3, 1, 2)
+    else:
+        def mix(t, w, b):
+            return F.conv2d(t, w, b)
+    g = exact_gelu(mix(x, wp1, bp1))
     d5 = dw_conv(g, w0, b0)
     # cuDNN runs this dilated depthwise conv about 5x faster in NCHW than
     # in channels_last on an H100, even counting both layout copies
     # (PERF.md); the result goes back to channels_last for the 1x1 convs
     d7 = dw_conv(d5.contiguous(), ws, bs, dilation=3) \
         .contiguous(memory_format=torch.channels_last)
-    c1 = F.conv2d(d7, wc1, bc1)
-    p2 = F.conv2d(g * c1, wp2, bp2)
+    c1 = mix(d7, wc1, bc1)
+    p2 = mix(g * c1, wp2, bp2)
     return (p2 + x).permute(0, 2, 3, 1)
 
 

@@ -9,6 +9,33 @@ flag set: ``x + mlp(x)`` with the add in f32 inside the kernel, the form
 the fused VAN block calls with bn2 and the layer scale folded into the
 weights (the JAX ``van_mlp_residual``).
 
+``van_mlp_int8`` and ``van_mlp_residual_int8`` are the int8 serving
+forms (``ops/quant.py``; the ``quant=True`` form of the TPU kernel): both
+1x1 products run s8 x s8 -> s32 on weights quantized per output channel
+and activations quantized dynamically, the depthwise conv and the GELU
+stay in float. They take the same float arguments; the weights are
+quantized on every call. What differs between the three users of this
+arithmetic is the group over which an activation scale ``max|v| / 127``
+is taken, so the plain version ``van_mlp_int8_reference`` takes the
+group as an argument:
+
+* ``"tile"``, the CUDA kernel's (``csrc/van_mlp.cu``) and the default:
+  fc1 one scale per 8x8 output tile over its haloed 10x10 x patch, fc2
+  one scale per (tile, 32-channel hidden chunk) over the f32 GELU
+  output. The kernel walks the hidden channels in chunks and never holds
+  a tile's whole hidden tensor, so a scale per chunk keeps it one pass;
+* ``("rows", bh)``, the TPU kernel's: fc1 one scale per haloed block of
+  ``bh + 2`` rows, fc2 one per ``bh x W`` block over all hidden
+  channels (rows past H, which the TPU kernel lets into the scale, are
+  left out here: compare at H a multiple of ``bh``);
+* ``"tensor"``, the JAX package's XLA composition ``_int8_mlp``, which
+  it runs wherever it does not run its kernel: ``int8_channel_matmul``
+  twice, one scale per tensor, a divide where the kernels multiply by
+  the reciprocal, and the GELU output rounded to the input dtype first.
+
+Every group is a finer one than the next; all are within the int8
+mode's error of the float MLP.
+
 Layouts: ``x`` is NHWC ``[N, H, W, C]``; the weights are as
 ``nn.Conv2d`` holds them, squeezed: ``w1 [Ch, C]``, ``wdw [Ch, 9]``
 (3x3 taps row-major), ``w2 [C, Ch]``; biases ``b1 [Ch]``, ``bdw [Ch]``,
@@ -19,11 +46,16 @@ from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from ._build import kernel_library
 from .activations import exact_gelu
 from .dw_conv import dw_conv
+from .quant import int8_channel_matmul, int_matmul, qweight, scale_of
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 8    # side of the CUDA kernel's output tile
+CHUNK = 32  # hidden channels the CUDA kernel holds at a time
 
 
 def van_mlp_reference(x, w1, b1, wdw, bdw, w2, b2):
@@ -45,12 +77,115 @@ def van_mlp_residual_reference(x, w1, b1, wdw, bdw, w2, b2):
     return (x.float() + y.float()).to(x.dtype)
 
 
-def _launch(wrapper, name, args, residual):
-    """Check the operands and launch ``rs_van_mlp_fwd``, counting the
-    launch on ``wrapper``. Raises when grad mode is on and an input
-    requires a gradient: the kernel has no backward, and autograd does
-    not see the launch, so its result would be cut off from the graph
-    (training runs ``van_mlp_reference``)."""
+def _qblock(t):
+    """Per-block dynamic quantization as the kernels do it: one scale
+    over all of ``t [B, ...]`` but its first dimension, multiplied in as
+    a reciprocal. Returns (int8, scale ``[B, 1, ...]``)."""
+    amax = t.abs().amax(dim=tuple(range(1, t.dim())), keepdim=True)
+    scale = scale_of(amax)
+    q = torch.clamp(torch.round(t * (1.0 / scale)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _int8_mlp_blocked(x, w1, b1, wdw, bdw, w2, b2, bh, bw, chunk, residual):
+    """The kernels' int8 MLP on blocks of ``bh x bw`` output pixels with
+    their one-pixel halo, the hidden channels ``chunk`` at a time. A
+    halo pixel is quantized with the scale of the block that reads it,
+    so the hidden tensor is not globally defined: the blocks are
+    unfolded, halos and all, and folded back at the end."""
+    n, h, w, c = x.shape
+    ch = w1.shape[0]
+    bh, bw = min(bh, h), min(bw, w)
+    nby, nbx = -(-h // bh), -(-w // bw)
+    hp, wp = nby * bh, nbx * bw
+    w1q, sw1 = qweight(w1, 0)
+    w2q, sw2 = qweight(w2, 0)
+
+    def unfold(t):  # [.., hp+2, wp+2, k] -> [.., nby, nbx, bh+2, bw+2, k]
+        return t.unfold(-3, bh + 2, bh).unfold(-3, bw + 2, bw) \
+            .movedim(-3, -1)
+
+    xp = F.pad(x, (0, 0, 1, wp - w + 1, 1, hp - h + 1))
+    xb = unfold(xp).reshape(-1, bh + 2, bw + 2, c).float()
+    blocks = xb.shape[0]
+    inside = torch.zeros(hp + 2, wp + 2, 1, dtype=torch.bool, device=x.device)
+    inside[1:h + 1, 1:w + 1] = True
+    inside = unfold(inside).expand(n, -1, -1, -1, -1, -1) \
+        .reshape(blocks, bh + 2, bw + 2, 1)
+
+    # fc1 of the haloed block, one scale per block (zeros outside the
+    # image take no part in a maximum)
+    xq, sx = _qblock(xb)
+    acc = int_matmul(xq.view(-1, c), w1q.t()).view(blocks, bh + 2, bw + 2, ch)
+    h1 = (acc.float() * (sx * sw1) + b1.float()).to(x.dtype)
+    h1 = torch.where(inside, h1, 0).float()   # SAME padding of the hidden
+
+    # depthwise 3x3 and erf GELU in f32, not rounded
+    taps = wdw.float()
+    pre = None
+    for dx in range(3):
+        for dy in range(3):
+            tap = h1[:, dy:dy + bh, dx:dx + bw] * taps[:, dy * 3 + dx]
+            pre = tap if pre is None else pre + tap
+    g = exact_gelu(pre + bdw.float())
+    g = torch.where(inside[:, 1:-1, 1:-1], g, 0)
+
+    # fc2, one scale per (block, chunk); sw2 does not depend on the chunk
+    y = torch.zeros(blocks, bh * bw, c, device=x.device)
+    for k0 in range(0, ch, chunk):
+        gq, sg = _qblock(g[..., k0:k0 + chunk])
+        part = int_matmul(gq.view(-1, gq.shape[-1]), w2q[:, k0:k0 + chunk].t())
+        y = y + sg.view(blocks, 1, 1) * part.view(blocks, bh * bw, c).float()
+    y = y * sw2 + b2.float()
+    y = y.view(n, nby, nbx, bh, bw, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, hp, wp, c)[:, :h, :w]
+    if residual:
+        y = y + x.float()
+    return y.to(x.dtype)
+
+
+def _int8_mlp(x, w1, b1, wdw, bdw, w2, b2, group, residual):
+    if group == "tensor":
+        ch = w1.shape[0]
+        hid = int8_channel_matmul(x, w1, b1)
+        hid = dw_conv(hid.permute(0, 3, 1, 2), wdw.reshape(ch, 1, 3, 3), bdw)
+        hid = exact_gelu(hid).permute(0, 2, 3, 1)
+        y = int8_channel_matmul(hid, w2, b2)
+        return (x.float() + y.float()).to(x.dtype) if residual else y
+    if group == "tile":
+        bh, bw, chunk = TILE, TILE, CHUNK
+    elif isinstance(group, tuple) and len(group) == 2 and group[0] == "rows":
+        bh, bw, chunk = int(group[1]), x.shape[2], w1.shape[0]
+    else:
+        raise ValueError(f"van_mlp_int8: group {group!r} is not 'tile', "
+                         f"'tensor' or ('rows', bh)")
+    return _int8_mlp_blocked(x, w1, b1, wdw, bdw, w2, b2, bh, bw, chunk,
+                             residual)
+
+
+def van_mlp_int8_reference(x, w1, b1, wdw, bdw, w2, b2, group="tile"):
+    """Plain version of the int8 MLP with the activation scales taken
+    over ``group`` (module docstring): ``"tile"`` repeats the CUDA
+    kernel, ``("rows", bh)`` the TPU kernel, ``"tensor"`` the JAX
+    ``_int8_mlp``. Inference only."""
+    return _int8_mlp(x, w1, b1, wdw, bdw, w2, b2, group, False)
+
+
+def van_mlp_residual_int8_reference(x, w1, b1, wdw, bdw, w2, b2,
+                                    group="tile"):
+    """Plain version of the int8 ``x + mlp(x)``; in the blocked groups
+    the sum is made in f32 before the one cast, as in the kernels."""
+    return _int8_mlp(x, w1, b1, wdw, bdw, w2, b2, group, True)
+
+
+def _launch(wrapper, name, args, residual, int8=False):
+    """Check the operands and launch ``rs_van_mlp_fwd`` (with ``int8``:
+    quantize w1 and w2 per output channel and launch
+    ``rs_van_mlp_int8_fwd``), counting the launch on ``wrapper``. Raises
+    when grad mode is on and an input requires a gradient: the kernel
+    has no backward, and autograd does not see the launch, so its result
+    would be cut off from the graph (training runs
+    ``van_mlp_reference``)."""
     x, w1 = args[:2]
     n, h, w, c = x.shape
     ch = w1.shape[0]
@@ -74,11 +209,17 @@ def _launch(wrapper, name, args, residual):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
+    if int8:
+        x, w1, b1, wdw, bdw, w2, b2 = args
+        args = (x, *qweight(w1, 0), b1, wdw, bdw, *qweight(w2, 0), b2)
     if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in args):
         raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned")
     code = _DTYPE_CODE[x.dtype]
     lib = kernel_library()
-    smem = lib.rs_van_mlp_smem_bytes(c, code)
+    smem_bytes, fwd = (lib.rs_van_mlp_int8_smem_bytes,
+                       lib.rs_van_mlp_int8_fwd) if int8 else (
+                           lib.rs_van_mlp_smem_bytes, lib.rs_van_mlp_fwd)
+    smem = smem_bytes(c, code)
     limit = torch.cuda.get_device_properties(x.device) \
         .shared_memory_per_block_optin
     if smem == 0 or smem > limit:
@@ -90,8 +231,8 @@ def _launch(wrapper, name, args, residual):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         wrapper.launches += 1
-        err = lib.rs_van_mlp_fwd(*(t.data_ptr() for t in args), y.data_ptr(),
-                                 n, h, w, c, ch, code, int(residual), stream)
+        err = fwd(*(t.data_ptr() for t in args), y.data_ptr(), n, h, w, c,
+                  ch, code, int(residual), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return y
@@ -136,3 +277,54 @@ def van_mlp_residual(x, w1, b1, wdw, bdw, w2, b2):
         return van_mlp_residual_reference(x, w1, b1, wdw, bdw, w2, b2)
     raise ValueError(f"van_mlp_residual: no implementation for device "
                      f"{x.device}")
+
+
+def van_mlp_int8_cuda(x, w1, b1, wdw, bdw, w2, b2):
+    """Launch the kernel's int8 form on CUDA tensors (f32 or bf16; w1
+    and w2 are quantized here, per output channel); refuses inputs that
+    require a gradient."""
+    return _launch(van_mlp_int8_cuda, "van_mlp_int8",
+                   (x, w1, b1, wdw, bdw, w2, b2), False, int8=True)
+
+
+van_mlp_int8_cuda.launches = 0
+
+
+def van_mlp_residual_int8_cuda(x, w1, b1, wdw, bdw, w2, b2):
+    """Launch the int8 form with the residual flag, ``x + mlp(x)``; its
+    launches count apart."""
+    return _launch(van_mlp_residual_int8_cuda, "van_mlp_residual_int8",
+                   (x, w1, b1, wdw, bdw, w2, b2), True, int8=True)
+
+
+van_mlp_residual_int8_cuda.launches = 0
+
+
+def _dispatch_int8(name, cuda_fn, reference, args, group):
+    x = args[0]
+    if x.is_cuda:
+        if group != "tile":
+            raise ValueError(f"{name}: the CUDA kernel has the 'tile' group "
+                             f"only, not {group!r}")
+        return cuda_fn(*args)
+    if x.device.type == "cpu":
+        return reference(*args, group=group)
+    raise ValueError(f"{name}: no implementation for device {x.device}")
+
+
+def van_mlp_int8(x, w1, b1, wdw, bdw, w2, b2, group="tile"):
+    """int8 serving form of the fused VAN MLP: the kernel for a CUDA
+    ``x``, the plain version for a CPU ``x``. ``group`` other than the
+    kernel's is for the CPU only (the tests hold the port against the
+    JAX package's groupings with it)."""
+    return _dispatch_int8("van_mlp_int8", van_mlp_int8_cuda,
+                          van_mlp_int8_reference,
+                          (x, w1, b1, wdw, bdw, w2, b2), group)
+
+
+def van_mlp_residual_int8(x, w1, b1, wdw, bdw, w2, b2, group="tile"):
+    """int8 serving form of the fused ``x + mlp(x)``."""
+    return _dispatch_int8("van_mlp_residual_int8",
+                          van_mlp_residual_int8_cuda,
+                          van_mlp_residual_int8_reference,
+                          (x, w1, b1, wdw, bdw, w2, b2), group)

@@ -4,9 +4,11 @@ tests/test_torch_port_cuda.py`` (``--noconftest`` where jax is not
 installed: ``tests/conftest.py`` imports it). Without a GPU every test
 here skips; ``chip_smoke.py`` runs the same checks at the flagship
 shapes. Covers K1 and K2 (serving), K3 and K6 (training), K4, K2r, K5
-and K7's layout (fused serving), the rule that a kernel wrapper never
-hands autograd a detached result, and the tiny config's predict (fused
-and not) and training step, CUDA against CPU."""
+and K7's layout (fused serving), K2q with its residual form and the
+integer products of the int8 serving mode, the rule that a kernel
+wrapper never hands autograd a detached result, and the tiny config's
+predict (fused and not, int8 and not) and training step, CUDA against
+CPU."""
 
 import pytest
 import torch
@@ -25,10 +27,11 @@ from rs_detection_tpu_torch.ops.dwconv import (
     dw_chw_cuda, dw_chw_reference)
 from rs_detection_tpu_torch.ops.van_attn import (van_attn_cuda,
                                                  van_attn_reference)
-from rs_detection_tpu_torch.ops.van_mlp import (van_mlp_cuda,
-                                                van_mlp_reference,
-                                                van_mlp_residual_cuda,
-                                                van_mlp_residual_reference)
+from rs_detection_tpu_torch.ops import quant
+from rs_detection_tpu_torch.ops.van_mlp import (
+    van_mlp_cuda, van_mlp_int8, van_mlp_int8_cuda, van_mlp_int8_reference,
+    van_mlp_reference, van_mlp_residual_cuda, van_mlp_residual_int8_cuda,
+    van_mlp_residual_int8_reference, van_mlp_residual_reference)
 from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
 from rs_detection_tpu_torch.optims.optimizer import AdamW
 from rs_detection_tpu_torch.parallel.train_step import train_step
@@ -378,3 +381,141 @@ def test_tiny_fused_predict_cuda_matches_cpu(dev):
                                    rtol=0, atol=1e-5)
         torch.testing.assert_close(gpu["polys"].cpu(), ref["polys"].cpu(),
                                    rtol=0, atol=1e-2)
+
+
+# K2q against its plain version (the kernel's tile group): the s32 sums are
+# exact and the dequantization bit-equal; f32 noise in the depthwise sum and
+# the erf (~1e-7) lands a value next to a rounding boundary one int8 step
+# apart, which moves an output by ~1e-3 of the largest (f32) or carries it
+# over one bf16 rounding boundary (at most 2^-7 of the largest)
+INT8_TOL = {torch.bfloat16: 1e-2, torch.float32: 5e-3}
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["mlp", "residual"])
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 21, 19, 32, 96), torch.float32),     # border tiles, a ragged chunk
+    ((1, 8, 8, 20, 40), torch.float32),       # C no multiple of 16
+    ((2, 13, 17, 64, 512), torch.bfloat16),
+    ((1, 16, 16, 320, 1280), torch.bfloat16),
+    ((1, 8, 8, 512, 2048), torch.bfloat16)])
+def test_van_mlp_int8_kernel_matches_plain(dev, shape, dtype, residual):
+    """K2q and its residual form: within INT8_TOL of the plain version,
+    at most 3% of the elements off by more than 1e-5 of the largest
+    (f32) or 2^-7 of themselves (bf16), and an int8 quantization error
+    (0.1-5% of the largest value) away from the float MLP."""
+    args = _mlp_args(dev, shape, dtype, seed=12)
+    kernel, plain, fp = (
+        (van_mlp_residual_int8_cuda, van_mlp_residual_int8_reference,
+         van_mlp_residual_reference) if residual else
+        (van_mlp_int8_cuda, van_mlp_int8_reference, van_mlp_reference))
+    counts = (van_mlp_int8_cuda.launches, van_mlp_residual_int8_cuda.launches,
+              van_mlp_cuda.launches, van_mlp_residual_cuda.launches)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    after = (van_mlp_int8_cuda.launches, van_mlp_residual_int8_cuda.launches,
+             van_mlp_cuda.launches, van_mlp_residual_cuda.launches)
+    assert [b - a for a, b in zip(counts, after)] == [
+        int(not residual), int(residual), 0, 0]
+    ref = plain(*args).float()
+    diff = (got.float() - ref).abs()
+    scale = ref.abs().max().item()
+    assert diff.max().item() <= INT8_TOL[dtype] * scale
+    unit = 1e-5 * scale if dtype == torch.float32 else ref.abs() * 2 ** -7
+    assert (diff > unit).float().mean().item() <= 0.03
+    qerr = (got.float() - fp(*args).float()).abs().max().item() \
+        / fp(*args).float().abs().max().item()
+    assert 1e-3 < qerr < 5e-2
+
+
+def test_van_mlp_int8_refuses_grad_and_other_groups(dev):
+    mlp = list(_mlp_args(dev, (1, 4, 4, 32, 64), torch.float32))
+    with pytest.raises(ValueError, match="tile"):
+        van_mlp_int8(*mlp, group="tensor")   # the kernel has one group
+    mlp[1].requires_grad_()
+    for fn in (van_mlp_int8_cuda, van_mlp_residual_int8_cuda):
+        with pytest.raises(RuntimeError, match="requires a gradient"):
+            fn(*mlp)
+        with torch.no_grad():
+            assert fn(*mlp).grad_fn is None
+
+
+@pytest.mark.parametrize("m,k,n", [(8 * 64 * 64, 320, 320), (5, 12, 7),
+                                   (16, 40, 24), (2046, 64, 48),
+                                   (1800, 32, 96)])
+def test_int_matmul_cuda_is_bit_equal_to_cpu(dev, m, k, n):
+    """Shapes cuBLASLt's int8 product refuses unpadded among them."""
+    g = torch.Generator().manual_seed(13)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    ref = quant.int_matmul(a, b)
+    assert torch.equal(ref, a.int() @ b.int())
+    assert torch.equal(quant.int_matmul(a.to(dev), b.to(dev)).cpu(), ref)
+    assert torch.equal(quant.int_matmul(
+        a.to(dev), b.t().contiguous().t().to(dev)).cpu(), ref)
+
+
+@pytest.mark.parametrize("k,stride,pad", [(3, 1, 1), (3, 2, 1), (1, 1, 0)])
+def test_int8_conv_cuda_is_bit_equal_to_cpu(dev, k, stride, pad):
+    """The s8 operands, the s32 sums and the dequantized output of
+    ``int8_conv`` and ``int8_channel_matmul``: elementwise IEEE f32 and
+    exact integer sums on both devices."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 64, 33, 31, generator=g).to(torch.bfloat16)
+    w = (torch.randn(48, 64, k, k, generator=g) / 24).to(torch.bfloat16)
+    b = torch.randn(48, generator=g).to(torch.bfloat16)
+    xq, sx = quant.qact(x.permute(0, 2, 3, 1))
+    xq_d, sx_d = quant.qact(x.to(dev).permute(0, 2, 3, 1))
+    wq, sw = quant.qweight(w)
+    wq_d, sw_d = quant.qweight(w.to(dev))
+    for a, c in ((xq, xq_d), (sx, sx_d), (wq, wq_d), (sw, sw_d)):
+        assert torch.equal(a, c.cpu())
+    acc = quant.int_conv2d(xq, wq, (stride, stride), (pad, pad))
+    assert torch.equal(quant.int_conv2d(xq_d, wq_d, (stride, stride),
+                                        (pad, pad)).cpu(), acc)
+    got = quant.int8_conv(x.to(dev), w.to(dev), b.to(dev), (stride, stride),
+                          (pad, pad))
+    assert torch.equal(got.cpu(), quant.int8_conv(x, w, b, (stride, stride),
+                                                  (pad, pad)))
+    if k == 1:
+        nhwc = x.permute(0, 2, 3, 1)
+        assert torch.equal(
+            quant.int8_channel_matmul(nhwc.to(dev), w.view(48, 64).to(dev),
+                                      b.to(dev)).cpu(),
+            quant.int8_channel_matmul(nhwc, w.view(48, 64), b))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["non_fused", "fused"])
+def test_tiny_int8_predict_cuda_matches_cpu(dev, fused):
+    """The tiny config served int8, CUDA (K2q, and K4 when fused) against
+    the CPU (plain versions, the kernel's scale groups). An int8 step set
+    off by the devices' f32 noise sets off more in the next layer, so
+    deep in the model the two runs agree as int8 agrees with float: the
+    first block on one input within 4 steps of 1/127 (2% of the elements
+    past 1e-5 of the largest), the backbone within 0.05 relative per
+    level, and ``predict`` without regard to rank (sorted scores per
+    class within 0.05)."""
+    tiles = torch.randint(0, 256, (2, 128, 128, 3),
+                          generator=torch.Generator().manual_seed(2),
+                          dtype=torch.uint8)
+    images = normalize(tiles)
+    cpu = build_flagship(tiny=True, device="cpu", fused=fused, int8=True)
+    gpu = build_flagship(tiny=True, device=dev, fused=fused, int8=True)
+    wrapper = van_mlp_residual_int8_cuda if fused else van_mlp_int8_cuda
+    with torch.no_grad():
+        stem = cpu.backbone.patch_embed1(images.permute(0, 3, 1, 2))
+        ref = cpu.backbone.block1_0(stem)
+        before = wrapper.launches
+        got = gpu.backbone.block1_0(stem.to(dev)).cpu()
+        assert wrapper.launches == before + 1
+        diff, scale = (got - ref).abs(), ref.abs().max().item()
+        assert diff.max().item() <= 4 * scale / 127
+        assert (diff > 1e-5 * scale).float().mean().item() <= 0.02
+        for q, r in zip(gpu.backbone(images.to(dev)), cpu.backbone(images)):
+            assert ((q.cpu() - r).abs().max() / r.abs().max()).item() < 0.05
+    before = wrapper.launches
+    out_gpu, out_cpu = gpu.predict(images.to(dev)), cpu.predict(images)
+    assert wrapper.launches == before + 5                    # 5 blocks
+    assert abs(int(out_gpu["valid"].sum()) - int(out_cpu["valid"].sum())) \
+        <= out_cpu["valid"].numel() // 50
+    assert (out_gpu["scores"].cpu().sort(dim=1).values
+            - out_cpu["scores"].sort(dim=1).values).abs().max().item() <= 0.05
