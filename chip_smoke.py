@@ -6,7 +6,9 @@ Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
   2. build: compiles ``rs_detection_tpu_torch/csrc/*.cu`` (nvcc, sm_90a)
   3. K2, the fused VAN MLP kernel, against its plain version at the four
-     VAN-b3 stage shapes (batch 8, bf16) and one small f32 shape
+     VAN-b3 stage shapes (batch 8, bf16; the wgmma design), one small
+     ragged bf16 shape and one small f32 shape (the FMA kernel); prints
+     the first design's time beside each
   4. K1, the rotated pyramid RoIAlign kernel, against its plain version
      on 16000 seeded rois over the flagship pyramid (bf16) and small f32
   5. the tiny config's ``predict`` on CUDA (kernels) against the CPU
@@ -20,8 +22,9 @@ Phases, each of which raises (exit code 1) on failure:
      and K1/K3 adjointness in f32 at the flagship shapes
   8. K6, the depthwise weight gradient, against the plain tap loop at
      the twelve VAN-b3 depthwise shapes of a batch-8 step (bf16, the
-     model's layouts) and one small f32 shape; also times the ``dx``
-     conv in both layouts
+     model's layouts: the NHWC and the NCHW design) and one small f32
+     shape; prints the first design's time beside each; also times the
+     ``dx`` conv in both layouts
   9. the tiny config's training step on CUDA (kernels) against the CPU
      (plain versions), f32, samplers that take every candidate
  10. the training path: one warm-up and 5 timed steps of ``train_step``
@@ -129,6 +132,15 @@ INT8_REQUESTS_FUSED = 3  # timed requests of the fused int8 serving path
 DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
     + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
     + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
+# ms per launch of the kernels' first designs at the same shapes, in the
+# order of STAGES and DW_SHAPES: this script on the tree before the
+# redesign of K2 / K2r (WMMA, 32-channel chunks) and K6 (one channel per
+# lane, scalar staging), NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+FIRST_DESIGN_MS = {
+    "K2": [2.559, 1.779, 1.185, 0.641],
+    "K2r": [2.572, 1.769, 1.190, 0.653],
+    "K6": [2.667, 1.357, 0.433, 0.179, 0.565, 0.311, 0.202, 0.077,
+           1.331, 0.692, 0.414, 0.137]}
 
 
 def log(msg):
@@ -220,7 +232,7 @@ def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
         return mlp_inputs(torch, g, n, h, h, c, ch, dt)
 
     err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
-    for h, c, ch, blocks in STAGES:
+    for (h, c, ch, blocks), first in zip(STAGES, FIRST_DESIGN_MS[name]):
         args = inputs(BATCH, h, c, ch, torch.bfloat16)
         err = compare(f"{name} [{BATCH},{h},{h},{c}] Ch={ch} bf16",
                       van_mlp_cuda(*args), van_mlp_reference(*args),
@@ -232,17 +244,27 @@ def phase_k2(torch, van_mlp_cuda, van_mlp_reference, dev, name="K2"):
         # cores, the 3x3 taps in f32
         b = bound(nbytes(*args) + nbytes(args[0]), 4.0 * pixels * c * ch,
                   18.0 * pixels * ch)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
-            f"{b[0]:.3f} ms by {b[1]} (x{blocks} blocks per forward)")
+        log(f"    kernel {t_kernel:.3f} ms (first design {first:.3f}), plain "
+            f"{t_plain:.3f} ms, bound {b[0]:.3f} ms by {b[1]} (x{blocks} "
+            f"blocks per forward)")
         err_max = max(err_max, err)
         ms += blocks * t_kernel
         plain_ms += blocks * t_plain
         bounds += [b] * blocks
         del args
+    # H and W no multiples of the tile, a partial last hidden chunk
+    args = mlp_inputs(torch, g, 2, 21, 19, 320, 200, torch.bfloat16)
+    compare(f"{name} [2,21,19,320] Ch=200 bf16", van_mlp_cuda(*args),
+            van_mlp_reference(*args), "bfloat16")
     args = inputs(2, 21, 32, 96, torch.float32)
     compare(f"{name} [2,21,21,32] Ch=96 f32", van_mlp_cuda(*args),
             van_mlp_reference(*args), "float32")
-    return err_max, ms, plain_ms, add_bounds(bounds)
+    b = add_bounds(bounds)
+    first = sum(s[3] * t for s, t in zip(STAGES, FIRST_DESIGN_MS[name]))
+    log(f"  {name} per forward: kernel {ms:.3f} ms (first design "
+        f"{first:.3f}), plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms by "
+        f"{b[1]}")
+    return err_max, ms, plain_ms, b
 
 
 def compare_int8(torch, name, kernel, plain, fp, dtype_name):
@@ -637,7 +659,8 @@ def phase_k6(torch, dwc, dev):
 
     g = torch.Generator(device=dev).manual_seed(10)
     err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
-    for k, d, h, c, blocks, cl in DW_SHAPES:
+    for (k, d, h, c, blocks, cl), first in zip(DW_SHAPES,
+                                               FIRST_DESIGN_MS["K6"]):
         fmt = torch.channels_last if cl else torch.contiguous_format
 
         def r():
@@ -651,7 +674,7 @@ def phase_k6(torch, dwc, dev):
                       dwc.dw_wgrad_reference(x, gr, k, d), "bfloat16",
                       K6_TOL)
         t_plain = cuda_ms(lambda: dwc.dw_wgrad_reference(x, gr, k, d), 2)
-        t_kernel = cuda_ms(lambda: dwc.dw_wgrad_cuda(x, gr, k, d), 5)
+        t_kernel = cuda_ms(lambda: dwc.dw_wgrad_cuda(x, gr, k, d), 20)
         w = torch.randn(c, 1, k, k, generator=g, device=dev) \
             .to(torch.bfloat16)
         t_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
@@ -666,8 +689,8 @@ def phase_k6(torch, dwc, dev):
             dx_ms[name] = cuda_ms(lambda: F.conv2d(
                 gf, w.flip((2, 3)), padding=d * (k - 1) // 2, dilation=d,
                 groups=c), 5)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, "
-            f"conv2d_weight {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]} "
+        log(f"    kernel {t_kernel:.3f} ms (first design {first:.3f}), plain "
+            f"{t_plain:.3f} ms, conv2d_weight {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]} "
             f"(x{blocks} blocks per step); dx conv NHWC "
             f"{dx_ms['NHWC']:.3f} ms, NCHW {dx_ms['NCHW']:.3f} ms")
         err_max = max(err_max, err)
@@ -680,9 +703,13 @@ def phase_k6(torch, dwc, dev):
     gr = torch.randn(2, 40, 37, 45, generator=g, device=dev)
     compare("K6 k7d3 [2,37,45,40] f32", dwc.dw_wgrad_cuda(x, gr, 7, 3),
             dwc.dw_wgrad_reference(x, gr, 7, 3), "float32", K6_TOL)
+    x, gr = (t.contiguous(memory_format=torch.channels_last) for t in (x, gr))
+    compare("K6 k7d3 [2,37,45,40] NHWC f32", dwc.dw_wgrad_cuda(x, gr, 7, 3),
+            dwc.dw_wgrad_reference(x, gr, 7, 3), "float32", K6_TOL)
     b = add_bounds(bounds)
-    log(f"  K6 per step: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"conv2d_weight {lib_ms:.3f} ms, bound {b[0]:.3f} ms by {b[1]}")
+    first = sum(s[4] * t for s, t in zip(DW_SHAPES, FIRST_DESIGN_MS["K6"]))
+    log(f"  K6 per step: kernel {ms:.3f} ms (first design {first:.3f}), "
+        f"plain {plain_ms:.3f} ms, conv2d_weight {lib_ms:.3f} ms, bound {b[0]:.3f} ms by {b[1]}")
     return err_max, ms, plain_ms, b, lib_ms
 
 
@@ -1090,7 +1117,7 @@ def main():
                 "library_ms": library_ms}
 
     kernels = [
-        entry("van_mlp", "van_mlp.cu", jops + "pallas_van_mlp.py:68",
+        entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
               launches["van_mlp"], k2),
         entry("roi_align_rotated_pyramid", "roi_align_rotated.cu",
               jops + "pallas_roi_align.py:116",
@@ -1102,12 +1129,13 @@ def main():
               train_launches["dw_wgrad"], k6, k6[4]),
         entry("van_attn", "van_attn.cu", jops + "pallas_van_attn.py:89",
               fused_launches["van_attn"], k4),
-        entry("van_mlp_residual", "van_mlp.cu",
+        entry("van_mlp_residual", "van_mlp_wgmma.cu",
               jops + "pallas_van_mlp.py:303",
               fused_launches["van_mlp_residual"], k2r),
-        entry("van_mlp_int8", "van_mlp.cu", jops + "pallas_van_mlp.py:68",
+        entry("van_mlp_int8", "van_mlp_int8.cu",
+              jops + "pallas_van_mlp.py:68",
               int8_launches["van_mlp_int8"], k2q),
-        entry("van_mlp_residual_int8", "van_mlp.cu",
+        entry("van_mlp_residual_int8", "van_mlp_int8.cu",
               jops + "pallas_van_mlp.py:68",
               int8_fused_launches["van_mlp_residual_int8"], k2qr),
         entry("depthwise_conv2d", "dw_conv_fwd.cu",

@@ -1,0 +1,33 @@
+// What the two sources of the fused VAN MLP share: van_mlp.cu (the launcher,
+// the WMMA / FMA kernel and the int8 form) and van_mlp_wgmma.cu (the wgmma
+// design of the bf16 kernel).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace rs {
+
+// True where the wgmma design takes a bf16 MLP of these widths: C in {64,
+// 128, 256, 320} and Ch a multiple of 8 (its weight chunks are copied in
+// 16-byte vectors). Every other shape runs the WMMA kernel.
+bool van_mlp_wgmma_takes(int C, int Ch);
+
+// Bytes of dynamic shared memory one block of the wgmma design asks for.
+size_t van_mlp_wgmma_smem_bytes(int C);
+
+// Bytes of device scratch a launch of the wgmma design needs: the weights
+// repacked per 64-channel hidden chunk into the kernel's shared-memory layout.
+size_t van_mlp_wgmma_scratch_bytes(int C, int Ch);
+
+// Launches the wgmma design on `stream` (all pointers bf16, layouts as
+// rs_van_mlp_fwd; `scratch` 16-byte aligned): a kernel that repacks the
+// weights into `scratch`, then the MLP. Returns cudaGetLastError().
+int van_mlp_wgmma_launch(const void* x, const void* w1, const void* b1,
+                         const void* wdw, const void* bdw, const void* w2,
+                         const void* b2, void* y, void* scratch, int N, int H,
+                         int W, int C, int Ch, int residual,
+                         cudaStream_t stream);
+
+}  // namespace rs

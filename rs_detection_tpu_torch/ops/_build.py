@@ -31,8 +31,9 @@ _L = ctypes.c_longlong
 # argtypes/restype of each exported function; every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "rs_van_mlp_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "rs_van_mlp_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "rs_van_mlp_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_van_mlp_scratch_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_van_mlp_fwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
     "rs_van_mlp_int8_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "rs_van_mlp_int8_fwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     "rs_van_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
@@ -46,7 +47,7 @@ SIGNATURES = {
     "rs_roi_align_rotated_pyramid_bwd": (
         [_P] + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F] + [_P] * 8
         + [_I, _I, _P], _I),
-    "rs_dw_wgrad_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_dw_wgrad_plan": ([_L] * 8 + [_I] * 7 + [ctypes.POINTER(_I)], _I),
     "rs_dw_wgrad": ([_P, _P] + [_L] * 8 + [_I] * 8 + [_P] * 3, _I),
 }
 

@@ -25,18 +25,96 @@ around the NCHW dilated conv (``ops/van_attn.py``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ._build import kernel_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# blocks along the spatial axis of one K6 call: with the channel tiles
-# this keeps ~2048 blocks in flight (about 15 per SM) while the partial
-# sums stay a few MB
-_TARGET_BLOCKS = 2048
-_TILE = 16
-_CT = 32
+# The largest dynamic shared memory of one block and the SM count of an
+# H100; `wgrad_plan` takes the device's own where there is one.
+H100_SMEM, H100_SMS = 232448, 132
+_DESIGNS = ("generic", "nhwc", "nchw")
+# (k, dilation) of VAN's depthwise convs, which K6's two fast designs are
+# built for; any other pair runs its first design
+FAST_KD = ((3, 1), (5, 1), (7, 3))
+
+
+def _nhwc_tile(k, d, itemsize):
+    """(tile width, shared memory) of K6's NHWC design: 64 channels,
+    8 x tw output pixels with their halo plus the g tile, two buffers
+    where they fit (``NhwcShape`` in ``csrc/dw_wgrad.cu``)."""
+    halo, pixel = (k - 1) * d, 64 * itemsize
+
+    def pixels(tw):
+        return (8 + halo) * (tw + halo) + 8 * tw
+
+    tw = 16 if pixels(16) * pixel <= 200 * 1024 else 8
+    buf = pixels(tw) * pixel
+    nbuf = 2 if 2 * buf <= 224 * 1024 else 1
+    return tw, max(nbuf * buf, 8 * k * k * 64 * 4)
+
+
+def _nchw_smem(th, halo, w, itemsize):
+    gw = -(-w // 8) * 8
+    buf = ((th + halo) * (16 + gw + 16) + th * gw) * itemsize
+    return max(2 * buf, 8 * 49 * 4)
+
+
+def _nchw_band(halo, h, w, itemsize):
+    """Rows of one band of K6's NCHW design (``nchw_band_rows``)."""
+    th = min(h, max(1, 4096 // (-(-w // 8) * 8)))
+    while th > 1 and _nchw_smem(th, halo, w, itemsize) > 96 * 1024:
+        th = (th + 1) // 2
+    return th
+
+
+@functools.lru_cache(maxsize=None)
+def _parts(ctiles, items, slots):
+    """Blocks along the spatial axis of one K6 call. The grid is ctiles x
+    parts blocks, ``slots`` of which run at a time, and a block walks
+    ceil(items / parts) tiles: take the fewest parts that minimize waves
+    x tiles per block (at most 512: each part is a row of partial sums)."""
+    best, best_cost = 1, None
+    for parts in range(1, min(items, 512) + 1):
+        cost = -(-ctiles * parts // slots) * -(-items // parts)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = parts, cost
+    return best
+
+
+def wgrad_plan(shape, x_strides, g_strides, k, d, itemsize,
+               sms=H100_SMS, smem_limit=H100_SMEM):
+    """How ``rs_dw_wgrad`` runs a call, mirrored from the launcher in
+    ``csrc/dw_wgrad.cu``: the design the strides pick, one block's shared
+    memory, the blocks along the channels, the spatial work items, and
+    the ``parts`` this wrapper asks for."""
+    n, c, h, w = shape
+    halo = (k - 1) * d
+    design, ctiles = "generic", -(-c // 32)
+    items = n * -(-h // 16) * -(-w // 16)
+    pixel = 32 * itemsize + 4
+    smem = max(((16 + halo) ** 2 + 256) * pixel, 8 * k * k * 32 * 4)
+    slots = None
+    fast = (k, d) in FAST_KD
+    if fast and x_strides[1] == 1 and g_strides[1] == 1:
+        tw, smem = _nhwc_tile(k, d, itemsize)
+        design, ctiles = "nhwc", -(-c // 64)
+        items = n * -(-h // 8) * -(-w // tw)
+        slots = sms * (2 if k < 7 and 2 * smem <= 224 * 1024 else 1)
+    elif fast and x_strides[3] == 1 and g_strides[3] == 1:
+        th = _nchw_band(halo, h, w, itemsize)
+        if _nchw_smem(th, halo, w, itemsize) <= smem_limit:
+            design, ctiles, items = "nchw", c, n * -(-h // th)
+            smem, slots = _nchw_smem(th, halo, w, itemsize), 2 * sms
+    if slots is None:  # ~2048 blocks in flight, about 15 per SM
+        parts = max(1, min(items, 2048 // ctiles))
+    else:
+        parts = _parts(ctiles, items, slots)
+    return dict(design=design, smem=smem, ctiles=ctiles, items=items,
+                parts=parts)
 
 
 def _memory_format(t):
@@ -85,16 +163,16 @@ def dw_wgrad_cuda(x, g, k: int, dilation: int = 1):
     _memory_format(g)
     n, c, h, w = x.shape
     code = _DTYPE_CODE[x.dtype]
-    lib = kernel_library()
-    smem = lib.rs_dw_wgrad_smem_bytes(k, dilation, code)
-    limit = torch.cuda.get_device_properties(x.device) \
-        .shared_memory_per_block_optin
-    if smem > limit:
+    props = torch.cuda.get_device_properties(x.device)
+    limit = props.shared_memory_per_block_optin
+    plan = wgrad_plan(x.shape, x.stride(), g.stride(), k, dilation,
+                      x.element_size(), props.multi_processor_count, limit)
+    if plan["smem"] > limit:
         raise ValueError(f"dw_wgrad kernel does not take k={k} dilation "
-                         f"{dilation} in {x.dtype} (needs {smem} B of shared "
-                         f"memory, limit {limit})")
-    tiles = n * -(-h // _TILE) * -(-w // _TILE)
-    parts = max(1, min(tiles, _TARGET_BLOCKS // -(-c // _CT)))
+                         f"{dilation} in {x.dtype} (needs {plan['smem']} B "
+                         f"of shared memory, limit {limit})")
+    lib = kernel_library()
+    parts = plan["parts"]
     partial = torch.empty(parts, k * k, c, dtype=torch.float32,
                           device=x.device)
     out = torch.empty(k * k, c, dtype=torch.float32, device=x.device)
@@ -111,6 +189,21 @@ def dw_wgrad_cuda(x, g, k: int, dilation: int = 1):
 
 
 dw_wgrad_cuda.launches = 0
+
+
+def launcher_plan(x, g, k: int, dilation: int = 1):
+    """The plan of ``rs_dw_wgrad`` itself for CUDA tensors x and g (builds
+    the library), in ``wgrad_plan``'s terms without ``parts``; the tests
+    hold the two against each other."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    err = kernel_library().rs_dw_wgrad_plan(
+        *x.stride(), *g.stride(), *x.shape, k, dilation,
+        _DTYPE_CODE[x.dtype], out)
+    if err != 0:
+        raise ValueError(f"dw_wgrad: no plan for k={k}, {x.dtype}")
+    return dict(design=_DESIGNS[out[0]], smem=out[1], ctiles=out[2],
+                items=out[3])
 
 
 def dw_wgrad(x, g, k: int, dilation: int = 1):

@@ -1,8 +1,10 @@
 """VAN MLP: fc1 (1x1) -> depthwise 3x3 -> erf GELU -> fc2 (1x1).
 
 Counterpart of ``rs_detection_tpu/ops/pallas_van_mlp.py``. On a CUDA
-tensor ``van_mlp`` launches the fused kernel ``csrc/van_mlp.cu``, which
-keeps the 4-8x wide hidden tensor out of device memory; on a CPU tensor
+tensor ``van_mlp`` launches the fused kernel (``csrc/van_mlp.cu``, whose
+launcher picks the wgmma design of ``csrc/van_mlp_wgmma.cu`` for bf16 at
+VAN's widths; ``kernel_plan`` says which shape runs what), which keeps
+the 4-8x wide hidden tensor out of device memory; on a CPU tensor
 it runs ``van_mlp_reference``, the plain composition (the JAX
 ``_ref_mlp``). ``van_mlp_residual`` is the same kernel with its residual
 flag set: ``x + mlp(x)`` with the add in f32 inside the kernel, the form
@@ -19,7 +21,7 @@ arithmetic is the group over which an activation scale ``max|v| / 127``
 is taken, so the plain version ``van_mlp_int8_reference`` takes the
 group as an argument:
 
-* ``"tile"``, the CUDA kernel's (``csrc/van_mlp.cu``) and the default:
+* ``"tile"``, the CUDA kernel's (``csrc/van_mlp_int8.cu``) and the default:
   fc1 one scale per 8x8 output tile over its haloed 10x10 x patch, fc2
   one scale per (tile, 32-channel hidden chunk) over the f32 GELU
   output. The kernel walks the hidden channels in chunks and never holds
@@ -178,6 +180,52 @@ def van_mlp_residual_int8_reference(x, w1, b1, wdw, bdw, w2, b2,
     return _int8_mlp(x, w1, b1, wdw, bdw, w2, b2, group, True)
 
 
+H100_SMEM = 232448  # the largest dynamic shared memory of one block
+BF16_WIDTHS = (32, 64, 128, 256, 320, 512)
+WGMMA_WIDTHS = (64, 128, 256, 320, 512)
+
+
+def _up128(v):
+    return (v + 127) // 128 * 128
+
+
+def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM):
+    """How ``rs_van_mlp_fwd`` runs an MLP of these widths, mirrored from
+    the launchers in ``csrc/van_mlp.cu`` and ``csrc/van_mlp_wgmma.cu``:
+    the design the shape picks (``"wgmma"``: bf16 at C in
+    ``WGMMA_WIDTHS`` and Ch a multiple of 8; ``"wmma"``: every other
+    bf16 shape; ``"fma"``: f32), the hidden channels it holds at a time,
+    one block's shared memory and the bytes of scratch (the wgmma
+    design's repacked weights). Raises ``ValueError`` for a width no
+    kernel takes."""
+    if dtype == torch.bfloat16 and c not in BF16_WIDTHS or c <= 0 or ch <= 0:
+        raise ValueError(f"van_mlp kernel does not take C={c}, Ch={ch} in "
+                         f"{dtype} (bf16 widths: {BF16_WIDTHS})")
+    if dtype == torch.bfloat16 and c in WGMMA_WIDTHS and ch % 8 == 0:
+        kc = 32 if c == 512 else 64
+        kb, w2_buffers = c // 64, 2 if c == 64 else 1
+        w1_chunk, w2_chunk, taps = kb * kc * 128, c * kc * 2, kc * 22
+        smem = (kb * 104 * 128 + 2 * w1_chunk + w2_buffers * w2_chunk
+                + 64 * kc * 2 + _up128(100 * (kc * 2 + 16)) + 3 * taps
+                + 4 * 8 + 1024)
+        return dict(design="wgmma", chunk=kc, smem=smem,
+                    scratch=-(-ch // kc) * (w1_chunk + taps + w2_chunk))
+    size = 2 if dtype == torch.bfloat16 else 4
+    ld_x, ld_w2 = (c + 8, 40) if size == 2 else (c + 1, 33)
+
+    def total(nbuf):
+        staged = (_up128(32 * ld_x * size) + _up128(c * ld_w2 * size)
+                  + _up128(32 * 11 * size))
+        extra = 8 * 256 * 4 if size == 2 else 64 * c * 4
+        return (_up128(112 * ld_x * size) + nbuf * staged
+                + _up128(112 * 36 * 4) + _up128(64 * 40 * size)
+                + _up128(extra))
+
+    smem = total(2) if total(2) <= smem_limit else total(1)
+    return dict(design="wmma" if size == 2 else "fma", chunk=CHUNK,
+                smem=smem, scratch=0)
+
+
 def _launch(wrapper, name, args, residual, int8=False):
     """Check the operands and launch ``rs_van_mlp_fwd`` (with ``int8``:
     quantize w1 and w2 per output channel and launch
@@ -215,24 +263,31 @@ def _launch(wrapper, name, args, residual, int8=False):
     if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in args):
         raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned")
     code = _DTYPE_CODE[x.dtype]
-    lib = kernel_library()
-    smem_bytes, fwd = (lib.rs_van_mlp_int8_smem_bytes,
-                       lib.rs_van_mlp_int8_fwd) if int8 else (
-                           lib.rs_van_mlp_smem_bytes, lib.rs_van_mlp_fwd)
-    smem = smem_bytes(c, code)
     limit = torch.cuda.get_device_properties(x.device) \
         .shared_memory_per_block_optin
+    plan = kernel_plan(c, ch, x.dtype, limit)
+    lib = kernel_library()
+    if int8:
+        smem, fwd = lib.rs_van_mlp_int8_smem_bytes(c, code), \
+            lib.rs_van_mlp_int8_fwd
+    else:
+        smem, fwd = plan["smem"], lib.rs_van_mlp_fwd
     if smem == 0 or smem > limit:
         raise ValueError(f"{name} kernel does not take C={c} in {x.dtype} "
                          f"(needs {smem} B of shared memory, limit {limit})")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    out = (y.data_ptr(),)
+    if not int8:  # the wgmma design repacks the weights into scratch
+        scratch = torch.empty(plan["scratch"], dtype=torch.uint8,
+                              device=x.device)
+        out += (scratch.data_ptr(),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         wrapper.launches += 1
-        err = fwd(*(t.data_ptr() for t in args), y.data_ptr(), n, h, w, c,
-                  ch, code, int(residual), stream)
+        err = fwd(*(t.data_ptr() for t in args), *out, n, h, w, c, ch, code,
+                  int(residual), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return y

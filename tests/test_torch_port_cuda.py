@@ -5,7 +5,10 @@ installed: ``tests/conftest.py`` imports it). Without a GPU every test
 here skips; ``chip_smoke.py`` runs the same checks at the flagship
 shapes. Covers K1 and K2 (serving), K3 and K6 (training), K4, K2r, K5
 and K7's layout (fused serving), K2q with its residual form and the
-integer products of the int8 serving mode, the rule that a kernel
+integer products of the int8 serving mode, what the redesigned K2 / K2r
+and K6 make fragile (ragged tiles, every bf16 width, partial hidden
+chunks, every kernel size and dilation in both memory formats, launch
+plans mirrored in Python), the rule that a kernel
 wrapper never hands autograd a detached result, and the tiny config's
 predict (fused and not, int8 and not) and training step, CUDA against
 CPU."""
@@ -16,8 +19,11 @@ import torch
 from rs_detection_tpu_torch.flagship import (build_flagship, make_targets,
                                              normalize)
 from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
+from rs_detection_tpu_torch.ops import dw_conv, van_mlp
+from rs_detection_tpu_torch.ops._build import kernel_library
 from rs_detection_tpu_torch.ops.dw_conv import (dw_wgrad_cuda,
-                                                dw_wgrad_reference)
+                                                dw_wgrad_reference,
+                                                launcher_plan, wgrad_plan)
 from rs_detection_tpu_torch.ops.roi_align import (
     roi_align_rotated_pyramid, roi_align_rotated_pyramid_bwd_cuda,
     roi_align_rotated_pyramid_bwd_reference, roi_align_rotated_pyramid_cuda,
@@ -29,7 +35,7 @@ from rs_detection_tpu_torch.ops.van_attn import (van_attn_cuda,
                                                  van_attn_reference)
 from rs_detection_tpu_torch.ops import quant
 from rs_detection_tpu_torch.ops.van_mlp import (
-    van_mlp_cuda, van_mlp_int8, van_mlp_int8_cuda, van_mlp_int8_reference,
+    kernel_plan, van_mlp_cuda, van_mlp_int8, van_mlp_int8_cuda, van_mlp_int8_reference,
     van_mlp_reference, van_mlp_residual_cuda, van_mlp_residual_int8_cuda,
     van_mlp_residual_int8_reference, van_mlp_residual_reference)
 from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
@@ -519,3 +525,129 @@ def test_tiny_int8_predict_cuda_matches_cpu(dev, fused):
         <= out_cpu["valid"].numel() // 50
     assert (out_gpu["scores"].cpu().sort(dim=1).values
             - out_cpu["scores"].sort(dim=1).values).abs().max().item() <= 0.05
+
+
+def _mlp_args(dev, shape, dtype, seed=0):
+    n, h, w, c, ch = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)
+
+    return (r(n, h, w, c), r(ch, c, scale=c ** -0.5), r(ch, scale=0.1),
+            r(ch, 9, scale=1 / 3), r(ch, scale=0.1),
+            r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["mlp", "residual"])
+@pytest.mark.parametrize("shape", [
+    # H, W no multiples of the 8x8 tile, at every bf16 width; Ch a whole
+    # number of chunks, a partial last chunk, and no multiple of 8 (which
+    # keeps the WMMA kernel)
+    (2, 21, 19, 32, 96), (2, 21, 19, 64, 96), (2, 21, 19, 128, 256),
+    (2, 21, 19, 256, 72), (2, 21, 19, 320, 200), (2, 21, 19, 512, 72),
+    (1, 9, 70, 64, 512), (1, 9, 70, 128, 100), (1, 9, 70, 320, 1280),
+    (1, 9, 70, 512, 2048),
+    # smaller than a tile, one image; batch 8
+    (1, 3, 5, 64, 64), (1, 1, 1, 512, 32), (8, 16, 24, 64, 128),
+    (8, 8, 8, 256, 64)], ids=str)
+def test_van_mlp_bf16_designs_match_plain(dev, shape, residual):
+    """K2 and K2r in bf16 over the shapes that pick each design of the
+    kernel; y must not depend on what lies past the tile's image part."""
+    args = _mlp_args(dev, shape, torch.bfloat16, seed=21)
+    kernel, plain = ((van_mlp_residual_cuda, van_mlp_residual_reference)
+                     if residual else (van_mlp_cuda, van_mlp_reference))
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _assert_close(got, plain(*args), torch.bfloat16)
+    assert torch.equal(got, kernel(*args))      # same launch, same bits
+
+
+@pytest.mark.parametrize("c,ch,dtype", [
+    (64, 512, torch.bfloat16), (128, 1024, torch.bfloat16),
+    (256, 72, torch.bfloat16), (320, 1280, torch.bfloat16),
+    (512, 2048, torch.bfloat16), (320, 100, torch.bfloat16),
+    (512, 100, torch.bfloat16), (32, 96, torch.bfloat16),
+    (20, 40, torch.float32), (320, 64, torch.float32)])
+def test_van_mlp_plan_mirrors_the_launcher(dev, c, ch, dtype):
+    lib = kernel_library()
+    limit = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    plan = kernel_plan(c, ch, dtype, limit)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert plan["smem"] == lib.rs_van_mlp_smem_bytes(c, ch, code)
+    assert plan["scratch"] == lib.rs_van_mlp_scratch_bytes(c, ch, code)
+
+
+def test_kernel_wrappers_refuse_unsupported_shapes_before_building(
+        dev, monkeypatch):
+    def no_build():
+        raise AssertionError("the kernel library must not be built here")
+
+    monkeypatch.setattr(van_mlp, "kernel_library", no_build)
+    monkeypatch.setattr(dw_conv, "kernel_library", no_build)
+    args = _mlp_args(dev, (1, 8, 8, 48, 96), torch.bfloat16)
+    for fn in (van_mlp_cuda, van_mlp_residual_cuda, van_mlp_int8_cuda):
+        with pytest.raises(ValueError):
+            fn(*args)                       # no bf16 kernel of width 48
+    x = torch.zeros(1, 8, 8, 8, device=dev)
+    with pytest.raises(ValueError):
+        dw_wgrad_cuda(x, x, 4)
+    with pytest.raises(ValueError):
+        dw_wgrad_cuda(x, x[:, :, :, :4], 3)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-3)])
+def test_dw_wgrad_designs_match_plain(dev, k, d, channels_last, dtype, tol):
+    """K6 at every kernel size and dilation 1 and 3 (VAN's three pairs
+    run the two designs for the model's layouts): C no multiple of the
+    channel tile or of a 16-byte vector, H and W smaller than one tile,
+    odd and even sizes; two launches give the same bits, and the Python
+    plan is the launcher's."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    g = torch.Generator(device=dev).manual_seed(23)
+    for shape in ((2, 40, 37, 45), (1, 67, 5, 3), (3, 72, 16, 24),
+                  (2, 130, 9, 70)):
+        x = torch.randn(*shape, generator=g, device=dev).to(dtype) \
+            .contiguous(memory_format=fmt)
+        gr = torch.randn(*shape, generator=g, device=dev).to(dtype) \
+            .contiguous(memory_format=fmt)
+        got = dw_wgrad_cuda(x, gr, k, d)
+        ref = dw_wgrad_reference(x, gr, k, d)
+        assert got.shape == (k * k, shape[1]) and got.dtype == torch.float32
+        err = (got - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), (shape, err)
+        assert torch.equal(got, dw_wgrad_cuda(x, gr, k, d)), shape
+        plan = wgrad_plan(x.shape, x.stride(), gr.stride(), k, d,
+                          x.element_size())
+        theirs = launcher_plan(x, gr, k, d)
+        fast = "nhwc" if channels_last else "nchw"
+        assert plan["design"] == (fast if (k, d) in dw_conv.FAST_KD
+                                  else "generic")
+        assert {key: plan[key] for key in theirs} == theirs, shape
+
+
+@pytest.mark.parametrize("k,d,mixed", [(3, 2, False), (7, 2, False),
+                                       (5, 1, True), (7, 3, True)])
+def test_dw_wgrad_first_design_still_matches_plain(dev, k, d, mixed):
+    """Another dilation, or x and g in two memory formats, keep the first
+    design; its plan is mirrored too."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(2, 40, 37, 45, generator=g, device=dev) \
+        .contiguous(memory_format=torch.channels_last)
+    gr = torch.randn(2, 40, 37, 45, generator=g, device=dev)
+    if not mixed:
+        gr = gr.contiguous(memory_format=torch.channels_last)
+    got = dw_wgrad_cuda(x, gr, k, d)
+    ref = dw_wgrad_reference(x, gr, k, d)
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    plan = wgrad_plan(x.shape, x.stride(), gr.stride(), k, d, 4)
+    theirs = launcher_plan(x, gr, k, d)
+    assert plan["design"] == "generic"
+    assert {key: plan[key] for key in theirs} == theirs
