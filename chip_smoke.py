@@ -43,7 +43,10 @@ Phases, each of which raises (exit code 1) on failure:
  12. K2r, the residual form of the MLP kernel, against its plain version
      at the four stage shapes (bf16) and one small f32 shape
  13. K4, the fused attention half-block, against its plain version at
-     the four stage shapes (bf16) and small f32 shapes
+     the four stage shapes (bf16; the wgmma design of ``proj1`` and
+     ``tail``), small bf16 shapes whose pixel count is no multiple of a
+     block's and small f32 shapes (the first design); prints the first
+     design's time beside each stage
  14. the tiny config's fused ``predict`` on CUDA (kernels) against the
      CPU (plain versions), and fused against non-fused on CUDA, f32
  15. the fused serving path: as phase 6 with ``build_flagship(fused=
@@ -51,8 +54,11 @@ Phases, each of which raises (exit code 1) on failure:
      K5's kernel 76 times (inside K4), K1 once and K2 never
  16. K2q, the int8 form of the MLP kernel, and its residual form against
      their plain version (the kernel's tile group of activation scales)
-     at the four stage shapes (bf16) and one small odd f32 shape; also
-     prints the quantization error against the float MLP
+     at the four stage shapes (bf16; the wgmma design), small ragged
+     bf16 shapes and one small odd f32 shape (the first design); prints
+     the first design's time beside each and the quantization error
+     against the float MLP; the weight-preparation kernel against
+     ``qweight`` bit for bit
  17. the integer products of the int8 mode outside the kernel
      (``int_matmul``, ``int_conv2d``) on the card against the CPU, bit
      for bit in their s32 sums, at a stage-3 mix and the FPN 3x3 conv
@@ -135,10 +141,15 @@ DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
 # ms per launch of the kernels' first designs at the same shapes, in the
 # order of STAGES and DW_SHAPES: this script on the tree before the
 # redesign of K2 / K2r (WMMA, 32-channel chunks) and K6 (one channel per
-# lane, scalar staging), NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+# lane, scalar staging), and on the tree before that of K2q (WMMA s8) and
+# K4's proj1 and tail (WMMA, 64 pixels per block; the four launches of a
+# half-block together), NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
 FIRST_DESIGN_MS = {
     "K2": [2.559, 1.779, 1.185, 0.641],
     "K2r": [2.572, 1.769, 1.190, 0.653],
+    "K2q": [2.825, 1.868, 1.141, 0.648],
+    "K2q residual": [2.847, 1.801, 1.191, 0.621],
+    "K4": [1.044, 0.593, 0.587, 0.373],
     "K6": [2.667, 1.357, 0.433, 0.179, 0.565, 0.311, 0.202, 0.077,
            1.331, 0.692, 0.414, 0.137]}
 
@@ -300,8 +311,8 @@ def phase_k2q(torch, vm, dev, residual):
     """K2q (or, with ``residual``, its residual form) against the plain
     version with the kernel's scale groups; returns (max error, kernel
     ms, plain ms, bound) per forward, each shape weighed by its block
-    count. The kernel's time includes the per-call weight quantization
-    of its wrapper."""
+    count. The kernel's time includes its per-call weight preparation
+    (quantize and pack, a kernel of its own)."""
     g = torch.Generator(device=dev).manual_seed(17)
     if residual:
         name, kernel = "K2q residual", vm.van_mlp_residual_int8_cuda
@@ -311,8 +322,12 @@ def phase_k2q(torch, vm, dev, residual):
         name, kernel = "K2q", vm.van_mlp_int8_cuda
         plain, fp = vm.van_mlp_int8_reference, vm.van_mlp_reference
     err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
-    for h, c, ch, blocks in STAGES:
+    for (h, c, ch, blocks), first in zip(STAGES, FIRST_DESIGN_MS[name]):
         args = mlp_inputs(torch, g, BATCH, h, h, c, ch, torch.bfloat16)
+        if vm.kernel_plan(c, ch, torch.bfloat16, int8=True)["design"] \
+                != "wgmma":
+            raise AssertionError(f"{name}: C={c} does not pick the wgmma "
+                                 f"design")
         err = compare_int8(torch, f"{name} [{BATCH},{h},{h},{c}] Ch={ch} bf16",
                            kernel(*args), plain(*args), fp(*args), "bfloat16")
         t_plain = cuda_ms(lambda: plain(*args), 3)
@@ -322,21 +337,63 @@ def phase_k2q(torch, vm, dev, residual):
         # int8 on the tensor cores, the 3x3 taps in f32
         b = bound(nbytes(*args) + nbytes(args[0]), 0.0, 18.0 * pixels * ch,
                   4.0 * pixels * c * ch)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
-            f"{b[0]:.3f} ms by {b[1]} (x{blocks} blocks per forward)")
+        log(f"    kernel {t_kernel:.3f} ms (first design {first:.3f}), plain "
+            f"{t_plain:.3f} ms, bound {b[0]:.3f} ms by {b[1]} (x{blocks} "
+            f"blocks per forward)")
         err_max = max(err_max, err)
         ms += blocks * t_kernel
         plain_ms += blocks * t_plain
         bounds += [b] * blocks
         del args
-    # H and W no multiples of the tile: border tiles, the zero padding
+    # H and W no multiples of the tile (border tiles, the zero padding) and
+    # a partial last round of hidden channels, at widths the wgmma design
+    # takes; then the first design in f32
+    for c, ch in ((320, 200), (64, 100)):
+        args = mlp_inputs(torch, g, 2, 21, 19, c, ch, torch.bfloat16)
+        compare_int8(torch, f"{name} [2,21,19,{c}] Ch={ch} bf16",
+                     kernel(*args), plain(*args), fp(*args), "bfloat16")
     args = mlp_inputs(torch, g, 2, 21, 19, 32, 96, torch.float32)
     compare_int8(torch, f"{name} [2,21,19,32] Ch=96 f32", kernel(*args),
                  plain(*args), fp(*args), "float32")
     b = add_bounds(bounds)
-    log(f"  {name} per forward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b[0]:.3f} ms by {b[1]}")
+    first = sum(s[3] * t for s, t in zip(STAGES, FIRST_DESIGN_MS[name]))
+    log(f"  {name} per forward: kernel {ms:.3f} ms (first design "
+        f"{first:.3f}), plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms by "
+        f"{b[1]}")
     return err_max, ms, plain_ms, b
+
+
+def phase_k2q_pack(torch, vm, quant, lib, dev):
+    """The weight preparation of K2q's wgmma design (quantize per output
+    channel and pack into the kernel's shared-memory bytes, one kernel)
+    against ``qweight``, bit for bit: its bytes equal the Python version's
+    (``pack_int8_weights``), and unpacked they give ``qweight``'s s8
+    values and scales back."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = [(c, ch) for _, c, ch, _ in STAGES] + [(320, 200), (64, 100)]
+    for c, ch in shapes:
+        _, w1, b1, wdw, bdw, w2, _ = mlp_inputs(torch, g, 1, 8, 8, c, ch,
+                                                torch.bfloat16)
+        want = vm.pack_int8_weights(w1, b1, wdw, bdw, w2)
+        got = torch.empty_like(want)
+        err = lib.rs_van_mlp_int8_pack(
+            w1.data_ptr(), b1.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
+            w2.data_ptr(), got.data_ptr(), c, ch, 1, stream)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"K2q pack C={c} Ch={ch}: CUDA error {err}")
+        w1q, sw1, w2q, sw2 = vm.unpack_int8_weights(got, c, ch)
+        (q1, s1), (q2, s2) = quant.qweight(w1, 0), quant.qweight(w2, 0)
+        same = torch.equal(got, want) and all(
+            torch.equal(a, b) for a, b in ((w1q, q1), (sw1, s1), (w2q, q2),
+                                           (sw2, s2)))
+        log(f"  K2q weight preparation C={c} Ch={ch}: {got.numel()} packed "
+            f"bytes, equal to the Python version and to qweight -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"K2q pack C={c} Ch={ch} differs from "
+                                 f"qweight")
 
 
 def phase_int_products(torch, quant, dev):
@@ -857,8 +914,10 @@ def phase_k4(torch, va, dev):
                 r(c, c, 1, 1, scale=mix), r(c, scale=0.1), r(c, scale=0.3))
 
     err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
-    for h, c, _, blocks in STAGES:
+    for (h, c, _, blocks), first in zip(STAGES, FIRST_DESIGN_MS["K4"]):
         args = inputs(BATCH, h, h, c, torch.bfloat16)
+        if va.attn_plan(c, torch.bfloat16)["design"] != "wgmma":
+            raise AssertionError(f"K4: C={c} does not pick the wgmma design")
         err = compare(f"K4 [{BATCH},{h},{h},{c}] bf16",
                       va.van_attn_cuda(*args), va.van_attn_reference(*args),
                       "bfloat16", K4_TOL)
@@ -869,18 +928,27 @@ def phase_k4(torch, va, dev):
         # the tensor cores, 25 + 49 taps in f32
         b = bound(nbytes(*args) + nbytes(args[0]), 6.0 * pixels * c * c,
                   2.0 * 74 * pixels * c)
-        log(f"    kernel {t_kernel:.3f} ms (4 launches), plain {t_plain:.3f} "
-            f"ms, bound {b[0]:.3f} ms by {b[1]} (x{blocks} blocks per "
-            f"forward)")
+        log(f"    kernel {t_kernel:.3f} ms (4 launches; first design "
+            f"{first:.3f}), plain {t_plain:.3f} ms, bound {b[0]:.3f} ms by "
+            f"{b[1]} (x{blocks} blocks per forward)")
         err_max = max(err_max, err)
         ms += blocks * t_kernel
         plain_ms += blocks * t_plain
         bounds += [b] * blocks
         del args
+    # pixel counts that are no multiple of a block's 128 (64 in tail at
+    # C = 512), at widths the wgmma design takes
+    for shape in ((1, 13, 11, 64), (2, 9, 7, 320), (1, 15, 13, 512)):
+        args = inputs(*shape, torch.bfloat16)
+        compare(f"K4 {list(shape)} bf16", va.van_attn_cuda(*args),
+                va.van_attn_reference(*args), "bfloat16", K4_TOL)
     for shape in ((1, 13, 16, 32), (2, 24, 20, 32), (2, 9, 7, 40)):
         args = inputs(*shape, torch.float32)
         compare(f"K4 {list(shape)} f32", va.van_attn_cuda(*args),
                 va.van_attn_reference(*args), "float32", K4_TOL)
+    first = sum(s[3] * t for s, t in zip(STAGES, FIRST_DESIGN_MS["K4"]))
+    log(f"  K4 per forward: kernel {ms:.3f} ms (first design {first:.3f}), "
+        f"plain {plain_ms:.3f} ms")
     return err_max, ms, plain_ms, add_bounds(bounds)
 
 
@@ -1089,6 +1157,7 @@ def main():
         "vs plain")
     k2q = phase_k2q(torch, vm, dev, residual=False)
     k2qr = phase_k2q(torch, vm, dev, residual=True)
+    phase_k2q_pack(torch, vm, quant, _build.kernel_library(), dev)
     log("[17] integer products of the int8 mode: CUDA vs CPU, bit for bit")
     phase_int_products(torch, quant, dev)
     log("[18] tiny config int8 predict: CUDA vs CPU, int8 vs float")
@@ -1127,15 +1196,15 @@ def main():
               train_launches["roi_align_rotated_pyramid_bwd"], k3),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
               train_launches["dw_wgrad"], k6, k6[4]),
-        entry("van_attn", "van_attn.cu", jops + "pallas_van_attn.py:89",
+        entry("van_attn", "van_attn_wgmma.cu", jops + "pallas_van_attn.py:89",
               fused_launches["van_attn"], k4),
         entry("van_mlp_residual", "van_mlp_wgmma.cu",
               jops + "pallas_van_mlp.py:303",
               fused_launches["van_mlp_residual"], k2r),
-        entry("van_mlp_int8", "van_mlp_int8.cu",
+        entry("van_mlp_int8", "van_mlp_int8_wgmma.cu",
               jops + "pallas_van_mlp.py:68",
               int8_launches["van_mlp_int8"], k2q),
-        entry("van_mlp_residual_int8", "van_mlp_int8.cu",
+        entry("van_mlp_residual_int8", "van_mlp_int8_wgmma.cu",
               jops + "pallas_van_mlp.py:68",
               int8_fused_launches["van_mlp_residual_int8"], k2qr),
         entry("depthwise_conv2d", "dw_conv_fwd.cu",

@@ -30,10 +30,13 @@
 // and the traffic of the two stages here about 5 GB (1.4 ms); these kernels
 // run WMMA 16x16x16 fragments fed from shared memory, so what bounds this
 // version is the shared-memory fragment loads and the per-chunk barriers, not
-// HBM. A block owns 64 consecutive pixels (32 in f32): the activation tile
-// sits in shared memory, the weights stream through in chunks of 32 output
-// channels by cp.async, and each warp owns a 16-pixel x 16-channel tile per
-// chunk, summed in two independent accumulators. The kernels are
+// HBM. That is the first design, which this file keeps for f32 and for bf16
+// widths other than VAN's; bf16 at C in {64, 128, 256, 320, 512} runs the
+// wgmma design of van_attn_wgmma.cu (the launchers below pick by shape). In
+// the first design a block owns 64 consecutive pixels (32 in f32): the
+// activation tile sits in shared memory, the weights stream through in chunks
+// of 32 output channels by cp.async, and each warp owns a 16-pixel x
+// 16-channel tile per chunk, summed in two independent accumulators. The kernels are
 // latency-bound (a barrier and a chain of dependent tensor-core operations
 // per chunk), so the weights take one staging buffer or two, whichever lets
 // more blocks share an SM. In `tail` the gated product round(g * c1) is
@@ -43,6 +46,7 @@
 #include <mma.h>
 
 #include "rs_common.cuh"
+#include "van_attn.cuh"
 
 namespace {
 
@@ -331,37 +335,72 @@ int launch_tail(const void* x, const void* a1, const void* b1, const void* g,
 
 }  // namespace
 
-// Shared memory one block of the larger stage (tail) needs, or 0 if the
-// width is not supported (bf16 takes C % 32 == 0). dtype: 0 = f32, 1 = bf16.
-extern "C" size_t rs_van_attn_smem_bytes(int C, int dtype) {
+// Which design runs a half-block of this width: 0 = none takes it, 1 = the
+// first design (f32: any width; bf16: C % 32 == 0), 2 = the wgmma design.
+// dtype: 0 = f32, 1 = bf16.
+extern "C" int rs_van_attn_design(int C, int dtype) {
   if (!width_supported(C, dtype)) return 0;
-  if (dtype == 0) return layout_of<float>(C, 2, pick_nbuf<float>(C, 2)).total;
-  return layout_of<__nv_bfloat16>(C, 2, pick_nbuf<__nv_bfloat16>(C, 2)).total;
+  return dtype == 1 && rs::van_attn_wgmma_takes(C) ? 2 : 1;
 }
 
-// x, g: [P, C] of `dtype`; a1, b1: [C] f32; wp1: [C, C]; bp1: [C]. Launches
-// on `stream`; returns cudaGetLastError() (0 = success).
+// Shared memory one block of the stage that needs more asks for, or 0 if the
+// width is not supported.
+extern "C" size_t rs_van_attn_smem_bytes(int C, int dtype) {
+  switch (rs_van_attn_design(C, dtype)) {
+    case 2: {
+      const size_t proj1 = rs::van_attn_wgmma_smem_bytes(C, 0);
+      const size_t tail = rs::van_attn_wgmma_smem_bytes(C, 1);
+      return proj1 > tail ? proj1 : tail;
+    }
+    case 1:
+      if (dtype == 0)
+        return layout_of<float>(C, 2, pick_nbuf<float>(C, 2)).total;
+      return layout_of<__nv_bfloat16>(C, 2, pick_nbuf<__nv_bfloat16>(C, 2))
+          .total;
+  }
+  return 0;
+}
+
+// Bytes of device scratch the two stages of one half-block share (0 where
+// the design needs none).
+extern "C" size_t rs_van_attn_scratch_bytes(int C, int dtype) {
+  return rs_van_attn_design(C, dtype) == 2
+             ? rs::van_attn_wgmma_scratch_bytes(C)
+             : 0;
+}
+
+// x, g: [P, C] of `dtype`; a1, b1: [C] f32; wp1: [C, C]; bp1: [C]; `scratch`:
+// rs_van_attn_scratch_bytes() bytes, 16-byte aligned (may be null where that
+// is 0). Launches on `stream`; returns cudaGetLastError() (0 = success).
 extern "C" int rs_van_attn_proj1(const void* x, const void* a1, const void* b1,
                                  const void* wp1, const void* bp1, void* g,
-                                 long long P, int C, int dtype, void* stream) {
-  if (P < 1 || !width_supported(C, dtype))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                 void* scratch, long long P, int C, int dtype,
+                                 void* stream) {
+  const int design = rs_van_attn_design(C, dtype);
+  if (P < 1 || design == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 2)
+    return rs::van_attn_wgmma_proj1(x, a1, b1, wp1, bp1, g, scratch, P, C, st);
   if (dtype == 0)
     return launch_proj1<float>(x, a1, b1, wp1, bp1, g, P, C, st);
   return launch_proj1<__nv_bfloat16>(x, a1, b1, wp1, bp1, g, P, C, st);
 }
 
 // x, g, d7, out: [P, C] of `dtype` (out must not alias them); a1, b1: [C]
-// f32; wc1, wp2: [C, C]; bc1, bp2, ls1: [C].
+// f32; wc1, wp2: [C, C]; bc1, bp2, ls1: [C]; `scratch` as for proj1 (the same
+// buffer: each stage packs its own weights into its own part).
 extern "C" int rs_van_attn_tail(const void* x, const void* a1, const void* b1,
                                 const void* g, const void* d7, const void* wc1,
                                 const void* bc1, const void* wp2,
                                 const void* bp2, const void* ls1, void* out,
-                                long long P, int C, int dtype, void* stream) {
-  if (P < 1 || !width_supported(C, dtype))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                void* scratch, long long P, int C, int dtype,
+                                void* stream) {
+  const int design = rs_van_attn_design(C, dtype);
+  if (P < 1 || design == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 2)
+    return rs::van_attn_wgmma_tail(x, a1, b1, g, d7, wc1, bc1, wp2, bp2, ls1,
+                                   out, scratch, P, C, st);
   if (dtype == 0)
     return launch_tail<float>(x, a1, b1, g, d7, wc1, bc1, wp2, bp2, ls1, out,
                               P, C, st);

@@ -7,13 +7,17 @@
 // of 32 (TILE, HALO, MROWS and KC below are that kernel's, repeated here so
 // that the two sources build side by side).
 //
-// `van_mlp_q_kernel`, exported as `rs_van_mlp_int8_fwd` with the float
-// kernel's `residual` flag:
+// `rs_van_mlp_int8_fwd` takes the float weights and the float kernel's
+// `residual` flag, quantizes the weights per output channel on the card and
+// picks the design by shape: bf16 at the widths van_mlp_q_wgmma_takes() names
+// runs the wgmma design (van_mlp_int8_wgmma.cu), every other shape
+// `van_mlp_q_kernel` below, the first design:
 // Both 1x1 products run s8 x s8 -> s32 (WMMA 16x16x16 `signed char` fragments
 // with `int` accumulators in bf16 mode, integer multiply-adds in f32 mode);
-// the depthwise 3x3 and the GELU stay in f32. The weights arrive quantized
-// per output channel (w1q [Ch, C] s8 with sw1 [Ch] f32, w2q [C, Ch] s8 with
-// sw2 [C] f32); the activations are quantized here, dynamically and
+// the depthwise 3x3 and the GELU stay in f32. The weights are quantized per
+// output channel by `quantize_rows_kernel`, bit for bit as ops/quant.py:
+// qweight does (w1q [Ch, C] s8 with sw1 [Ch] f32, w2q [C, Ch] s8 with sw2 [C]
+// f32, in the launch's scratch); the activations are quantized here, dynamically and
 // symmetrically, `q = clip(rint(v * (1 / s)), -127, 127)` with `s = max|v| /
 // 127` (1 where the group is all zero), the TPU kernel's arithmetic. The
 // group of an activation scale is what a block holds, not the TPU's row
@@ -42,6 +46,7 @@
 #include <mma.h>
 
 #include "rs_common.cuh"
+#include "van_mlp.cuh"
 
 namespace {
 
@@ -56,7 +61,6 @@ constexpr int KC = 32;               // hidden channels per chunk
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int HS_LD = KC + 4;        // f32 row stride of the fc1 chunk
-constexpr int GS_LD = KC + 8;        // row stride of the gelu chunk
 
 constexpr int GQ_LD = KC + 16;  // s8 row stride of the gelu and w2 chunks
 constexpr int G_PER_THREAD = NOUT * KC / THREADS;
@@ -487,11 +491,71 @@ template <typename T> int pick_qnbuf(int C) {
              : 1;
 }
 
+// Where the first design keeps its quantized weights in the scratch: w1q
+// [Ch, C] and w2q [C, Ch] s8, then sw1 [Ch] and sw2 [C] f32.
+struct QScratch {
+  size_t w1q, w2q, sw1, sw2, total;
+};
+QScratch qscratch_of(int C, int Ch) {
+  QScratch s;
+  const size_t n = static_cast<size_t>(C) * Ch;
+  s.w1q = 0;
+  s.w2q = (n + 15) / 16 * 16;
+  s.sw1 = s.w2q + (n + 15) / 16 * 16;
+  s.sw2 = s.sw1 + (static_cast<size_t>(Ch) * 4 + 15) / 16 * 16;
+  s.total = s.sw2 + static_cast<size_t>(C) * 4;
+  return s;
+}
+
+// Quantizes the rows of w [rows, len] as ops/quant.py:qweight does: scale =
+// amax / 127 by a true divide (1 where the row is zero), q = clip(rint(w /
+// scale)) by a true divide. One warp per row.
+template <typename T>
+__global__ void quantize_rows_kernel(const T* __restrict__ w, int rows,
+                                     int len, signed char* __restrict__ q,
+                                     float* __restrict__ scale) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* src = w + static_cast<size_t>(row) * len;
+  float amax = 0.f;
+  for (int i = lane; i < len; i += 32) amax = fmaxf(amax, fabsf(to_f(src[i])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = scale_of(amax);
+  for (int i = lane; i < len; i += 32)
+    q[static_cast<size_t>(row) * len + i] =
+        static_cast<signed char>(__float2int_rn(fminf(
+            fmaxf(rintf(__fdiv_rn(to_f(src[i]), s)), -127.f), 127.f)));
+  if (lane == 0) scale[row] = s;
+}
+
+template <typename T>
+int quantize_weights(const void* w1, const void* w2, void* scratch, int C,
+                     int Ch, cudaStream_t stream) {
+  const QScratch S = qscratch_of(C, Ch);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  quantize_rows_kernel<T><<<(Ch + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(w1), Ch, C,
+      reinterpret_cast<signed char*>(base + S.w1q),
+      reinterpret_cast<float*>(base + S.sw1));
+  quantize_rows_kernel<T><<<(C + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(w2), C, Ch,
+      reinterpret_cast<signed char*>(base + S.w2q),
+      reinterpret_cast<float*>(base + S.sw2));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int NFW>
-int launch_q(const void* x, const void* w1q, const void* sw1, const void* b1,
-             const void* wdw, const void* bdw, const void* w2q,
-             const void* sw2, const void* b2, void* y, int N, int H, int W,
-             int C, int Ch, int residual, cudaStream_t stream) {
+int launch_q(const void* x, const void* w1, const void* b1, const void* wdw,
+             const void* bdw, const void* w2, const void* b2, void* y,
+             void* scratch, int N, int H, int W, int C, int Ch, int residual,
+             cudaStream_t stream) {
+  int qerr = quantize_weights<T>(w1, w2, scratch, C, Ch, stream);
+  if (qerr != 0) return qerr;
+  const QScratch S = qscratch_of(C, Ch);
+  const unsigned char* base = static_cast<const unsigned char*>(scratch);
   const int nbuf = pick_qnbuf<T>(C);
   const size_t smem = qlayout_of<T>(C, nbuf).total;
   auto kernel = van_mlp_q_kernel<T, NFW>;
@@ -502,64 +566,90 @@ int launch_q(const void* x, const void* w1q, const void* sw1, const void* b1,
   const int tiles_x = (W + TILE - 1) / TILE;
   const int tiles_y = (H + TILE - 1) / TILE;
   kernel<<<dim3(tiles_x * tiles_y, N), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const signed char*>(w1q),
-      static_cast<const float*>(sw1), static_cast<const T*>(b1),
+      static_cast<const T*>(x),
+      reinterpret_cast<const signed char*>(base + S.w1q),
+      reinterpret_cast<const float*>(base + S.sw1), static_cast<const T*>(b1),
       static_cast<const T*>(wdw), static_cast<const T*>(bdw),
-      static_cast<const signed char*>(w2q), static_cast<const float*>(sw2),
-      static_cast<const T*>(b2), static_cast<T*>(y), H, W, C, Ch, tiles_x,
-      nbuf, residual);
+      reinterpret_cast<const signed char*>(base + S.w2q),
+      reinterpret_cast<const float*>(base + S.sw2), static_cast<const T*>(b2),
+      static_cast<T*>(y), H, W, C, Ch, tiles_x, nbuf, residual);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool bf16_width_supported(int C) {
-  if (C % 32) return false;
-  switch (C / 32) {
-    case 1: case 2: case 4: case 8: case 10: case 16: return true;
-    default: return false;
-  }
 }
 
 }  // namespace
 
-// The int8 form: shared memory of one block, or 0 if the width is not
-// supported (the same widths as above).
-extern "C" size_t rs_van_mlp_int8_smem_bytes(int C, int dtype) {
-  if (C <= 0) return 0;
-  if (dtype == 0) return qlayout_of<float>(C, pick_qnbuf<float>(C)).total;
-  if (dtype == 1 && bf16_width_supported(C))
-    return qlayout_of<__nv_bfloat16>(C, pick_qnbuf<__nv_bfloat16>(C)).total;
+// Which design rs_van_mlp_int8_fwd runs for this shape: 0 = none takes it, 1 =
+// the first design (f32: any width; bf16: C = 32), 2 = the wgmma design (bf16
+// at C in {64, 128, 256, 320, 512}). dtype: 0 = f32, 1 = bf16.
+extern "C" int rs_van_mlp_int8_design(int C, int Ch, int dtype) {
+  if (C <= 0 || Ch <= 0) return 0;
+  if (dtype == 0) return 1;
+  if (dtype != 1) return 0;
+  if (rs::van_mlp_q_wgmma_takes(C, Ch)) return 2;
+  return C == 32 ? 1 : 0;
+}
+
+// Shared memory of one block of that design (0 where none takes the shape).
+extern "C" size_t rs_van_mlp_int8_smem_bytes(int C, int Ch, int dtype) {
+  switch (rs_van_mlp_int8_design(C, Ch, dtype)) {
+    case 2: return rs::van_mlp_q_wgmma_smem_bytes(C);
+    case 1:
+      return dtype == 0
+                 ? qlayout_of<float>(C, pick_qnbuf<float>(C)).total
+                 : qlayout_of<__nv_bfloat16>(C, pick_qnbuf<__nv_bfloat16>(C))
+                       .total;
+  }
   return 0;
 }
 
-// Launches the int8 form on `stream`: w1q [Ch, C] and w2q [C, Ch] are s8 with
-// their per-output-channel scales sw1 [Ch], sw2 [C] (f32); x, the biases and
-// the taps are in `dtype`. Returns cudaGetLastError() (0 = success).
-// residual != 0 writes x + mlp(x) (y must not alias x).
-extern "C" int rs_van_mlp_int8_fwd(const void* x, const void* w1q,
-                                   const void* sw1, const void* b1,
-                                   const void* wdw, const void* bdw,
-                                   const void* w2q, const void* sw2,
-                                   const void* b2, void* y, int N, int H,
-                                   int W, int C, int Ch, int dtype,
-                                   int residual, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_q<float, 0>(x, w1q, sw1, b1, wdw, bdw, w2q, sw2, b2, y, N, H,
-                              W, C, Ch, residual, s);
-  if (dtype != 1 || !bf16_width_supported(C))
-    return static_cast<int>(cudaErrorInvalidValue);
-#define RS_VAN_MLP_Q_CASE(k)                                                 \
-  case k:                                                                    \
-    return launch_q<__nv_bfloat16, k>(x, w1q, sw1, b1, wdw, bdw, w2q, sw2,  \
-                                      b2, y, N, H, W, C, Ch, residual, s);
-  switch (C / 32) {
-    RS_VAN_MLP_Q_CASE(1)
-    RS_VAN_MLP_Q_CASE(2)
-    RS_VAN_MLP_Q_CASE(4)
-    RS_VAN_MLP_Q_CASE(8)
-    RS_VAN_MLP_Q_CASE(10)
-    RS_VAN_MLP_Q_CASE(16)
+// Bytes of device scratch rs_van_mlp_int8_fwd wants: the quantized weights
+// and their scales, in the layout of the design.
+extern "C" size_t rs_van_mlp_int8_scratch_bytes(int C, int Ch, int dtype) {
+  switch (rs_van_mlp_int8_design(C, Ch, dtype)) {
+    case 2: return rs::van_mlp_q_wgmma_scratch_bytes(C, Ch);
+    case 1: return qscratch_of(C, Ch).total;
   }
-#undef RS_VAN_MLP_Q_CASE
+  return 0;
+}
+
+// The weight preparation of the wgmma design alone, as rs_van_mlp_int8_fwd
+// runs it first: w1 [Ch, C] and w2 [C, Ch] (bf16) quantized per output
+// channel and packed with b1, bdw, the taps and the scales into `scratch`,
+// the kernel's shared-memory layout (ops/van_mlp.py:pack_int8_weights is its
+// Python version). Refuses a shape the wgmma design does not take.
+extern "C" int rs_van_mlp_int8_pack(const void* w1, const void* b1,
+                                    const void* wdw, const void* bdw,
+                                    const void* w2, void* scratch, int C,
+                                    int Ch, int dtype, void* stream) {
+  if (rs_van_mlp_int8_design(C, Ch, dtype) != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rs::van_mlp_q_wgmma_pack(w1, b1, wdw, bdw, w2, scratch, C, Ch,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Launches the int8 form on `stream`: every tensor in `dtype`, layouts as
+// rs_van_mlp_fwd; `scratch`: rs_van_mlp_int8_scratch_bytes() bytes, 16-byte
+// aligned. Returns cudaGetLastError() (0 = success). residual != 0 writes
+// x + mlp(x) (y must not alias x).
+extern "C" int rs_van_mlp_int8_fwd(const void* x, const void* w1,
+                                   const void* b1, const void* wdw,
+                                   const void* bdw, const void* w2,
+                                   const void* b2, void* y, void* scratch,
+                                   int N, int H, int W, int C, int Ch,
+                                   int dtype, int residual, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int design = rs_van_mlp_int8_design(C, Ch, dtype);
+  if (design == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == 2)
+    return rs::van_mlp_q_wgmma_launch(x, w1, b1, wdw, bdw, w2, b2, y, scratch,
+                                      N, H, W, C, Ch, residual, s);
+  if (dtype == 0)
+    return launch_q<float, 0>(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N, H,
+                              W, C, Ch, residual, s);
+  // the one bf16 width the wgmma design leaves: a 32-channel row is
+  // narrower than a swizzled one
+  if (C == 32)
+    return launch_q<__nv_bfloat16, 1>(x, w1, b1, wdw, bdw, w2, b2, y, scratch,
+                                      N, H, W, C, Ch, residual, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

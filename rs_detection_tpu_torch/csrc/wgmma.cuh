@@ -1,5 +1,6 @@
-// wgmma for Hopper (sm_90a): descriptors, fences and the bf16 x bf16 -> f32
-// warpgroup product with both operands in shared memory.
+// wgmma for Hopper (sm_90a): descriptors, fences and the warpgroup products
+// bf16 x bf16 -> f32 (`wgmma_ss<N>`, depth 16) and s8 x s8 -> s32
+// (`wgmma_ss_s8<N>`, depth 32) with both operands in shared memory.
 //
 // Both operands are K-major tiles in the 128-byte swizzled layout: a row (an
 // M index of A, an N index of B) holds 64 bf16 of K in 128 bytes, eight rows
@@ -10,8 +11,11 @@
 // m64nNk16 product: D[64, N] (+)= A[64, 16] * B[N, 16]^T, D spread over
 // the 128 threads of the warpgroup (thread t of warp w holds rows 16 w + t / 4
 // and + 8, columns 8 j + 2 (t % 4) + {0, 1} in d[4 j + {0, 1}] and
-// d[4 j + {2, 3}]). The N forms differ only in their register lists; the
-// file is written by tools/gen_wgmma_header.py, edit that.
+// d[4 j + {2, 3}]). `wgmma_ss_s8<N>` is one m64nNk32 product of s8 tiles in
+// the same layouts (a row of 128 bytes holds 128 values of K, a k-step is
+// again 32 bytes) with the s32 sums in the same slots; it has no transposed
+// form. The N forms differ only in their register lists; the file is written
+// by tools/gen_wgmma_header.py, edit that.
 
 #pragma once
 
@@ -34,6 +38,14 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
 __device__ __forceinline__ uint64_t wgmma_desc64(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
          (32ull << 32) | (2ull << 62);
+}
+
+// the same for the 32-byte swizzled layout of a tile 32 bytes deep (one k-step:
+// 32 s8 or 16 bf16): rows of 32 bytes, eight rows a 256-byte atom, vector j
+// (0 or 1) of row r at j ^ ((r / 4) % 2)
+__device__ __forceinline__ uint64_t wgmma_desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (16ull << 32) | (3ull << 62);
 }
 
 // byte offset of element (row, col) of a [rows, 64] bf16 swizzled tile
@@ -65,9 +77,17 @@ template <int R> __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R> __device__ __forceinline__ void wgmma_pin(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate);
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int accumulate);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
@@ -208,6 +228,62 @@ __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<32>(int (&d)[16], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<64>(int (&d)[32], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31 "
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<80>(int (&d)[40], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

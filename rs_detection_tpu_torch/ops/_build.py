@@ -34,11 +34,16 @@ SIGNATURES = {
     "rs_van_mlp_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "rs_van_mlp_scratch_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "rs_van_mlp_fwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
-    "rs_van_mlp_int8_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "rs_van_mlp_int8_fwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    "rs_van_mlp_int8_design": ([_I, _I, _I], _I),
+    "rs_van_mlp_int8_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_van_mlp_int8_scratch_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "rs_van_mlp_int8_pack": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "rs_van_mlp_int8_fwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "rs_van_attn_design": ([_I, _I], _I),
     "rs_van_attn_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "rs_van_attn_proj1": ([_P] * 6 + [_L, _I, _I, _P], _I),
-    "rs_van_attn_tail": ([_P] * 11 + [_L, _I, _I, _P], _I),
+    "rs_van_attn_scratch_bytes": ([_I, _I], ctypes.c_size_t),
+    "rs_van_attn_proj1": ([_P] * 7 + [_L, _I, _I, _P], _I),
+    "rs_van_attn_tail": ([_P] * 12 + [_L, _I, _I, _P], _I),
     "rs_dw_conv_fwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "rs_dw_conv_fwd": ([_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
     "rs_roi_align_rotated_pyramid_fwd": (

@@ -11,12 +11,15 @@ half-block below has no int8 form, as the JAX ``_attn_kernel`` has none.
 (the JAX ``van_attn``, opt-in there as here): eval-mode bn1 folded to an
 affine, the attention body, the layer scale and the block's residual
 add. On a CUDA tensor it runs as four hand-written kernels, every
-multiply-add in ``csrc/``: ``proj1`` (``csrc/van_attn.cu``: affine,
-proj_1, GELU), the 5x5 and the dilated 7x7 depthwise convs with their
-biases (``csrc/dw_conv_fwd.cu`` through ``depthwise_conv2d_cuda``) and
-``tail`` (``csrc/van_attn.cu``: conv1, the gate, proj_2, ``+ h``, layer
-scale, ``+ x``). On a CPU tensor it runs ``van_attn_reference``, the
-JAX ``_ref_attn``.
+multiply-add in ``csrc/``: ``proj1`` (affine, proj_1, GELU), the 5x5 and
+the dilated 7x7 depthwise convs with their biases
+(``csrc/dw_conv_fwd.cu`` through ``depthwise_conv2d_cuda``) and ``tail``
+(conv1, the gate, proj_2, ``+ h``, layer scale, ``+ x``). ``proj1`` and
+``tail`` have two designs, picked by the launcher in
+``csrc/van_attn.cu`` and mirrored by ``attn_plan``: the wgmma design of
+``csrc/van_attn_wgmma.cu`` for bf16 at VAN's widths, the first design
+(``csrc/van_attn.cu``) for every other shape. On a CPU tensor it runs
+``van_attn_reference``, the JAX ``_ref_attn``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,62 @@ from .dwconv import depthwise_conv2d_cuda
 from .quant import int8_channel_matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMEM = 232448         # the largest dynamic shared memory of one block
+H100_SMEM_PER_SM = 233472  # shared memory of one SM
+WGMMA_WIDTHS = (64, 128, 256, 320, 512)
+
+
+def _up128(v):
+    return (v + 127) // 128 * 128
+
+
+def attn_plan(c, dtype, smem_limit=H100_SMEM, smem_per_sm=H100_SMEM_PER_SM):
+    """How ``rs_van_attn_proj1`` / ``rs_van_attn_tail`` run a half-block
+    of width ``c``, mirrored from the launchers in ``csrc/van_attn.cu``
+    and ``csrc/van_attn_wgmma.cu``: the design (``"wgmma"``: bf16 at C in
+    ``WGMMA_WIDTHS``; ``"wmma"``: every other bf16 width that is a
+    multiple of 32; ``"fma"``: f32) and, per stage, the pixels one block
+    owns, the output channels of a weight slab and the shared memory, and the bytes of scratch (the wgmma design's repacked
+    weights). Raises ``ValueError`` for a width no kernel takes."""
+    if dtype not in _DTYPE_CODE or c <= 0 or (dtype == torch.bfloat16
+                                              and c % 32):
+        raise ValueError(f"van_attn kernel does not take C={c} in {dtype} "
+                         f"(bf16 widths: multiples of 32)")
+    if dtype == torch.bfloat16 and c in WGMMA_WIDTHS:
+        # per stage: slab width, warpgroups of 64 pixels, ring buffers,
+        # activation tiles, staging tiles per warpgroup
+        stages = {
+            "proj1": (64 if c <= 320 else 32, 2,
+                      1 if c == 64 else 3 if c == 256 else 2, 1,
+                      1 if c == 64 else 2),
+            "tail": (64 if c <= 256 else 32, 1 if c == 512 else 2,
+                     2 if c <= 128 else 3, 2, 0)}
+
+        def total(ns, wgs, nbuf, tiles, staged):
+            return (tiles * wgs * 64 * c * 2 + nbuf * ns * c * 2
+                    + staged * wgs * 64 * (ns * 2 + 16) + nbuf * 8 + 1024)
+
+        return dict(design="wgmma",
+                    slab={k: v[0] for k, v in stages.items()},
+                    pixels={k: 64 * v[1] for k, v in stages.items()},
+                    smem={k: total(*v) for k, v in stages.items()},
+                    scratch=3 * c * c * 2)
+    size = 2 if dtype == torch.bfloat16 else 4
+    m, ld = (64, c + 8) if size == 2 else (32, c + 1)
+
+    def total(tiles, nbuf):
+        return (tiles * _up128(m * ld * size) + nbuf * _up128(32 * ld * size)
+                + (8 * 256 * 4 if size == 2 else 0))
+
+    def pick(tiles):  # the staging buffers that let most blocks share an SM
+        def blocks(nbuf):
+            need = total(tiles, nbuf)
+            return smem_per_sm // (need + 1024) if need <= smem_limit else 0
+        return total(tiles, 2 if blocks(2) >= blocks(1) else 1)
+
+    return dict(design="wmma" if size == 2 else "fma",
+                slab={"proj1": 32, "tail": 32}, pixels={"proj1": m, "tail": m},
+                smem={"proj1": pick(1), "tail": pick(2)}, scratch=0)
 
 
 def sa_core(h, wp1, bp1, w0, b0, ws, bs, wc1, bc1, wp2, bp2, int8=False):
@@ -113,27 +172,31 @@ def van_attn_cuda(x, a1, b1, wp1, bp1, w0, b0, ws, bs, wc1, bc1, wp2, bp2,
         if not t.is_contiguous():
             raise ValueError(f"van_attn: {name} must be contiguous")
     if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (x, wp1, wc1, wp2)):
+                                         for t, _ in tensors.values()):
         raise ValueError("van_attn: bf16 tensors must be 16-byte aligned")
     code = _DTYPE_CODE[x.dtype]
-    lib = kernel_library()
-    smem = lib.rs_van_attn_smem_bytes(c, code)
-    limit = torch.cuda.get_device_properties(x.device) \
-        .shared_memory_per_block_optin
-    if smem == 0 or smem > limit:
+    props = torch.cuda.get_device_properties(x.device)
+    limit = props.shared_memory_per_block_optin
+    plan = attn_plan(c, x.dtype, limit, props.shared_memory_per_multiprocessor)
+    smem = max(plan["smem"].values())
+    if smem > limit:
         raise ValueError(f"van_attn kernel does not take C={c} in {x.dtype} "
                          f"(needs {smem} B of shared memory, limit {limit})")
+    lib = kernel_library()
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     g = torch.empty_like(x)
+    # the wgmma design repacks the three 1x1 weights into scratch
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=x.device)
     pixels = x.numel() // c
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         van_attn_cuda.launches += 1
         err = lib.rs_van_attn_proj1(
             x.data_ptr(), a1.data_ptr(), b1.data_ptr(), wp1.data_ptr(),
-            bp1.data_ptr(), g.data_ptr(), pixels, c, code, stream)
+            bp1.data_ptr(), g.data_ptr(), scratch.data_ptr(), pixels, c, code,
+            stream)
         if err != 0:
             raise RuntimeError(f"van_attn proj1 launch failed: CUDA error "
                                f"{err}")
@@ -142,8 +205,8 @@ def van_attn_cuda(x, a1, b1, wp1, bp1, w0, b0, ws, bs, wc1, bc1, wp2, bp2,
         err = lib.rs_van_attn_tail(
             x.data_ptr(), a1.data_ptr(), b1.data_ptr(), g.data_ptr(),
             d7.data_ptr(), wc1.data_ptr(), bc1.data_ptr(), wp2.data_ptr(),
-            bp2.data_ptr(), ls1.data_ptr(), out.data_ptr(), pixels, c, code,
-            stream)
+            bp2.data_ptr(), ls1.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            pixels, c, code, stream)
     if err != 0:
         raise RuntimeError(f"van_attn tail launch failed: CUDA error {err}")
     return out

@@ -16,12 +16,15 @@ forms (``ops/quant.py``; the ``quant=True`` form of the TPU kernel): both
 1x1 products run s8 x s8 -> s32 on weights quantized per output channel
 and activations quantized dynamically, the depthwise conv and the GELU
 stay in float. They take the same float arguments; the weights are
-quantized on every call. What differs between the three users of this
+quantized on every call (on the card by a small kernel that equals
+``qweight`` bit for bit; ``pack_int8_weights`` is its Python version).
+What differs between the three users of this
 arithmetic is the group over which an activation scale ``max|v| / 127``
 is taken, so the plain version ``van_mlp_int8_reference`` takes the
 group as an argument:
 
-* ``"tile"``, the CUDA kernel's (``csrc/van_mlp_int8.cu``) and the default:
+* ``"tile"``, the CUDA kernels' (``csrc/van_mlp_int8.cu`` and its wgmma
+  design ``csrc/van_mlp_int8_wgmma.cu``) and the default:
   fc1 one scale per 8x8 output tile over its haloed 10x10 x patch, fc2
   one scale per (tile, 32-channel hidden chunk) over the f32 GELU
   output. The kernel walks the hidden channels in chunks and never holds
@@ -189,18 +192,23 @@ def _up128(v):
     return (v + 127) // 128 * 128
 
 
-def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM):
-    """How ``rs_van_mlp_fwd`` runs an MLP of these widths, mirrored from
-    the launchers in ``csrc/van_mlp.cu`` and ``csrc/van_mlp_wgmma.cu``:
-    the design the shape picks (``"wgmma"``: bf16 at C in
-    ``WGMMA_WIDTHS`` and Ch a multiple of 8; ``"wmma"``: every other
-    bf16 shape; ``"fma"``: f32), the hidden channels it holds at a time,
-    one block's shared memory and the bytes of scratch (the wgmma
-    design's repacked weights). Raises ``ValueError`` for a width no
-    kernel takes."""
+def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM, int8=False):
+    """How ``rs_van_mlp_fwd`` (with ``int8``: ``rs_van_mlp_int8_fwd``)
+    runs an MLP of these widths, mirrored from the launchers in
+    ``csrc/van_mlp.cu`` / ``csrc/van_mlp_wgmma.cu`` and
+    ``csrc/van_mlp_int8.cu`` / ``csrc/van_mlp_int8_wgmma.cu``: the design
+    the shape picks (``"wgmma"``: bf16 at C in ``WGMMA_WIDTHS`` and, in
+    float, Ch a multiple of 8; ``"wmma"``: every other bf16 shape;
+    ``"fma"``: f32, integer multiply-adds in the int8 form), the hidden
+    channels it holds at a time, one block's shared memory and the bytes
+    of scratch (the wgmma designs' repacked weights; in the int8 form
+    always the quantized weights and their scales). Raises
+    ``ValueError`` for a width no kernel takes."""
     if dtype == torch.bfloat16 and c not in BF16_WIDTHS or c <= 0 or ch <= 0:
         raise ValueError(f"van_mlp kernel does not take C={c}, Ch={ch} in "
                          f"{dtype} (bf16 widths: {BF16_WIDTHS})")
+    if int8:
+        return _int8_plan(c, ch, dtype, smem_limit)
     if dtype == torch.bfloat16 and c in WGMMA_WIDTHS and ch % 8 == 0:
         kc = 32 if c == 512 else 64
         kb, w2_buffers = c // 64, 2 if c == 64 else 1
@@ -226,10 +234,133 @@ def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM):
                 smem=smem, scratch=0)
 
 
+def int8_round(c):
+    """Hidden channels the int8 wgmma design holds at a time: two scale
+    chunks, one at C = 512."""
+    return CHUNK if c == 512 else 2 * CHUNK
+
+
+def _int8_packed(c):
+    """Byte offsets inside one round of the int8 wgmma design's packed
+    weights: (b1 | bdw | taps | sw1, w2, the round's size); w1 is at 0."""
+    kc = int8_round(c)
+    vs = kc * c
+    w2 = vs + kc * 26
+    return vs, w2, w2 + c * kc
+
+
+def _int8_plan(c, ch, dtype, smem_limit):
+    if dtype == torch.bfloat16 and c in WGMMA_WIDTHS:
+        kc = int8_round(c)
+        w2_buffers = 2 if c == 64 else 1
+        smem = ((c // 64) * 104 * 64 + 2 * kc * c + w2_buffers * c * kc
+                + 64 * kc + _up128(100 * (kc * 2 + 16)) + 3 * kc * 26
+                + 8 * 2 * 4 + 4 * 8 + 1024)
+        return dict(design="wgmma", chunk=kc, smem=smem,
+                    scratch=-(-ch // kc) * _int8_packed(c)[2] + 4 * c)
+    size = 2 if dtype == torch.bfloat16 else 4
+    ld_q = -(-c // 16) * 16 + 16
+
+    def total(nbuf):
+        staged = (_up128(32 * ld_q) + _up128(c * 48) + _up128(32 * 11 * size)
+                  + _up128(32 * 4))
+        extra = 8 * 256 * 4 if size == 2 else 64 * c * 4
+        return (_up128(112 * ld_q) + nbuf * staged + _up128(112 * 36 * 4)
+                + _up128(64 * 48) + _up128(8 * 4) + _up128(extra))
+
+    smem = total(2) if total(2) <= smem_limit else total(1)
+    up16 = -(-c * ch // 16) * 16
+    return dict(design="wmma" if size == 2 else "fma", chunk=CHUNK,
+                smem=smem,
+                scratch=2 * up16 + -(-4 * ch // 16) * 16 + 4 * c)
+
+
+def _int8_pack_offsets(c, ch, device):
+    """Where the int8 wgmma design keeps each weight byte: byte offsets
+    of w1q ``[nk * kc, C]`` and w2q ``[C, nk * kc]`` (padded to whole
+    rounds) in the packed buffer, mirrored from ``van_mlp_q_pack_kernel``.
+    w1 rows are 64-byte swizzled rows of 64 input channels (16-byte
+    vector j of row r at ``j ^ (r // 2) % 4``); w2 rows hold a round's
+    hidden channels, 64-byte swizzled, or 32-byte swizzled at C = 512
+    (``j ^ (r // 4) % 2``)."""
+    kc = int8_round(c)
+    nk = -(-ch // kc)
+    _, p_w2, total = _int8_packed(c)
+    h = torch.arange(nk * kc, device=device)
+    k, r = h // kc, h % kc
+    i = torch.arange(c, device=device)
+    w1 = ((k * total + r * 64)[:, None] + ((i >> 6) * (kc * 64))[None]
+          + ((((i & 63) >> 4)[None] ^ (r >> 1)[:, None]) & 3) * 16
+          + (i & 15)[None])
+    o = torch.arange(c, device=device)
+    shift, mask = (1, 3) if kc == 64 else (2, 1)
+    w2 = ((k * total + p_w2 + (r & 15))[None] + (o * kc)[:, None]
+          + (((r >> 4)[None] ^ (o >> shift)[:, None]) & mask) * 16)
+    return w1, w2
+
+
+def pack_int8_weights(w1, b1, wdw, bdw, w2):
+    """Python version of the weight preparation of the int8 wgmma design
+    (``van_mlp_q_pack_kernel``): ``qweight`` per output channel, then the
+    bytes as the kernel's shared memory wants them, per round of hidden
+    channels w1 | b1, bdw, taps (bf16), sw1 (f32) | w2, zero past Ch, and
+    sw2 (f32) after the last round. bf16 weights at C in
+    ``WGMMA_WIDTHS``; returns a uint8 tensor of
+    ``kernel_plan(..., int8=True)["scratch"]`` bytes."""
+    ch, c = w1.shape
+    if w1.dtype != torch.bfloat16 or c not in WGMMA_WIDTHS:
+        raise ValueError(f"pack_int8_weights: bf16 at C in {WGMMA_WIDTHS}, "
+                         f"not {w1.dtype} at C={c}")
+    kc = int8_round(c)
+    nk = -(-ch // kc)
+    p_vs, _, total = _int8_packed(c)
+    dev = w1.device
+    buf = torch.zeros(nk * total + 4 * c, dtype=torch.uint8, device=dev)
+    (w1q, sw1), (w2q, sw2) = qweight(w1, 0), qweight(w2, 0)
+    at1, at2 = _int8_pack_offsets(c, ch, dev)
+    buf[at1[:ch].reshape(-1)] = w1q.view(torch.uint8).reshape(-1)
+    buf[at2[:, :ch].reshape(-1)] = w2q.view(torch.uint8).reshape(-1)
+
+    def put(at, values):  # values [n, ...] at byte offsets at [n]
+        raw = values.contiguous().view(torch.uint8).reshape(len(at), -1)
+        idx = at[:, None] + torch.arange(raw.shape[1], device=dev)[None]
+        buf[idx.reshape(-1)] = raw.reshape(-1)
+
+    h = torch.arange(nk * kc, device=dev)
+    base = (h // kc) * total + p_vs
+    r = h % kc
+    put((base + r * 2)[:ch], b1)
+    put((base + kc * 2 + r * 2)[:ch], bdw)
+    put((base + kc * 4 + r * 18)[:ch], wdw)
+    pad = torch.ones(nk * kc, device=dev)
+    pad[:ch] = sw1
+    put(base + kc * 22 + r * 4, pad)
+    put(nk * total + 4 * torch.arange(c, device=dev), sw2)
+    return buf
+
+
+def unpack_int8_weights(buf, c, ch):
+    """``(w1q [Ch, C] int8, sw1 [Ch], w2q [C, Ch] int8, sw2 [C])`` read
+    back from a buffer of ``pack_int8_weights``' layout."""
+    kc = int8_round(c)
+    nk = -(-ch // kc)
+    p_vs, _, total = _int8_packed(c)
+    at1, at2 = _int8_pack_offsets(c, ch, buf.device)
+    w1q = buf[at1[:ch]].view(torch.int8)
+    w2q = buf[at2[:, :ch]].view(torch.int8)
+    h = torch.arange(ch, device=buf.device)
+    four = torch.arange(4, device=buf.device)
+    at = (h // kc) * total + p_vs + kc * 22 + (h % kc) * 4
+    sw1 = buf[at[:, None] + four].contiguous().view(torch.float32).view(-1)
+    sw2 = buf[nk * total:nk * total + 4 * c].contiguous() \
+        .view(torch.float32).view(-1)
+    return w1q, sw1, w2q, sw2
+
+
 def _launch(wrapper, name, args, residual, int8=False):
     """Check the operands and launch ``rs_van_mlp_fwd`` (with ``int8``:
-    quantize w1 and w2 per output channel and launch
-    ``rs_van_mlp_int8_fwd``), counting the launch on ``wrapper``. Raises
+    ``rs_van_mlp_int8_fwd``, which first quantizes w1 and w2 per output
+    channel into the scratch), counting the launch on ``wrapper``. Raises
     when grad mode is on and an input requires a gradient: the kernel
     has no backward, and autograd does not see the launch, so its result
     would be cut off from the graph (training runs
@@ -257,37 +388,30 @@ def _launch(wrapper, name, args, residual, int8=False):
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    if int8:
-        x, w1, b1, wdw, bdw, w2, b2 = args
-        args = (x, *qweight(w1, 0), b1, wdw, bdw, *qweight(w2, 0), b2)
     if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in args):
         raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned")
     code = _DTYPE_CODE[x.dtype]
     limit = torch.cuda.get_device_properties(x.device) \
         .shared_memory_per_block_optin
-    plan = kernel_plan(c, ch, x.dtype, limit)
-    lib = kernel_library()
-    if int8:
-        smem, fwd = lib.rs_van_mlp_int8_smem_bytes(c, code), \
-            lib.rs_van_mlp_int8_fwd
-    else:
-        smem, fwd = plan["smem"], lib.rs_van_mlp_fwd
-    if smem == 0 or smem > limit:
+    plan = kernel_plan(c, ch, x.dtype, limit, int8=int8)
+    if plan["smem"] > limit:
         raise ValueError(f"{name} kernel does not take C={c} in {x.dtype} "
-                         f"(needs {smem} B of shared memory, limit {limit})")
+                         f"(needs {plan['smem']} B of shared memory, limit "
+                         f"{limit})")
+    lib = kernel_library()
+    fwd = lib.rs_van_mlp_int8_fwd if int8 else lib.rs_van_mlp_fwd
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    out = (y.data_ptr(),)
-    if not int8:  # the wgmma design repacks the weights into scratch
-        scratch = torch.empty(plan["scratch"], dtype=torch.uint8,
-                              device=x.device)
-        out += (scratch.data_ptr(),)
+    # the wgmma designs repack the weights into scratch, the int8 form
+    # quantizes them there
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         wrapper.launches += 1
-        err = fwd(*(t.data_ptr() for t in args), *out, n, h, w, c, ch, code,
-                  int(residual), stream)
+        err = fwd(*(t.data_ptr() for t in args), y.data_ptr(),
+                  scratch.data_ptr(), n, h, w, c, ch, code, int(residual),
+                  stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return y

@@ -1,24 +1,49 @@
 """Write ``rs_detection_tpu_torch/csrc/wgmma.cuh``: the descriptors, fences
-and one ``wgmma_ss<N>`` specialization per tile width in ``WIDTHS`` (their
-inline PTX differs only in its register list, N / 2 of them, which nobody
-should type by hand). Run from the repository root after changing
-``WIDTHS`` or the text: ``python3 -m
-rs_detection_tpu_torch.tools.gen_wgmma_header``. The header is committed;
-nothing runs this at build time."""
+and one ``wgmma_ss<N>`` specialization per tile width in ``WIDTHS`` (bf16
+x bf16 -> f32, depth 16) and one ``wgmma_ss_s8<N>`` per width in
+``S8_WIDTHS`` (s8 x s8 -> s32, depth 32). Their inline PTX differs only
+in its register list, N / 2 of them, which nobody should type by hand.
+The integer form has no ``imm-scale`` and no transpose operands: its
+operand list ends after ``scale-d``, and both operands must be K-major.
+Run from the repository root after changing the widths or the text:
+``python3 -m rs_detection_tpu_torch.tools.gen_wgmma_header``. The header
+is committed; nothing runs this at build time."""
 
 import textwrap
 from pathlib import Path
 
 WIDTHS = (32, 64, 128, 160, 256)
+S8_WIDTHS = (32, 64, 80)
 OUT = Path(__file__).resolve().parents[1] / "csrc" / "wgmma.cuh"
 
-def gen(n):
+def _lists(n, constraint):
     r = n // 2
     regs = ", ".join(f"%{i}" for i in range(r))
     reglist = textwrap.fill(regs, 70)
     reglist = "\n".join(f'      "{l} "' for l in reglist.splitlines())
-    ops = ", ".join(f'"+f"(d[{i}])' for i in range(r))
+    ops = ", ".join(f'"+{constraint}"(d[{i}])' for i in range(r))
     ops = textwrap.fill(ops, 72, initial_indent="      : ", subsequent_indent="        ")
+    return r, reglist, ops
+
+
+def gen_s8(n):
+    r, reglist, ops = _lists(n, "r")
+    return f'''template <>
+__device__ __forceinline__ void wgmma_ss_s8<{n}>(int (&d)[{r}], uint64_t a,
+                                                 uint64_t b, int accumulate) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r+2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 {{"
+{reglist}
+      "}}, %{r}, %{r+1}, p;\\n}}\\n"
+{ops}
+      : "l"(a), "l"(b), "r"(accumulate));
+}}
+'''
+
+
+def gen(n):
+    r, reglist, ops = _lists(n, "f")
     return f'''template <>
 __device__ __forceinline__ void wgmma_ss<{n}>(float (&d)[{r}], uint64_t a,
                                               uint64_t b, int accumulate) {{
@@ -31,8 +56,9 @@ __device__ __forceinline__ void wgmma_ss<{n}>(float (&d)[{r}], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }}
 '''
-head = '''// wgmma for Hopper (sm_90a): descriptors, fences and the bf16 x bf16 -> f32
-// warpgroup product with both operands in shared memory.
+head = '''// wgmma for Hopper (sm_90a): descriptors, fences and the warpgroup products
+// bf16 x bf16 -> f32 (`wgmma_ss<N>`, depth 16) and s8 x s8 -> s32
+// (`wgmma_ss_s8<N>`, depth 32) with both operands in shared memory.
 //
 // Both operands are K-major tiles in the 128-byte swizzled layout: a row (an
 // M index of A, an N index of B) holds 64 bf16 of K in 128 bytes, eight rows
@@ -43,8 +69,11 @@ head = '''// wgmma for Hopper (sm_90a): descriptors, fences and the bf16 x bf16 
 // m64nNk16 product: D[64, N] (+)= A[64, 16] * B[N, 16]^T, D spread over
 // the 128 threads of the warpgroup (thread t of warp w holds rows 16 w + t / 4
 // and + 8, columns 8 j + 2 (t % 4) + {0, 1} in d[4 j + {0, 1}] and
-// d[4 j + {2, 3}]). The N forms differ only in their register lists; the
-// file is written by tools/gen_wgmma_header.py, edit that.
+// d[4 j + {2, 3}]). `wgmma_ss_s8<N>` is one m64nNk32 product of s8 tiles in
+// the same layouts (a row of 128 bytes holds 128 values of K, a k-step is
+// again 32 bytes) with the s32 sums in the same slots; it has no transposed
+// form. The N forms differ only in their register lists; the file is written
+// by tools/gen_wgmma_header.py, edit that.
 
 #pragma once
 
@@ -67,6 +96,14 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
 __device__ __forceinline__ uint64_t wgmma_desc64(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
          (32ull << 32) | (2ull << 62);
+}
+
+// the same for the 32-byte swizzled layout of a tile 32 bytes deep (one k-step:
+// 32 s8 or 16 bf16): rows of 32 bytes, eight rows a 256-byte atom, vector j
+// (0 or 1) of row r at j ^ ((r / 4) % 2)
+__device__ __forceinline__ uint64_t wgmma_desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (16ull << 32) | (3ull << 62);
 }
 
 // byte offset of element (row, col) of a [rows, 64] bf16 swizzled tile
@@ -98,15 +135,24 @@ template <int R> __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R> __device__ __forceinline__ void wgmma_pin(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate);
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int accumulate);
 
 '''
 
 
 def main():
-    body = "\n".join(gen(n) for n in WIDTHS)
+    body = "\n".join([gen(n) for n in WIDTHS]
+                     + [gen_s8(n) for n in S8_WIDTHS])
     OUT.write_text(head + body + "\n}  // namespace rs\n")
 
 

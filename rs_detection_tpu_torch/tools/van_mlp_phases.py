@@ -1,13 +1,15 @@
-"""Where the wgmma design of the VAN MLP kernel spends its time: build
-copies of ``csrc/van_mlp_wgmma.cu`` with one phase cut out each and time
-them beside the whole kernel at the VAN-b3 stage shapes (batch 8, bf16)
-on one CUDA GPU. ``ncu`` is not always to be had; a phase that can be
-removed without a hang can still be weighed this way.
+"""Where the wgmma designs of the VAN MLP kernel spend their time: build
+copies of ``csrc/van_mlp_wgmma.cu`` (K2, bf16) and
+``csrc/van_mlp_int8_wgmma.cu`` (K2q, the int8 form) with one phase cut
+out each and time them beside the whole kernel at the VAN-b3 stage
+shapes (batch 8, bf16) on one CUDA GPU. ``ncu`` is not always to be had;
+a phase that can be removed without a hang can still be weighed this way.
 
 Run from the repository root:
-``python3 -m rs_detection_tpu_torch.tools.van_mlp_phases``. Each variant
+``python3 -m rs_detection_tpu_torch.tools.van_mlp_phases`` (both
+kernels; ``K2`` or ``K2q`` as an argument for one). Each variant
 is the source with a few lines replaced (a missing pattern raises: the
-table below follows the kernel), compiled on its own by ``nvcc`` with
+tables below follow the kernels), compiled on its own by ``nvcc`` with
 ``-Xptxas -v`` into a scratch directory and loaded with ctypes. It prints
 per variant ptxas' registers, spill lines and C7514 notes (``wgmma
 serialized``), then one line of ms per launch for each shape. A variant's
@@ -19,8 +21,10 @@ fc1: read fc1's share from ``no fc1``.
 from __future__ import annotations
 
 import ctypes
+import re
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -56,37 +60,65 @@ VARIANTS = {
     "a quarter of the weight bytes": _QUARTER,
     "copies and barriers only": [_GELU, _DW, _FC1, _FC2, _FINISH],
 }
+# the int8 form: the same phases, and the two it adds (the chunk maxima with
+# their block barrier, the dequantizing add of every fc2 product)
+_Q_GELU = [("a[q][0] = in ? gelu_erf_as(a[q][0] + bd0) : 0.f;",
+            "a[q][0] = in ? a[q][0] + bd0 : 0.f;"),
+           ("a[q][1] = in ? gelu_erf_as(a[q][1] + bd1) : 0.f;",
+            "a[q][1] = in ? a[q][1] + bd1 : 0.f;")]
+_Q_MAX = ("      __syncthreads();\n#pragma unroll\n"
+          "      for (int c = 0; c < NQ; ++c) {",
+          "#pragma unroll\n      for (int c = 0; c < NQ; ++c) {")
+_Q_ADD = ("        acc = __fadd_rn(acc, __fmul_rn(s, static_cast<float>("
+          "part[t & 1][i])));\n", "        acc += s;\n")
+Q_VARIANTS = {
+    "whole": [],
+    "no gelu": _Q_GELU,
+    "no dw, no gelu": _Q_GELU + [_DW],
+    "no fc1": [_FC1],
+    "no fc2 (products and adds)": [_Q_ADD],
+    "no barrier for the chunk maxima": [_Q_MAX],
+    "no finish (nor fc1)": [_FINISH],
+    "copies and barriers only": _Q_GELU + [_DW, _FC1, _Q_ADD, _FINISH],
+}
 _EXPORT = '''
 extern "C" int run(const void* x, const void* w1, const void* b1,
                    const void* wdw, const void* bdw, const void* w2,
                    const void* b2, void* y, void* scratch, int N, int H,
                    int W, int C, int Ch, void* stream) {
-  return rs::van_mlp_wgmma_launch(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N,
-                                  H, W, C, Ch, 0,
-                                  static_cast<cudaStream_t>(stream));
+  return rs::%s(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N, H, W, C, Ch, 0,
+                static_cast<cudaStream_t>(stream));
 }
 '''
+# kernel: (source, its launcher, the name of its __global__, variants)
+KERNELS = {
+    "K2": ("van_mlp_wgmma.cu", "van_mlp_wgmma_launch",
+           "van_mlp_wgmma_kernel", VARIANTS),
+    "K2q": ("van_mlp_int8_wgmma.cu", "van_mlp_q_wgmma_launch",
+            "van_mlp_q_wgmma_kernel", Q_VARIANTS),
+}
 
 
-def _variant(source, edits):
+def _variant(file, source, edits, launcher):
     for old, new in edits:
         if old not in source:
-            raise ValueError(f"van_mlp_wgmma.cu no longer has {old!r}")
+            raise ValueError(f"{file} no longer has {old!r}")
         source = source.replace(old, new)
-    return source + _EXPORT
+    return source + _EXPORT % launcher
 
 
-def build(workdir):
-    """Compile every variant (all nvcc started together); returns
-    {name: library path} and prints what ptxas said of each."""
-    source = (_build.CSRC / "van_mlp_wgmma.cu").read_text()
+def build(workdir, kernel="K2"):
+    """Compile every variant of ``kernel`` (all nvcc started together);
+    returns {name: library path} and prints what ptxas said of each."""
+    file, launcher, entry_name, variants = KERNELS[kernel]
+    source = (_build.CSRC / file).read_text()
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        d = Path(workdir) / f"v{i}"
+    for i, (name, edits) in enumerate(variants.items()):
+        d = Path(workdir) / f"{kernel}_v{i}"
         shutil.copytree(_build.CSRC, d)
-        (d / "van_mlp_wgmma.cu").write_text(_variant(source, edits))
+        (d / file).write_text(_variant(file, source, edits, launcher))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-               "-o", str(d / "lib.so"), str(d / "van_mlp_wgmma.cu")]
+               "-o", str(d / "lib.so"), str(d / file)]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -98,11 +130,15 @@ def build(workdir):
         for ln in out.splitlines():  # the MLP kernels, not the repack's
             if "Compiling entry function" in ln:
                 entry = ln
-            elif "Used" in ln and "van_mlp_wgmma_kernel" in entry:
-                regs.append(int(ln.split("Used ")[1].split(" ")[0]))
+            elif "Used" in ln and entry_name in entry:
+                width = re.search(r"kernelILi(\d+)E", entry)
+                regs.append(f"C={width.group(1) if width else '?'}: "
+                            + ln.split("Used ")[1].split(" ")[0])
         spills = sum("spill" in ln and " 0 bytes spill stores" not in ln
                      for ln in out.splitlines())
-        print(f"{name}: registers {regs}, {spills} kernels spill, C7514 notes "
+        print(f"{kernel} {name}: registers {', '.join(regs)}; {spills} "
+              f"kernels spill, "
+              f"C7514 notes "
               f"{out.count('C7514')}", flush=True)
         libs[name] = lib
     return libs
@@ -136,9 +172,14 @@ def main():
         return (torch.randn(*s, generator=g, device=dev) * scale) \
             .to(torch.bfloat16)
 
+    for kernel in sys.argv[1:] or list(KERNELS):
+        time_variants(kernel, r, dev)
+
+
+def time_variants(kernel, r, dev):
     with tempfile.TemporaryDirectory() as workdir:
         libs = {name: ctypes.CDLL(str(path))
-                for name, path in build(workdir).items()}
+                for name, path in build(workdir, kernel).items()}
         for lib in libs.values():
             lib.run.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
                 + [ctypes.c_void_p]
@@ -158,7 +199,7 @@ def main():
                     if err != 0:
                         raise RuntimeError(f"{name}: CUDA error {err}")
                 times.append(f"{name} {cuda_ms(launch):.3f}")
-            print(f"[{n},{h},{h},{c}] Ch={ch}, ms per launch: "
+            print(f"{kernel} [{n},{h},{h},{c}] Ch={ch}, ms per launch: "
                   + " | ".join(times), flush=True)
 
 

@@ -5,10 +5,11 @@ installed: ``tests/conftest.py`` imports it). Without a GPU every test
 here skips; ``chip_smoke.py`` runs the same checks at the flagship
 shapes. Covers K1 and K2 (serving), K3 and K6 (training), K4, K2r, K5
 and K7's layout (fused serving), K2q with its residual form and the
-integer products of the int8 serving mode, what the redesigned K2 / K2r
-and K6 make fragile (ragged tiles, every bf16 width, partial hidden
-chunks, every kernel size and dilation in both memory formats, launch
-plans mirrored in Python), the rule that a kernel
+integer products of the int8 serving mode, what the redesigned K2 / K2r,
+K2q, K4 and K6 make fragile (ragged tiles and pixel counts, every bf16
+width, partial hidden chunks, every kernel size and dilation in both
+memory formats, launch plans mirrored in Python, K2q's weight
+preparation against ``qweight``), the rule that a kernel
 wrapper never hands autograd a detached result, and the tiny config's
 predict (fused and not, int8 and not) and training step, CUDA against
 CPU."""
@@ -31,7 +32,7 @@ from rs_detection_tpu_torch.ops.roi_align import (
 from rs_detection_tpu_torch.ops.dwconv import (
     depthwise_conv2d, depthwise_conv2d_cuda, depthwise_conv2d_reference,
     dw_chw_cuda, dw_chw_reference)
-from rs_detection_tpu_torch.ops.van_attn import (van_attn_cuda,
+from rs_detection_tpu_torch.ops.van_attn import (attn_plan, van_attn_cuda,
                                                  van_attn_reference)
 from rs_detection_tpu_torch.ops import quant
 from rs_detection_tpu_torch.ops.van_mlp import (
@@ -651,3 +652,106 @@ def test_dw_wgrad_first_design_still_matches_plain(dev, k, d, mixed):
     theirs = launcher_plan(x, gr, k, d)
     assert plan["design"] == "generic"
     assert {key: plan[key] for key in theirs} == theirs
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["mlp", "residual"])
+@pytest.mark.parametrize("shape", [
+    # one shape per width of the int8 wgmma design, H and W no multiples
+    # of the 8x8 tile; whole rounds of hidden channels, a partial last
+    # round, Ch no multiple of 8; C = 32 keeps the first design
+    (2, 21, 19, 64, 96), (2, 21, 19, 128, 256), (2, 21, 19, 256, 72),
+    (2, 21, 19, 320, 200), (2, 21, 19, 512, 100), (1, 9, 70, 64, 100),
+    (1, 9, 70, 320, 1280), (1, 9, 70, 512, 2048), (1, 3, 5, 64, 64),
+    (8, 16, 24, 128, 128), (2, 21, 19, 32, 96)], ids=str)
+def test_van_mlp_int8_designs_match_plain(dev, shape, residual):
+    """K2q and its residual form in bf16 over the shapes that pick each
+    design: within INT8_TOL of the plain version with the kernel's scale
+    groups, at most 3% of the elements off by more than 2^-7 of
+    themselves."""
+    args = _mlp_args(dev, shape, torch.bfloat16, seed=31)
+    kernel, plain = (
+        (van_mlp_residual_int8_cuda, van_mlp_residual_int8_reference)
+        if residual else (van_mlp_int8_cuda, van_mlp_int8_reference))
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    ref = plain(*args).float()
+    diff = (got.float() - ref).abs()
+    assert diff.max().item() <= INT8_TOL[torch.bfloat16] * ref.abs().max()
+    assert (diff > ref.abs() * 2 ** -7).float().mean().item() <= 0.03
+    assert torch.equal(got, kernel(*args))      # same launch, same bits
+
+
+@pytest.mark.parametrize("c,ch,dtype", [
+    (64, 512, torch.bfloat16), (128, 1024, torch.bfloat16),
+    (256, 72, torch.bfloat16), (320, 1280, torch.bfloat16),
+    (512, 2048, torch.bfloat16), (320, 100, torch.bfloat16),
+    (64, 100, torch.bfloat16), (32, 96, torch.bfloat16),
+    (20, 40, torch.float32), (320, 64, torch.float32)])
+def test_van_mlp_int8_plan_mirrors_the_launcher(dev, c, ch, dtype):
+    lib = kernel_library()
+    limit = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    plan = kernel_plan(c, ch, dtype, limit, int8=True)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert lib.rs_van_mlp_int8_design(c, ch, code) == (
+        2 if plan["design"] == "wgmma" else 1)
+    assert plan["smem"] == lib.rs_van_mlp_int8_smem_bytes(c, ch, code)
+    assert plan["scratch"] == lib.rs_van_mlp_int8_scratch_bytes(c, ch, code)
+    assert lib.rs_van_mlp_int8_design(48, 96, 1) == 0
+
+
+@pytest.mark.parametrize("c,ch", [(64, 512), (128, 1024), (256, 72),
+                                  (320, 1280), (512, 2048), (320, 200),
+                                  (64, 100)])
+def test_van_mlp_int8_pack_kernel_equals_python_and_qweight(dev, c, ch):
+    """The weight preparation on the card: the packed bytes equal the
+    Python version's, and unpacked they are ``qweight``'s, bit for bit."""
+    _, w1, b1, wdw, bdw, w2, _ = _mlp_args(dev, (1, 8, 8, c, ch),
+                                           torch.bfloat16, seed=32)
+    want = van_mlp.pack_int8_weights(w1, b1, wdw, bdw, w2)
+    got = torch.empty_like(want)
+    err = kernel_library().rs_van_mlp_int8_pack(
+        w1.data_ptr(), b1.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
+        w2.data_ptr(), got.data_ptr(), c, ch, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got, want)
+    w1q, sw1, w2q, sw2 = van_mlp.unpack_int8_weights(got, c, ch)
+    (q1, s1), (q2, s2) = quant.qweight(w1, 0), quant.qweight(w2, 0)
+    assert torch.equal(w1q, q1) and torch.equal(sw1, s1)
+    assert torch.equal(w2q, q2) and torch.equal(sw2, s2)
+
+
+@pytest.mark.parametrize("shape", [
+    # one shape per width of the wgmma design of proj1 and tail; pixel
+    # counts below, at and past a block's 128 (64 in tail at C = 512), none
+    # a multiple of it but one; widths that keep the first design
+    (1, 13, 11, 64), (2, 30, 41, 128), (1, 16, 16, 256), (2, 9, 7, 320),
+    (1, 15, 13, 512), (1, 1, 1, 320), (8, 16, 16, 64), (1, 5, 5, 32),
+    (1, 7, 9, 96)], ids=str)
+def test_van_attn_bf16_designs_match_plain(dev, shape):
+    args = _attn_args(dev, shape, torch.bfloat16, seed=33)
+    got = van_attn_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _assert_close(got, van_attn_reference(*args), torch.bfloat16)
+    assert torch.equal(got, van_attn_cuda(*args))   # same launch, same bits
+
+
+@pytest.mark.parametrize("c,dtype", [
+    (64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
+    (320, torch.bfloat16), (512, torch.bfloat16), (32, torch.bfloat16),
+    (96, torch.bfloat16), (40, torch.float32), (320, torch.float32)])
+def test_van_attn_plan_mirrors_the_launcher(dev, c, dtype):
+    lib = kernel_library()
+    props = torch.cuda.get_device_properties(dev)
+    plan = attn_plan(c, dtype, props.shared_memory_per_block_optin,
+                     props.shared_memory_per_multiprocessor)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert lib.rs_van_attn_design(c, code) == (
+        2 if plan["design"] == "wgmma" else 1)
+    assert max(plan["smem"].values()) == lib.rs_van_attn_smem_bytes(c, code)
+    assert plan["scratch"] == lib.rs_van_attn_scratch_bytes(c, code)
+    assert lib.rs_van_attn_design(48, 1) == 0
