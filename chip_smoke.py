@@ -17,9 +17,13 @@ Phases, each of which raises (exit code 1) on failure:
      weights serves 10 batches of 8 uint8 1024^2 tiles (normalize on the
      device, ``predict``); checks shapes, finiteness and that every
      forward went through K2 38 times and K1 once
-  7. K3, the RoIAlign backward, against autograd of the plain forward on
-     4096 seeded rois over the flagship pyramid (bf16) and small f32,
-     and K1/K3 adjointness in f32 at the flagship shapes
+  7. K3, the RoIAlign backward (the destination-ordered design), against
+     autograd of the plain forward over the flagship pyramid (bf16) on
+     4096 uniform seeded rois and on 4096 rois like a step's (per tile 42
+     ground truths, 128 positives around them, 384 negatives), two
+     launches bit for bit, small f32 (a 16-byte vector and one channel per
+     lane), and K1/K3 adjointness in f32 at the flagship shapes; prints
+     the first (atomic) design's times beside it, timed here and before
   8. K6, the depthwise weight gradient, against the plain tap loop at
      the twelve VAN-b3 depthwise shapes of a batch-8 step (bf16, the
      model's layouts: the NHWC and the NCHW design) and one small f32
@@ -37,8 +41,11 @@ Phases, each of which raises (exit code 1) on failure:
      shapes (batch 8, bf16, NHWC), its ``[N, H, C, W]`` form (K7's
      layout) at [8, 256, 64, 256], one small odd f32 shape, and ``dx`` /
      ``dw`` of ``depthwise_conv2d`` against autograd of the plain
-     version; times ``F.conv2d`` in NCHW and channels_last beside it.
-     Then the prototype's own path: ``dw_chw`` at (5,1) and (7,3) held
+     version; ragged bf16 shapes at C = 320 and 72 with and without
+     bias; times ``F.conv2d`` in NCHW and channels_last and, at the
+     attention shapes (the streaming design), the first design beside it,
+     each in a loop of calls and in a CUDA graph. Then
+     the prototype's own path: ``dw_chw`` at (5,1) and (7,3) held
      against the NHWC kernel, transposed
  12. K2r, the residual form of the MLP kernel, against its plain version
      at the four stage shapes (bf16) and one small f32 shape
@@ -74,8 +81,9 @@ Phases, each of which raises (exit code 1) on failure:
      never
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
-has one), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+has one; K3's time on the step-like rois, K5's in a CUDA graph), the
+card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -100,8 +108,9 @@ MAX_GT = 42
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
 REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# K3: f32 atomics sum in another order than the plain backward, one
-# rounding to the output dtype on both sides (1 bf16 ulp of the largest)
+# K3: f32 sums in another order than the plain backward (the sorted order,
+# or atomics in the first design), one rounding to the output dtype on both
+# sides (1 bf16 ulp of the largest)
 K3_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 # K6: f32 sums over up to 5e5 products, in another order
 K6_TOL = {"bfloat16": 2e-3, "float32": 1e-4}
@@ -143,7 +152,11 @@ DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
 # redesign of K2 / K2r (WMMA, 32-channel chunks) and K6 (one channel per
 # lane, scalar staging), and on the tree before that of K2q (WMMA s8) and
 # K4's proj1 and tail (WMMA, 64 pixels per block; the four launches of a
-# half-block together), NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+# half-block together); K3 (scalar atomics; uniform, step-like rois) and K5
+# (a haloed tile per block; (5, 1) then (7, 3) at STAGES, as K4 calls it,
+# a loop of calls): rs_detection_tpu_torch/tools/k3k5_designs.py on the
+# tree before their redesign. NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# section 6)
 FIRST_DESIGN_MS = {
     "K2": [2.559, 1.779, 1.185, 0.641],
     "K2r": [2.572, 1.769, 1.190, 0.653],
@@ -151,7 +164,9 @@ FIRST_DESIGN_MS = {
     "K2q residual": [2.847, 1.801, 1.191, 0.621],
     "K4": [1.044, 0.593, 0.587, 0.373],
     "K6": [2.667, 1.357, 0.433, 0.179, 0.565, 0.311, 0.202, 0.077,
-           1.331, 0.692, 0.414, 0.137]}
+           1.331, 0.692, 0.414, 0.137],
+    "K3": [7.555, 12.874],
+    "K5": [0.140, 0.076, 0.050, 0.037, 0.283, 0.149, 0.104, 0.076]}
 
 
 def log(msg):
@@ -461,27 +476,14 @@ def phase_int_products(torch, quant, dev):
         raise AssertionError("int8_conv: outputs differ")
 
 
-def flagship_rois(torch, n, r, img, dev, seed):
-    """Rois over every level (sqrt-area 8..900 px before the 1.4x1.2
-    inflation), any rotation, centres up to 20% past each border."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def u(lo, hi):
-        return torch.rand(r, generator=g, device=dev) * (hi - lo) + lo
-
-    scale = torch.exp(u(2.08, 6.8))
-    aspect = torch.exp(u(-1.5, 1.5))
-    b = torch.randint(0, n, (r,), generator=g, device=dev).float()
-    return torch.stack([b, u(-0.2, 1.2) * img, u(-0.2, 1.2) * img,
-                        scale * aspect, scale / aspect, u(-3.2, 3.2)], 1)
-
-
 def phase_k1(torch, roi_cuda, roi_reference, dev):
+    from rs_detection_tpu_torch.tools.k3k5_designs import uniform_rois
+
     g = torch.Generator(device=dev).manual_seed(2)
     sizes = [TILE // s for s in (4, 8, 16, 32)]
     feats = [torch.randn(BATCH, s, s, 256, generator=g, device=dev)
              .to(torch.bfloat16) for s in sizes]
-    rois = flagship_rois(torch, BATCH, BATCH * 2000, TILE, dev, 3)
+    rois = uniform_rois(torch, BATCH, BATCH * 2000, TILE, dev, 3)
     err = compare(f"K1 {rois.shape[0]} rois, C=256, bf16",
                   roi_cuda(feats, rois), roi_reference(feats, rois),
                   "bfloat16")
@@ -494,7 +496,7 @@ def phase_k1(torch, roi_cuda, roi_reference, dev):
         f"{b[0]:.3f} ms by {b[1]}")
     small = [torch.randn(2, s, s, 32, generator=g, device=dev)
              for s in (64, 32, 16, 8)]
-    small_rois = flagship_rois(torch, 2, 500, 256, dev, 4)
+    small_rois = uniform_rois(torch, 2, 500, 256, dev, 4)
     compare("K1 500 rois, C=32, f32", roi_cuda(small, small_rois),
             roi_reference(small, small_rois), "float32")
     return err, t_kernel, t_plain, b
@@ -661,39 +663,74 @@ def phase_main(torch, build_flagship, normalize, kernels, dev, card,
 
 
 def phase_k3(torch, ra, dev):
-    """K3 against the plain backward (autograd of the plain forward),
-    and <K1(f), g> == <f, K3(g)>."""
+    """K3 against the plain backward (autograd of the plain forward) on
+    uniform rois and on rois like a step's, its first (atomic) design on
+    the same inputs, two launches bit for bit, and <K1(f), g> == <f,
+    K3(g)>. Returns (max error, ms, plain ms, bound) on the uniform rois,
+    the yardstick of earlier runs, and the ms on the step-like rois."""
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.ops.rotated_iou import box_iou_rotated
+    from rs_detection_tpu_torch.tools.k3k5_designs import (step_rois,
+                                                           uniform_rois)
+
     g = torch.Generator(device=dev).manual_seed(7)
     sizes = [TILE // s for s in (4, 8, 16, 32)]
     feats32 = [torch.randn(BATCH, s, s, 256, generator=g, device=dev)
                for s in sizes]
     feats = [f.to(torch.bfloat16) for f in feats32]
-    rois = flagship_rois(torch, BATCH, BATCH * 512, TILE, dev, 8)
-    grad = torch.randn(rois.shape[0], 7, 7, 256, generator=g,
-                       device=dev).to(torch.bfloat16)
-    err = compare(f"K3 {rois.shape[0]} rois, C=256, bf16",
-                  ra.roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad),
-                  ra.roi_align_rotated_pyramid_bwd_reference(feats, rois,
-                                                             grad),
-                  "bfloat16", K3_TOL)
-    t_plain = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_reference(
-        feats, rois, grad), 3)
-    t_kernel = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
-        feats, rois, grad), 10)
-    # the gradient and the rois read, the pyramid's gradient written; 4
-    # samples per bin, 4 corners each, a multiply-add per channel
-    b = bound(nbytes(grad, rois, *feats), 0.0, 32.0 * grad.numel())
-    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
-        f"{b[0]:.3f} ms by {b[1]}")
+    step, replaced = step_rois(torch, make_targets, box_iou_rotated, BATCH,
+                               TILE, dev, 20, max_gt=MAX_GT)
+    log(f"  step-like rois: per tile {MAX_GT} ground truths, 128 positives "
+        f"(IoU > 0.5; {100 * replaced:.1f}% of the jittered ones set back to "
+        f"their ground truth), 384 negatives")
+    sets = {"uniform": uniform_rois(torch, BATCH, BATCH * 512, TILE, dev, 8),
+            "step-like": step}
+    err_max, times = 0.0, {}
+    for (name, rois), before in zip(sets.items(), FIRST_DESIGN_MS["K3"]):
+        grad = torch.randn(rois.shape[0], 7, 7, 256, generator=g,
+                           device=dev).to(torch.bfloat16)
+        got = ra.roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+        plain = ra.roi_align_rotated_pyramid_bwd_reference(feats, rois, grad)
+        err = compare(f"K3 {rois.shape[0]} {name} rois, C=256, bf16", got,
+                      plain, "bfloat16", K3_TOL)
+        again = ra.roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  K3 {name}: two launches bit-identical -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"K3 {name}: two launches differ")
+        compare(f"K3 first design (atomics) {name} rois",
+                ra.roi_align_rotated_pyramid_bwd_first_design(feats, rois,
+                                                              grad),
+                plain, "bfloat16", K3_TOL)
+        del got, again, plain
+        t_plain = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_reference(
+            feats, rois, grad), 3)
+        t_kernel = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
+            feats, rois, grad), 10)
+        t_first = cuda_ms(
+            lambda: ra.roi_align_rotated_pyramid_bwd_first_design(
+                feats, rois, grad), 10)
+        # the gradient and the rois read, the pyramid's gradient written; 4
+        # samples per bin, 4 corners each, a multiply-add per channel
+        b = bound(nbytes(grad, rois, *feats), 0.0, 32.0 * grad.numel())
+        log(f"    kernel {t_kernel:.3f} ms (first design {t_first:.3f} ms "
+            f"here, {before:.3f} before), plain {t_plain:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]}")
+        err_max = max(err_max, err)
+        times[name] = (t_kernel, t_plain)
     small = [torch.randn(2, s, s, 32, generator=g, device=dev)
              for s in (64, 32, 16, 8)]
-    small_rois = flagship_rois(torch, 2, 500, 256, dev, 9)
-    small_g = torch.randn(500, 7, 7, 32, generator=g, device=dev)
-    compare("K3 500 rois, C=32, f32",
-            ra.roi_align_rotated_pyramid_bwd_cuda(small, small_rois, small_g),
-            ra.roi_align_rotated_pyramid_bwd_reference(small, small_rois,
-                                                       small_g),
-            "float32", K3_TOL)
+    small_rois = uniform_rois(torch, 2, 500, 256, dev, 9)
+    for c in (32, 30):  # a 16-byte vector, then one channel per lane
+        small_g = torch.randn(500, 7, 7, c, generator=g, device=dev)
+        feats_c = [f[..., :c].contiguous() for f in small]
+        compare(f"K3 500 rois, C={c}, f32 ({ra.k3_vec(c, torch.float32)} "
+                f"channels per lane)",
+                ra.roi_align_rotated_pyramid_bwd_cuda(feats_c, small_rois,
+                                                      small_g),
+                ra.roi_align_rotated_pyramid_bwd_reference(
+                    feats_c, small_rois, small_g), "float32", K3_TOL)
     grad32 = grad.float()
     lhs = (ra.roi_align_rotated_pyramid_cuda(feats32, rois).double()
            * grad32.double()).sum().item()
@@ -701,11 +738,12 @@ def phase_k3(torch, ra, dev):
         feats32, ra.roi_align_rotated_pyramid_bwd_cuda(feats32, rois,
                                                        grad32)))
     rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
-    log(f"  K1/K3 adjointness, f32: <K1 f, g> {lhs:.6e}, <f, K3 g> "
-        f"{rhs:.6e}, relative difference {rel:.2e} (tolerance 1e-5)")
+    log(f"  K1/K3 adjointness, f32, step-like rois: <K1 f, g> {lhs:.6e}, "
+        f"<f, K3 g> {rhs:.6e}, relative difference {rel:.2e} (tolerance "
+        f"1e-5)")
     if not rel <= 1e-5:
         raise AssertionError("K3 is not the adjoint of K1")
-    return err, t_kernel, t_plain, b
+    return (err_max, *times["uniform"], b), times["step-like"][0]
 
 
 def phase_k6(torch, dwc, dev):
@@ -774,8 +812,14 @@ def phase_k5(torch, dw, dev):
     """K5 against ``F.conv2d`` (groups = C). Totals are per fused
     forward: the 5x5 and the dilated 7x7 of each of the 38 attention
     half-blocks. Returns (max error, kernel ms, plain ms, bound, library
-    ms) for the NHWC form and for K7's ``[N, H, C, W]`` form."""
+    ms) for the NHWC form, with its ms in a CUDA graph last, and for K7's
+    ``[N, H, C, W]`` form. Every kernel ms is a loop of calls, as for the
+    other kernels; at the attention shapes both designs are also timed in
+    a CUDA graph, since at stage 4 a launch takes less card time than its
+    wrapper takes host time."""
     import torch.nn.functional as F
+
+    from rs_detection_tpu_torch.tools.k3k5_designs import graph_ms
 
     g = torch.Generator(device=dev).manual_seed(13)
     bf16 = torch.bfloat16
@@ -787,44 +831,108 @@ def phase_k5(torch, dw, dev):
         return bound(2 * nbytes(x) + x.element_size() * k * k * x.shape[-1],
                      0.0, 2.0 * k * k * x.numel())
 
-    err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
+    err_max, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    graph_total = first_ms = first_graph_ms = before_ms = 0.0
+    lib_ms = {"channels_last": 0.0, "NCHW": 0.0}
     shapes = [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
         + [(7, 3, h, c, n, True) for h, c, _, n in STAGES] \
         + [(3, 1, h, ch, n, False) for h, _, ch, n in STAGES]
+    before = iter(FIRST_DESIGN_MS["K5"])
     for k, d, h, c, blocks, on_path in shapes:
-        x, w = r(BATCH, h, h, c), r(k, k, c, scale=1.0 / k)
-        err = compare(f"K5 k{k}d{d} [{BATCH},{h},{h},{c}] NHWC bf16",
-                      dw.depthwise_conv2d_cuda(x, w, k, d),
-                      dw.depthwise_conv2d_reference(x, w, k, d), "bfloat16",
+        x = r(BATCH, h, h, c)
+        pad = d * (k - 1) // 2
+        design = dw.dw_plan(k, d, h, h, c, bf16, n=BATCH)["design"]
+        if design != ("stream" if on_path else "first"):
+            raise AssertionError(f"K5 k{k}d{d} C={c} picks the {design} "
+                                 f"design")
+        if on_path:  # as K4 calls it: nn.Conv2d's [C, k*k] taps, a bias
+            wt, bias = r(c, k * k, scale=1.0 / k), r(c, scale=0.1)
+            w = wt.t().reshape(k, k, c)
+            args = dict(bias=bias, taps_last=True)
+        else:
+            w, bias = r(k, k, c, scale=1.0 / k), None
+            wt, args = w, {}
+
+        def kernel():
+            return dw.depthwise_conv2d_cuda(x, wt, k, d, **args)
+
+        def plain():
+            y = dw.depthwise_conv2d_reference(x, w, k, d)
+            return y if bias is None else y + bias
+
+        err = compare(f"K5 k{k}d{d} [{BATCH},{h},{h},{c}] NHWC bf16 "
+                      f"({design} design)", kernel(), plain(), "bfloat16",
                       K5_TOL)
-        t_plain = cuda_ms(
-            lambda: dw.depthwise_conv2d_reference(x, w, k, d), 3)
-        t_kernel = cuda_ms(lambda: dw.depthwise_conv2d_cuda(x, w, k, d), 20)
+        def first_design():
+            return dw.depthwise_conv2d_first_design(x, wt, k, d, **args)
+
+        t_plain = cuda_ms(plain, 3)
+        t_kernel = cuda_ms(kernel, 20)
+        t_graph = graph_ms(torch, kernel, 20)
+        first = f" (in a CUDA graph {t_graph:.3f} ms"
+        if on_path:
+            t_first = cuda_ms(first_design, 20)
+            t_first_graph = graph_ms(torch, first_design, 20)
+            t_before = next(before)
+            first += (f"; first design {t_first:.3f} ms here, "
+                      f"{t_first_graph:.3f} in a CUDA graph, {t_before:.3f} "
+                      f"before")
+            graph_total += blocks * t_graph
+            first_ms += blocks * t_first
+            first_graph_ms += blocks * t_first_graph
+            before_ms += blocks * t_before
+        first += ")"
         # the library call, on the same memory (channels_last) and after
         # a copy to NCHW (the copy is not timed)
         wl = w.permute(2, 0, 1).reshape(c, 1, k, k).contiguous()
-        pad = d * (k - 1) // 2
         t_lib = {}
         for name, xl in (("channels_last", x.permute(0, 3, 1, 2)),
                          ("NCHW", x.permute(0, 3, 1, 2).contiguous())):
             t_lib[name] = cuda_ms(lambda: F.conv2d(
-                xl, wl, padding=pad, dilation=d, groups=c), 3)
+                xl, wl, bias, padding=pad, dilation=d, groups=c), 3)
         b = dw_bound(x, k)
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, F.conv2d "
-            f"channels_last {t_lib['channels_last']:.3f} ms, NCHW "
+        log(f"    kernel {t_kernel:.3f} ms{first}, plain {t_plain:.3f} ms, "
+            f"F.conv2d channels_last {t_lib['channels_last']:.3f} ms, NCHW "
             f"{t_lib['NCHW']:.3f} ms, bound {b[0]:.3f} ms by {b[1]}"
             + (f" (x{blocks} blocks per fused forward)" if on_path else ""))
         err_max = max(err_max, err)
         if on_path:
             ms += blocks * t_kernel
             plain_ms += blocks * t_plain
-            lib_ms += blocks * t_lib["channels_last"]
+            for name in lib_ms:
+                lib_ms[name] += blocks * t_lib[name]
             bounds += [b] * blocks
         del x
-    nhwc = (err_max, ms, plain_ms, add_bounds(bounds), lib_ms)
-    log(f"  K5 per fused forward (76 launches): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, F.conv2d channels_last {lib_ms:.3f} ms, bound "
-        f"{nhwc[3][0]:.3f} ms by {nhwc[3][1]}")
+    # the streaming design at H and W no multiples of its strip or rows,
+    # C = 320 (five channel chunks) and 72 (a partial last chunk), the
+    # fused block's taps and bias
+    for k, d in ((5, 1), (7, 3)):
+        for c in (320, 72):
+            x = r(2, 37, 45, c)
+            w = r(c, k * k, scale=1.0 / k)
+            bias = r(c, scale=0.1)
+            wl = w.reshape(c, 1, k, k)
+            if dw.dw_plan(k, d, 37, 45, c, bf16, n=2)["design"] != "stream":
+                raise AssertionError(f"K5 k{k}d{d} C={c} does not stream")
+            for b_ in (None, bias):
+                ref = F.conv2d(x.permute(0, 3, 1, 2), wl, b_,
+                               padding=d * (k - 1) // 2, dilation=d,
+                               groups=c).permute(0, 2, 3, 1)
+                compare(f"K5 k{k}d{d} [2,37,45,{c}] bf16 "
+                        f"{'with' if b_ is not None else 'without'} bias "
+                        f"(stream design)",
+                        dw.depthwise_conv2d_cuda(x, w, k, d, bias=b_,
+                                                 taps_last=True),
+                        ref, "bfloat16", K5_TOL)
+    nhwc = (err_max, ms, plain_ms, add_bounds(bounds),
+            lib_ms["channels_last"], graph_total)
+    log(f"  K5 per fused forward (76 launches): kernel {ms:.3f} ms in a loop "
+        f"of calls, {graph_total:.3f} in a CUDA graph (first design "
+        f"{first_ms:.3f} ms here, {first_graph_ms:.3f} in a CUDA graph, "
+        f"{before_ms:.3f} before), plain {plain_ms:.3f} ms, F.conv2d "
+        f"channels_last "
+        f"{lib_ms['channels_last']:.3f} ms, NCHW {lib_ms['NCHW']:.3f} ms "
+        f"(after a layout copy), bound {nhwc[3][0]:.3f} ms by {nhwc[3][1]}")
 
     # K7's layout at the prototype's shape
     err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
@@ -1126,8 +1234,9 @@ def main():
     modes = {}
     launches, *modes["non-fused"] = phase_main(
         torch, build_flagship, normalize, serving, dev, card)
-    log("[7] K3 RoIAlign backward vs plain, K1/K3 adjointness")
-    k3 = phase_k3(torch, ra, dev)
+    log("[7] K3 RoIAlign backward vs plain, bit for bit across launches, "
+        "K1/K3 adjointness")
+    k3, k3_step_ms = phase_k3(torch, ra, dev)
     log("[8] K6 depthwise weight gradient vs plain")
     k6 = phase_k6(torch, dwc, dev)
     log("[9] tiny config training step: CUDA (kernels) vs CPU (plain), f32")
@@ -1178,12 +1287,13 @@ def main():
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
 
-    def entry(name, source, replaces, n_launches, res, library_ms=None):
+    def entry(name, source, replaces, n_launches, res, library_ms=None,
+              **also):
         return {"name": name, "route": "cuda", "source": csrc + source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
                 "bound_ms": res[3][0], "bound_by": res[3][1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **also}
 
     kernels = [
         entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
@@ -1191,9 +1301,10 @@ def main():
         entry("roi_align_rotated_pyramid", "roi_align_rotated.cu",
               jops + "pallas_roi_align.py:116",
               launches["roi_align_rotated_pyramid"], k1),
-        entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated.cu",
+        entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
-              train_launches["roi_align_rotated_pyramid_bwd"], k3),
+              train_launches["roi_align_rotated_pyramid_bwd"], k3,
+              step_like_ms=k3_step_ms),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
               train_launches["dw_wgrad"], k6, k6[4]),
         entry("van_attn", "van_attn_wgmma.cu", jops + "pallas_van_attn.py:89",
@@ -1207,9 +1318,10 @@ def main():
         entry("van_mlp_residual_int8", "van_mlp_int8_wgmma.cu",
               jops + "pallas_van_mlp.py:68",
               int8_fused_launches["van_mlp_residual_int8"], k2qr),
-        entry("depthwise_conv2d", "dw_conv_fwd.cu",
+        entry("depthwise_conv2d", "dw_conv_fwd_stream.cu",
               jops + "pallas_dwconv.py:27",
-              fused_launches["depthwise_conv2d"], k5, k5[4]),
+              fused_launches["depthwise_conv2d"], k5, k5[4],
+              graph_ms=k5[5]),
         entry("dw_chw", "dw_conv_fwd.cu",
               "tools/analysis_tools/chw_dw_proto.py:25", k7_launches, k7,
               k7[4]),

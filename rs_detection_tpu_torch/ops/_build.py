@@ -46,12 +46,19 @@ SIGNATURES = {
     "rs_van_attn_tail": ([_P] * 12 + [_L, _I, _I, _P], _I),
     "rs_dw_conv_fwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "rs_dw_conv_fwd": ([_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
+    "rs_dw_conv_fwd_stream_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "rs_dw_conv_fwd_stream": (
+        [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
     "rs_roi_align_rotated_pyramid_fwd": (
         [_P] * 4 + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F, _P, _I, _I, _P],
         _I),
     "rs_roi_align_rotated_pyramid_bwd": (
         [_P] + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F] + [_P] * 8
         + [_I, _I, _P], _I),
+    "rs_roi_align_rotated_pyramid_bwd_records": (
+        [_I] * 10 + [_F] * 4 + [_P, _I, _I, _I, _F, _P, _P, _P], _I),
+    "rs_roi_align_rotated_pyramid_bwd_gather": (
+        [_P] * 4 + [_I] * 12 + [_P] * 4 + [_I, _I, _P], _I),
     "rs_dw_wgrad_plan": ([_L] * 8 + [_I] * 7 + [ctypes.POINTER(_I)], _I),
     "rs_dw_wgrad": ([_P, _P] + [_L] * 8 + [_I] * 8 + [_P] * 3, _I),
 }

@@ -4,11 +4,15 @@ hand-written kernel in two layouts.
 Counterpart of ``rs_detection_tpu/ops/pallas_dwconv.py``
 (``depthwise_conv2d``: x ``[N, H, W, C]``, w ``[K, K, C]``) and of the
 prototype ``tools/analysis_tools/chw_dw_proto.py`` (``dw_chw``: x
-``[N, H, C, W]``, wts ``[C, k*k]``). Both are one kernel template,
-``csrc/dw_conv_fwd.cu``, with the layout as a template parameter; taps
-accumulate in f32 and round once to the output dtype. The same kernel,
-with a bias, runs the two depthwise convs inside the fused VAN attention
-half-block (``ops/van_attn.py``).
+``[N, H, C, W]``, wts ``[C, k*k]``). The kernel has two designs, picked
+by ``dw_plan`` from the shape and dtype: the streaming design of
+``csrc/dw_conv_fwd_stream.cu`` for bf16 NHWC at (k, d) = (5, 1) and
+(7, 3), VAN's attention convs, and the first design,
+``csrc/dw_conv_fwd.cu`` (one kernel template with the layout as a
+template parameter), for everything else; taps accumulate in f32 and
+round once to the output dtype in both. The same kernels, with a bias,
+run the two depthwise convs inside the fused VAN attention half-block
+(``ops/van_attn.py``).
 
 ``depthwise_conv2d`` is differentiable like the JAX op (which has a
 ``custom_vjp``): ``dx`` is the same kernel on the gradient with the
@@ -19,21 +23,116 @@ takes its plain version.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ._build import kernel_library
-from .dw_conv import dw_wgrad
+from .dw_conv import H100_SMEM, H100_SMS, dw_wgrad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMEM_PER_SM = 233472  # shared memory of one SM
+# the streaming design's builds: warps per block (column groups of 4
+# outputs spaced d apart) for each (k, d), two blocks to an SM; at (7, 3)
+# 6 measured faster than 9 or 12 at one block to an SM (PERF.md)
+STREAM_WARPS = {(5, 1): 8, (7, 3): 6}
+STREAM_ROWS = STREAM_COLS = 4   # outputs per thread along rows / columns
+STREAM_STAGES = 3               # steps of 4 rows in a block's ring
 
 
 def _rows_per_thread(k: int) -> int:
-    """Outputs per thread along the rows (the kernel takes 1 or 4): 4
+    """Outputs per thread along the rows in the first design (1 or 4): 4
     reuses each value loaded from shared memory for up to 4 taps, which
     pays at k = 5 and 7; at k = 3 it measured slower than 1 on the H100
     (PERF.md)."""
     return 4 if k > 3 else 1
+
+
+def _first_smem(k: int, d: int, itemsize: int, hcw: bool) -> int:
+    """Shared memory of one block of the first design
+    (``dw_conv_fwd.cu:smem_bytes``)."""
+    rows = _rows_per_thread(k)
+    halo = (k - 1) * d
+    th = rows * d * max(1, 16 // (rows * d))
+    ct, tw = (8, 32) if hcw else (32, 16)
+    return (th + halo) * (tw + halo) * ct * itemsize
+
+
+def _stream_smem(k: int, d: int, groups: int) -> int:
+    """Shared memory of one streaming block: a ring of 3 * 4 + k - 1
+    input rows of (4 * groups + (k - 1) d) pixels x 64 bf16 channels,
+    and the block's k * k x 64 taps in f32
+    (``dw_conv_fwd_stream.cu:StreamGeom``)."""
+    ring = STREAM_STAGES * STREAM_ROWS + k - 1
+    return ring * (groups * STREAM_COLS + (k - 1) * d) * 64 * 2 \
+        + k * k * 64 * 4
+
+
+def dw_plan(k: int, d: int, h: int, w: int, c: int, dtype, n: int = 1,
+            hcw: bool = False, aligned: bool = True, sms: int = H100_SMS,
+            smem_limit: int = H100_SMEM,
+            smem_per_sm: int = H100_SMEM_PER_SM):
+    """How the depthwise forward runs x [n, h, w, c] (``hcw``: the
+    ``[N, H, C, W]`` form) with a k x k kernel at dilation d, mirrored
+    from the launchers in ``csrc/``. ``"stream"`` (bf16 NHWC, (k, d) in
+    ``STREAM_WARPS``, c a multiple of 8, x 16-byte aligned): the warps
+    per block ``groups`` (a strip of ``tw`` = 4 * groups output
+    columns), the ring of ``ring_rows`` input rows in ``stages`` steps of
+    4 rows, ``smem``, ``blocks_per_sm`` and the row segments (``segs`` of
+    ``seg_steps`` steps) that take the fewest steps of the busiest SM:
+    waves x (steps + 1, a segment's first rows). ``"first"`` otherwise:
+    rows per thread and ``smem``. Raises ``ValueError`` for what no
+    design takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"depthwise kernel takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if k not in (3, 5, 7) or d < 1:
+        raise ValueError(f"depthwise kernel takes k in (3, 5, 7) and "
+                         f"dilation >= 1, got k={k}, dilation={d}")
+    groups = STREAM_WARPS.get((k, d)) if (
+        dtype == torch.bfloat16 and not hcw and c % 8 == 0 and aligned) \
+        else None
+    smem = _stream_smem(k, d, groups) if groups else None
+    if groups and smem <= smem_limit:
+        per_sm = min(2, smem_per_sm // (smem + 1024))
+        tw = groups * STREAM_COLS
+        strips = -(-w // tw)
+        base = n * -(-c // 64) * strips * d
+        rows = -(-h // d)  # output rows of the largest row class
+        steps = -(-rows // STREAM_ROWS)
+        best = None
+        for segs in range(1, steps + 1):
+            per = -(-steps // segs)
+            segs = -(-steps // per)
+            cost = -(-(base * segs) // (sms * per_sm)) * (per + 1)
+            if best is None or cost < best[0]:
+                best = (cost, segs, per)
+        _, segs, per = best
+        return dict(design="stream", groups=groups, tw=tw, strips=strips,
+                    ring_rows=STREAM_STAGES * STREAM_ROWS + k - 1,
+                    stages=STREAM_STAGES, smem=smem, blocks_per_sm=per_sm,
+                    segs=segs, seg_steps=per, blocks=base * segs)
+    smem = _first_smem(k, d, 4 if dtype == torch.float32 else 2, hcw)
+    if smem > smem_limit:
+        raise ValueError(f"depthwise kernel does not take k={k} dilation "
+                         f"{d} in {dtype} (needs {smem} B of shared "
+                         f"memory, limit {smem_limit})")
+    return dict(design="first", rows=_rows_per_thread(k), smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SMs, shared memory one block may ask for, shared memory of an SM)
+    of CUDA device ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count, props.shared_memory_per_block_optin,
+            props.shared_memory_per_multiprocessor)
+
+
+# a launch reads its plan here: planning costs more host time than a small
+# launch takes on the card
+_cached_plan = functools.lru_cache(maxsize=4096)(dw_plan)
 
 
 def _pad(k: int, dilation: int) -> int:
@@ -60,9 +159,9 @@ def dw_chw_reference(x, wts, k: int, dil: int):
 
 
 def _launch(wrapper, name, x, w, bias, k, dilation, c, w_tap, w_ch, hcw):
-    """Check the operands and launch ``rs_dw_conv_fwd``, counting the
-    launch on ``wrapper``; ``w`` holds tap t of channel ch at
-    ``t * w_tap + ch * w_ch``."""
+    """Check the operands and launch the design ``dw_plan`` picks,
+    counting the launch on ``wrapper``; ``w`` holds tap t of channel ch
+    at ``t * w_tap + ch * w_ch``."""
     tensors = [("x", x), ("w", w)] + ([("bias", bias)] if bias is not None
                                       else [])
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in tensors):
@@ -86,30 +185,58 @@ def _launch(wrapper, name, x, w, bias, k, dilation, c, w_tap, w_ch, hcw):
     if w.numel() != k * k * c or (bias is not None and bias.numel() != c):
         raise ValueError(f"{name}: w {tuple(w.shape)} / bias do not match "
                          f"k={k}, C={c}")
-    code = _DTYPE_CODE[x.dtype]
-    lib = kernel_library()
-    rows = _rows_per_thread(k)
-    smem = lib.rs_dw_conv_fwd_smem_bytes(k, rows, dilation, code, hcw)
-    limit = torch.cuda.get_device_properties(x.device) \
-        .shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"{name} kernel does not take k={k} dilation "
-                         f"{dilation} in {x.dtype} (needs {smem} B of shared "
-                         f"memory, limit {limit})")
+    n, h = x.shape[0], x.shape[1]
+    width = x.shape[3] if hcw else x.shape[2]
+    sms, smem_limit, smem_per_sm = _device_limits(x.device.index)
+    plan = _cached_plan(k, dilation, h, width, c, x.dtype, n=n,
+                        hcw=bool(hcw), aligned=x.data_ptr() % 16 == 0,
+                        sms=sms, smem_limit=smem_limit,
+                        smem_per_sm=smem_per_sm)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    n, h = x.shape[0], x.shape[1]
-    width = x.shape[3] if hcw else x.shape[2]
+    args = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), n, h,
+            width, c, k, dilation, w_tap, w_ch)
+    lib = kernel_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         wrapper.launches += 1
-        err = lib.rs_dw_conv_fwd(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), n, h,
-            width, c, k, dilation, w_tap, w_ch, rows, code, hcw, stream)
+        if plan["design"] == "stream":
+            err = lib.rs_dw_conv_fwd_stream(*args, plan["groups"],
+                                            plan["segs"], plan["seg_steps"],
+                                            stream)
+        else:
+            err = lib.rs_dw_conv_fwd(*args, plan["rows"],
+                                     _DTYPE_CODE[x.dtype], hcw, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return y
+
+
+def depthwise_conv2d_first_design(x, w, k: int, dilation: int = 1,
+                                  bias=None, taps_last: bool = False):
+    """``depthwise_conv2d_cuda``'s operands through the first design
+    (``csrc/dw_conv_fwd.cu``) whatever ``dw_plan`` picks: for timing the
+    two designs side by side. Not counted; checks the device and dtype
+    of x, the launcher the rest."""
+    if not x.is_cuda:
+        raise ValueError(f"depthwise first design: x is on {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"depthwise kernel takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    c = x.shape[3]
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = kernel_library().rs_dw_conv_fwd(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            x.shape[0], x.shape[1], x.shape[2], c, k, dilation,
+            *((1, k * k) if taps_last else (c, 1)), _rows_per_thread(k),
+            _DTYPE_CODE[x.dtype], 0, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"depthwise first design launch failed: CUDA "
+                           f"error {err}")
     return y
 
 

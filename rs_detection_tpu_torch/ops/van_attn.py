@@ -13,9 +13,9 @@ affine, the attention body, the layer scale and the block's residual
 add. On a CUDA tensor it runs as four hand-written kernels, every
 multiply-add in ``csrc/``: ``proj1`` (affine, proj_1, GELU), the 5x5 and
 the dilated 7x7 depthwise convs with their biases
-(``csrc/dw_conv_fwd.cu`` through ``depthwise_conv2d_cuda``) and ``tail``
-(conv1, the gate, proj_2, ``+ h``, layer scale, ``+ x``). ``proj1`` and
-``tail`` have two designs, picked by the launcher in
+(``csrc/dw_conv_fwd_stream.cu`` through ``depthwise_conv2d_cuda``) and
+``tail`` (conv1, the gate, proj_2, ``+ h``, layer scale, ``+ x``).
+``proj1`` and ``tail`` have two designs, picked by the launcher in
 ``csrc/van_attn.cu`` and mirrored by ``attn_plan``: the wgmma design of
 ``csrc/van_attn_wgmma.cu`` for bf16 at VAN's widths, the first design
 (``csrc/van_attn.cu``) for every other shape. On a CPU tensor it runs

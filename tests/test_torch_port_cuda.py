@@ -9,7 +9,9 @@ integer products of the int8 serving mode, what the redesigned K2 / K2r,
 K2q, K4 and K6 make fragile (ragged tiles and pixel counts, every bf16
 width, partial hidden chunks, every kernel size and dilation in both
 memory formats, launch plans mirrored in Python, K2q's weight
-preparation against ``qweight``), the rule that a kernel
+preparation against ``qweight``; K3's gather design bit for bit across
+launches and on clustered rois, K5's streaming design at ragged shapes
+with and without bias), the rule that a kernel
 wrapper never hands autograd a detached result, and the tiny config's
 predict (fused and not, int8 and not) and training step, CUDA against
 CPU."""
@@ -26,12 +28,14 @@ from rs_detection_tpu_torch.ops.dw_conv import (dw_wgrad_cuda,
                                                 dw_wgrad_reference,
                                                 launcher_plan, wgrad_plan)
 from rs_detection_tpu_torch.ops.roi_align import (
-    roi_align_rotated_pyramid, roi_align_rotated_pyramid_bwd_cuda,
-    roi_align_rotated_pyramid_bwd_reference, roi_align_rotated_pyramid_cuda,
-    roi_align_rotated_pyramid_reference)
+    k3_vec, roi_align_rotated_pyramid, roi_align_rotated_pyramid_bwd_cuda,
+    roi_align_rotated_pyramid_bwd_first_design,
+    roi_align_rotated_pyramid_bwd_reference,
+    roi_align_rotated_pyramid_bwd_sorted_reference,
+    roi_align_rotated_pyramid_cuda, roi_align_rotated_pyramid_reference)
 from rs_detection_tpu_torch.ops.dwconv import (
-    depthwise_conv2d, depthwise_conv2d_cuda, depthwise_conv2d_reference,
-    dw_chw_cuda, dw_chw_reference)
+    depthwise_conv2d, depthwise_conv2d_cuda, depthwise_conv2d_first_design,
+    depthwise_conv2d_reference, dw_chw_cuda, dw_chw_reference, dw_plan)
 from rs_detection_tpu_torch.ops.van_attn import (attn_plan, van_attn_cuda,
                                                  van_attn_reference)
 from rs_detection_tpu_torch.ops import quant
@@ -755,3 +759,124 @@ def test_van_attn_plan_mirrors_the_launcher(dev, c, dtype):
     assert max(plan["smem"].values()) == lib.rs_van_attn_smem_bytes(c, code)
     assert plan["scratch"] == lib.rs_van_attn_scratch_bytes(c, code)
     assert lib.rs_van_attn_design(48, 1) == 0
+
+
+@pytest.mark.parametrize("dtype,c,tol", [(torch.bfloat16, 256, 1e-2),
+                                         (torch.float32, 32, 1e-5),
+                                         (torch.bfloat16, 36, 1e-2),
+                                         (torch.float32, 30, 1e-5)])
+def test_roi_align_gather_design_matches_plain(dev, dtype, c, tol):
+    """K3's destination-ordered design against autograd of the plain
+    forward and against its own plain version (records, stable sort,
+    segment sums), with a 16-byte vector per lane and (C = 36, 30) one
+    channel per lane; two launches give the same bits."""
+    feats, rois = _pyramid(dev, dtype, c, seed=21)
+    grad = torch.randn(rois.shape[0], 7, 7, c, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(22)
+                       ).to(dtype)
+    assert k3_vec(c, dtype) == (1 if c in (30, 36) else 16 // grad
+                                .element_size())
+    got = roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+    again = roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for ref in (roi_align_rotated_pyramid_bwd_reference(feats, rois, grad),
+                roi_align_rotated_pyramid_bwd_sorted_reference(feats, rois,
+                                                               grad)):
+        scale = max(r.float().abs().max().item() for r in ref)
+        for a, b in zip(got, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,c,tol", [(torch.bfloat16, 256, 1e-2),
+                                         (torch.float32, 32, 1e-5),
+                                         (torch.float32, 30, 1e-5)])
+def test_roi_align_first_design_matches_plain(dev, dtype, c, tol):
+    """K3's first design (f32 atomics; a 16-byte vector of g per lane,
+    one channel at C = 30), the reference the gather design is timed
+    against, against autograd of the plain forward."""
+    feats, rois = _pyramid(dev, dtype, c, seed=23)
+    grad = torch.randn(rois.shape[0], 7, 7, c, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(24)
+                       ).to(dtype)
+    got = roi_align_rotated_pyramid_bwd_first_design(feats, rois, grad)
+    torch.cuda.synchronize()
+    ref = roi_align_rotated_pyramid_bwd_reference(feats, rois, grad)
+    scale = max(r.float().abs().max().item() for r in ref)
+    for a, b in zip(got, ref):
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+def test_roi_align_gather_design_on_clustered_rois(dev):
+    """Rois piled on a few boxes (long runs per pixel, clamped samples at
+    the borders, rois past the image): the gather design against the
+    plain backward, the same bits over two launches, adjoint to K1."""
+    feats, rois = _pyramid(dev, torch.float32, 32, seed=25, r=400)
+    rois[:, 1:] = rois[:8, 1:].repeat(50, 1)
+    rois[::7, 1:3] = torch.tensor([-20.0, 270.0], device=dev)
+    grad = torch.randn(rois.shape[0], 7, 7, 32, device=dev)
+    got = roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+    again = roi_align_rotated_pyramid_bwd_cuda(feats, rois, grad)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = roi_align_rotated_pyramid_bwd_reference(feats, rois, grad)
+    scale = max(r.abs().max().item() for r in ref)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+    lhs = (roi_align_rotated_pyramid_cuda(feats, rois).double()
+           * grad.double()).sum()
+    rhs = sum((f.double() * d.double()).sum() for f, d in zip(feats, got))
+    assert abs(lhs - rhs).item() <= 1e-5 * abs(lhs).item()
+
+
+@pytest.mark.parametrize("k,d", [(5, 1), (7, 3)])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("shape", [(2, 37, 45, 320), (1, 256, 256, 64),
+                                   (1, 64, 64, 320), (1, 32, 32, 512),
+                                   (2, 37, 45, 96), (1, 19, 23, 72)])
+def test_depthwise_stream_design_matches_conv2d(dev, k, d, with_bias, shape):
+    """K5's streaming design against ``F.conv2d`` (f32 tap sums, one
+    rounding on both sides): a ragged shape (H, W no multiples of the
+    strip or of 4 rows, five channel chunks), the VAN-b3 attention
+    shapes at batch 1, and C = 96 and 72, whose last 64-channel chunk is
+    partial, with the fused block's ``[C, k*k]`` taps."""
+    n, h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(n, h, w, c, generator=g, device=dev).to(torch.bfloat16)
+    wt = (torch.randn(c, k * k, generator=g, device=dev) / k) \
+        .to(torch.bfloat16)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.1) \
+        .to(torch.bfloat16) if with_bias else None
+    assert dw_plan(k, d, h, w, c, torch.bfloat16, n=n)["design"] == "stream"
+    before = depthwise_conv2d_cuda.launches
+    got = depthwise_conv2d_cuda(x, wt, k, d, bias=bias, taps_last=True)
+    torch.cuda.synchronize()
+    assert depthwise_conv2d_cuda.launches == before + 1
+    ref = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), wt.reshape(c, 1, k, k), bias,
+        padding=d * (k - 1) // 2, dilation=d, groups=c).permute(0, 2, 3, 1)
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+    first = depthwise_conv2d_first_design(x, wt, k, d, bias=bias,
+                                          taps_last=True)
+    assert (first.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("k,d,h,c,dtype,hcw", [
+    (5, 1, 256, 64, torch.bfloat16, False), (7, 3, 256, 64, torch.bfloat16,
+                                             False),
+    (7, 3, 64, 320, torch.bfloat16, False), (3, 1, 64, 1280, torch.bfloat16,
+                                             False),
+    (7, 3, 37, 40, torch.float32, False), (7, 3, 256, 64, torch.bfloat16,
+                                           True)])
+def test_dw_plan_mirrors_the_launchers(dev, k, d, h, c, dtype, hcw):
+    lib = kernel_library()
+    plan = dw_plan(k, d, h, h, c, dtype, n=8, hcw=hcw)
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    if plan["design"] == "stream":
+        assert plan["smem"] == lib.rs_dw_conv_fwd_stream_smem_bytes(
+            k, d, plan["groups"])
+    else:
+        assert plan["smem"] == lib.rs_dw_conv_fwd_smem_bytes(
+            k, plan["rows"], d, code, int(hcw))
+    assert lib.rs_dw_conv_fwd_stream_smem_bytes(3, 1, 8) == 0
