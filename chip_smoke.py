@@ -9,8 +9,14 @@ Phases, each of which raises (exit code 1) on failure:
      VAN-b3 stage shapes (batch 8, bf16; the wgmma design), one small
      ragged bf16 shape and one small f32 shape (the FMA kernel); prints
      the first design's time beside each
-  4. K1, the rotated pyramid RoIAlign kernel, against its plain version
-     on 16000 seeded rois over the flagship pyramid (bf16) and small f32
+  4. K1, the rotated pyramid RoIAlign kernel (the row design), against
+     its plain version over the flagship pyramid (bf16) on 16000 seeded
+     uniform rois, 4096 rois like a training step's and the features and
+     rois of one flagship serving request (captured at the RoI
+     extractor's call), two launches bit for bit, the roi order kernel
+     against its plain buckets, each set's time beside the first
+     design's; small rois at C = 40 bf16 (five 16-byte vectors),
+     C = 36 bf16 (one channel per lane: the first design) and C = 32 f32
   5. the tiny config's ``predict`` on CUDA (kernels) against the CPU
      (plain versions), f32, same seed
   6. the serving path: VAN-b3 Oriented R-CNN in bf16 with seeded random
@@ -44,7 +50,10 @@ Phases, each of which raises (exit code 1) on failure:
      version; ragged bf16 shapes at C = 320 and 72 with and without
      bias; times ``F.conv2d`` in NCHW and channels_last and, at the
      attention shapes (the streaming design), the first design beside it,
-     each in a loop of calls and in a CUDA graph. Then
+     each in a loop of calls and in a CUDA graph; K7's form (the
+     row-streaming design) beside its first design, the plain version and
+     ``F.conv2d`` NCHW, and at ragged bf16 shapes (W = 200, W = 264, C =
+     72, H = 37) at (3,1), (5,1), (7,3), (5,2). Then
      the prototype's own path: ``dw_chw`` at (5,1) and (7,3) held
      against the NHWC kernel, transposed
  12. K2r, the residual form of the MLP kernel, against its plain version
@@ -81,7 +90,8 @@ Phases, each of which raises (exit code 1) on failure:
      never
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
-has one; K3's time on the step-like rois, K5's in a CUDA graph), the
+has one; K1's and K3's time on the step-like rois, K1's on a serving
+request's, K5's in a CUDA graph), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -166,7 +176,14 @@ FIRST_DESIGN_MS = {
     "K6": [2.667, 1.357, 0.433, 0.179, 0.565, 0.311, 0.202, 0.077,
            1.331, 0.692, 0.414, 0.137],
     "K3": [7.555, 12.874],
-    "K5": [0.140, 0.076, 0.050, 0.037, 0.283, 0.149, 0.104, 0.076]}
+    "K5": [0.140, 0.076, 0.050, 0.037, 0.283, 0.149, 0.104, 0.076],
+    # K1 (one block per roi; uniform, step-like, serving rois) and K7's form
+    # (the haloed tile; dw5, dw7d3 at [8, 256, 64, 256]):
+    # rs_detection_tpu_torch/tools/k1k7_designs.py on the tree before their
+    # redesign (serving rois: the same first design, unchanged, through
+    # roi_align_rotated_pyramid_first_design)
+    "K1": [0.656, 0.252, 0.856],
+    "K7": [0.273, 0.737]}
 
 
 def log(msg):
@@ -476,30 +493,98 @@ def phase_int_products(torch, quant, dev):
         raise AssertionError("int8_conv: outputs differ")
 
 
-def phase_k1(torch, roi_cuda, roi_reference, dev):
-    from rs_detection_tpu_torch.tools.k3k5_designs import uniform_rois
+def phase_k1(torch, ra, build_flagship, normalize, dev):
+    """K1 against its plain version and its first design on the same
+    inputs: 16000 uniform rois (the yardstick of the records), 4096 rois like
+    a training step's and the features and rois of one serving request,
+    bf16 over the flagship pyramid; two launches bit for bit; a ragged
+    width, one channel per lane and small f32. Returns (max error, ms,
+    plain ms, bound) on the uniform rois, and the ms on the other two
+    sets."""
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.ops import _build
+    from rs_detection_tpu_torch.ops.rotated_iou import box_iou_rotated
+    from rs_detection_tpu_torch.tools.k1k7_designs import serving_rois
+    from rs_detection_tpu_torch.tools.k3k5_designs import (step_rois,
+                                                           uniform_rois)
 
     g = torch.Generator(device=dev).manual_seed(2)
     sizes = [TILE // s for s in (4, 8, 16, 32)]
     feats = [torch.randn(BATCH, s, s, 256, generator=g, device=dev)
              .to(torch.bfloat16) for s in sizes]
-    rois = uniform_rois(torch, BATCH, BATCH * 2000, TILE, dev, 3)
-    err = compare(f"K1 {rois.shape[0]} rois, C=256, bf16",
-                  roi_cuda(feats, rois), roi_reference(feats, rois),
-                  "bfloat16")
-    t_plain = cuda_ms(lambda: roi_reference(feats, rois), 3)
-    t_kernel = cuda_ms(lambda: roi_cuda(feats, rois), 10)
-    out = roi_cuda(feats, rois)
-    # 4 samples per bin, 4 corners each, a multiply-add per channel
-    b = bound(nbytes(*feats, rois, out), 0.0, 32.0 * out.numel())
-    log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, bound "
-        f"{b[0]:.3f} ms by {b[1]}")
-    small = [torch.randn(2, s, s, 32, generator=g, device=dev)
+    sets = {"uniform": (feats, uniform_rois(torch, BATCH, BATCH * 2000, TILE,
+                                            dev, 3)),
+            "step-like": (feats, step_rois(torch, make_targets,
+                                           box_iou_rotated, BATCH, TILE, dev,
+                                           20, max_gt=MAX_GT)[0]),
+            "serving": serving_rois(torch, build_flagship, normalize, dev)}
+    results = {}
+    for (name, (fs, rois)), before in zip(sets.items(),
+                                          FIRST_DESIGN_MS["K1"]):
+        sizes = [f.shape[1:3] for f in fs]
+        plan = ra.k1_plan(fs[0].shape[-1], fs[0].dtype, rois=rois.shape[0],
+                          buckets=ra.k1_bucket_count(fs[0].shape[0], sizes))
+        if plan["design"] != "rows":
+            raise AssertionError(f"K1 {name}: the plan picks {plan}")
+        if plan["sort"]:  # the order kernel against its plain buckets
+            order = ra._k1_order(
+                _build.kernel_library(), fs, fs[0].shape[0],
+                [v for hw in sizes for v in hw], [4.0, 8.0, 16.0, 32.0],
+                rois, 56.0, torch.cuda.current_stream().cuda_stream)
+            bucket = ra.k1_buckets(fs, rois)[0]
+            ok = torch.equal(order.sort().values, torch.arange(
+                rois.shape[0], device=dev)) \
+                and bool((bucket[order].diff() >= 0).all())
+            log(f"  K1 {name}: the order is a permutation, bucket by bucket "
+                f"({ra.k1_bucket_count(fs[0].shape[0], sizes)} buckets) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1 {name}: the order kernel disagrees "
+                                     f"with k1_buckets")
+        got = ra.roi_align_rotated_pyramid_cuda(fs, rois)
+        err = compare(f"K1 {rois.shape[0]} {name} rois, C=256, bf16 (row "
+                      f"design)", got, ra.roi_align_rotated_pyramid_reference(
+                          fs, rois), "bfloat16")
+        same = torch.equal(got, ra.roi_align_rotated_pyramid_cuda(fs, rois))
+        log(f"  K1 {name}: two launches bit-identical -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"K1 {name}: two launches differ")
+        compare(f"K1 first design, {name} rois",
+                ra.roi_align_rotated_pyramid_first_design(fs, rois),
+                ra.roi_align_rotated_pyramid_reference(fs, rois), "bfloat16")
+        t_plain = cuda_ms(lambda: ra.roi_align_rotated_pyramid_reference(
+            fs, rois), 3)
+        t_kernel = cuda_ms(lambda: ra.roi_align_rotated_pyramid_cuda(
+            fs, rois), 10)
+        t_first = cuda_ms(lambda: ra.roi_align_rotated_pyramid_first_design(
+            fs, rois), 10)
+        # 4 samples per bin, 4 corners each, a multiply-add per channel
+        b = bound(nbytes(*fs, rois, got), 0.0, 32.0 * got.numel())
+        lvl = ra.map_roi_levels(rois[:, 3], rois[:, 4], 4)
+        log(f"    kernel {t_kernel:.3f} ms (first design {t_first:.3f} ms "
+            f"here, {before:.3f} before), plain {t_plain:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]}; rois per level "
+            f"{torch.bincount(lvl, minlength=4).tolist()}")
+        results[name] = (err, t_kernel, t_plain, b)
+        del got
+    del sets
+    small = [torch.randn(2, s, s, 40, generator=g, device=dev)
              for s in (64, 32, 16, 8)]
     small_rois = uniform_rois(torch, 2, 500, 256, dev, 4)
-    compare("K1 500 rois, C=32, f32", roi_cuda(small, small_rois),
-            roi_reference(small, small_rois), "float32")
-    return err, t_kernel, t_plain, b
+    # C = 40 bf16: five 16-byte vectors, lanes 5-31 idle (row design);
+    # C = 36 bf16: one channel per lane (first design); f32 at C = 32 (row
+    # design, 4 channels a lane)
+    for c, dt in ((40, torch.bfloat16), (36, torch.bfloat16),
+                  (32, torch.float32)):
+        fs = [f[..., :c].to(dt).contiguous() for f in small]
+        design = ra.k1_plan(c, dt, rois=500)["design"]
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        compare(f"K1 500 rois, C={c}, {name} ({design} design)",
+                ra.roi_align_rotated_pyramid_cuda(fs, small_rois),
+                ra.roi_align_rotated_pyramid_reference(fs, small_rois), name)
+    return results["uniform"], results["step-like"][1], \
+        results["serving"][1]
 
 
 def phase_slice(torch, build_flagship, normalize, dev, fused=False):
@@ -934,27 +1019,60 @@ def phase_k5(torch, dw, dev):
         f"{lib_ms['channels_last']:.3f} ms, NCHW {lib_ms['NCHW']:.3f} ms "
         f"(after a layout copy), bound {nhwc[3][0]:.3f} ms by {nhwc[3][1]}")
 
-    # K7's layout at the prototype's shape
+    # K7's layout at the prototype's shape: the row-streaming design beside
+    # the first design, the plain version and F.conv2d on NCHW
     err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
-    for k, d in ((5, 1), (7, 3)):
+    first_ms = before_ms = 0.0
+    for (k, d), before in zip(((5, 1), (7, 3)), FIRST_DESIGN_MS["K7"]):
         x, wts = r(BATCH, 256, 64, 256), r(64, k * k, scale=1.0 / k)
+        plan = dw.dw_plan(k, d, 256, 256, 64, bf16, n=BATCH, hcw=True)
+        if plan["design"] != "chw":
+            raise AssertionError(f"K7 form k{k}d{d}: the plan picks {plan}")
+        plain = dw.dw_chw_reference(x, wts, k, d)
         err_max = max(err_max, compare(
-            f"K7 form k{k}d{d} [{BATCH},256,64,256] bf16",
-            dw.dw_chw_cuda(x, wts, k, d), dw.dw_chw_reference(x, wts, k, d),
-            "bfloat16", K5_TOL))
+            f"K7 form k{k}d{d} [{BATCH},256,64,256] bf16 (row-streaming "
+            f"design, {plan['segs']} segments)", dw.dw_chw_cuda(x, wts, k, d),
+            plain, "bfloat16", K5_TOL))
+        compare(f"K7 form k{k}d{d}, first design",
+                dw.dw_chw_first_design(x, wts, k, d), plain, "bfloat16",
+                K5_TOL)
         t_plain = cuda_ms(lambda: dw.dw_chw_reference(x, wts, k, d), 3)
         t_kernel = cuda_ms(lambda: dw.dw_chw_cuda(x, wts, k, d), 20)
+        t_first = cuda_ms(lambda: dw.dw_chw_first_design(x, wts, k, d), 20)
         xl = x.permute(0, 2, 1, 3).contiguous()
         t_lib = cuda_ms(lambda: F.conv2d(
             xl, wts.reshape(64, 1, k, k), padding=d * (k - 1) // 2,
             dilation=d, groups=64), 3)
         b = bound(2 * nbytes(x) + nbytes(wts), 0.0, 2.0 * k * k * x.numel())
-        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, F.conv2d "
+        log(f"    kernel {t_kernel:.3f} ms (first design {t_first:.3f} ms "
+            f"here, {before:.3f} before), plain {t_plain:.3f} ms, F.conv2d "
             f"NCHW {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]}")
         ms += t_kernel
         plain_ms += t_plain
         lib_ms += t_lib
+        first_ms += t_first
+        before_ms += before
         bounds.append(b)
+        del x, plain
+    log(f"  K7 form, dw5 + dw7d3: kernel {ms:.3f} ms (first design "
+        f"{first_ms:.3f} ms here, {before_ms:.3f} before), plain "
+        f"{plain_ms:.3f} ms, F.conv2d NCHW {lib_ms:.3f} ms")
+    # ragged bf16 shapes of the row-streaming design: W short of a strip,
+    # W over one strip (264: a second strip of one lane), C = 72, H = 37
+    for shape in ((2, 37, 64, 200), (2, 40, 64, 264), (2, 64, 72, 256),
+                  (2, 37, 72, 264)):
+        for k, d in ((3, 1), (5, 1), (7, 3), (5, 2)):
+            x = r(*shape)
+            c = shape[2]
+            wts = r(c, k * k, scale=1.0 / k)
+            n_, h_, _, w_ = shape
+            if dw.dw_plan(k, d, h_, w_, c, bf16, n=n_,
+                          hcw=True)["design"] != "chw":
+                raise AssertionError(f"K7 form k{k}d{d} {shape} does not "
+                                     f"stream rows")
+            compare(f"K7 form k{k}d{d} {list(shape)} bf16 (row-streaming "
+                    f"design)", dw.dw_chw_cuda(x, wts, k, d),
+                    dw.dw_chw_reference(x, wts, k, d), "bfloat16", K5_TOL)
     chw = (err_max, ms, plain_ms, add_bounds(bounds), lib_ms)
 
     # small f32, odd sizes and a ragged channel tile; both gradients
@@ -1225,9 +1343,9 @@ def main():
                "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda}
     log("[3] K2 fused VAN MLP vs plain")
     k2 = phase_k2(torch, vm.van_mlp_cuda, vm.van_mlp_reference, dev)
-    log("[4] K1 rotated pyramid RoIAlign vs plain")
-    k1 = phase_k1(torch, ra.roi_align_rotated_pyramid_cuda,
-                  ra.roi_align_rotated_pyramid_reference, dev)
+    log("[4] K1 rotated pyramid RoIAlign vs plain and its first design")
+    k1, k1_step_ms, k1_serving_ms = phase_k1(torch, ra, build_flagship,
+                                             normalize, dev)
     log("[5] tiny config predict: CUDA (kernels) vs CPU (plain), f32")
     phase_slice(torch, build_flagship, normalize, dev)
     log("[6] serving path")
@@ -1298,9 +1416,10 @@ def main():
     kernels = [
         entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
               launches["van_mlp"], k2),
-        entry("roi_align_rotated_pyramid", "roi_align_rotated.cu",
+        entry("roi_align_rotated_pyramid", "roi_align_rotated_fwd.cu",
               jops + "pallas_roi_align.py:116",
-              launches["roi_align_rotated_pyramid"], k1),
+              launches["roi_align_rotated_pyramid"], k1,
+              step_like_ms=k1_step_ms, serving_ms=k1_serving_ms),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,
@@ -1322,7 +1441,7 @@ def main():
               jops + "pallas_dwconv.py:27",
               fused_launches["depthwise_conv2d"], k5, k5[4],
               graph_ms=k5[5]),
-        entry("dw_chw", "dw_conv_fwd.cu",
+        entry("dw_chw", "dw_conv_chw.cu",
               "tools/analysis_tools/chw_dw_proto.py:25", k7_launches, k7,
               k7[4]),
     ]

@@ -27,6 +27,13 @@
 // loaded value feeds up to R taps: (R + K - 1) * K loads for R * K * K
 // multiply-adds (2.8 x fewer at K = 7, R = 4). The wrapper picks R = 4 at
 // K = 5 and 7 and R = 1 at K = 3, where 4 measured slower.
+//
+// This is the first design of both layouts. K5 runs the streaming design of
+// dw_conv_fwd_stream.cu for bf16 NHWC at VAN's (5, 1) and (7, 3), and K7's
+// form the row-streaming design of dw_conv_chw.cu for bf16 [N, H, C, W]
+// with W a multiple of 8 at dilation 1-3 (ops/dwconv.py:dw_plan). This one
+// runs every other shape and stays as the reference both are timed against
+// (depthwise_conv2d_first_design, dw_chw_first_design).
 
 #include <stdint.h>
 

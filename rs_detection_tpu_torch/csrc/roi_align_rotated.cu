@@ -1,5 +1,5 @@
-// Rotated RoIAlign over an FPN pyramid, forward (K1) and the first design of
-// the backward (K3), for Hopper (sm_90a).
+// Rotated RoIAlign over an FPN pyramid, the first designs of the forward (K1)
+// and of the backward (K3), for Hopper (sm_90a).
 //
 // Replaces: rs_detection_tpu/ops/pallas_roi_align.py, `_pool_kernel` (K1,
 // reached through `roi_align_rotated_pyramid_pallas`) and `_scatter_kernel`
@@ -21,13 +21,17 @@
 // clamps oversize rois to a window) is needed: a GPU thread reads and adds to
 // any address.
 //
-// What bounds the forward on the H100: gathers. At 16000 rois, C = 256,
-// bf16 it reads 16000 * 49 * 4 samples * 4 corners * 512 bytes (~6.4 GB of
-// corner rows, most of them hits in the 50 MB L2 because neighbouring samples
-// share corners) and writes 400 MB. One block per roi; each warp owns one
-// bin at a time and each lane 8 channels, so every corner read is one 16-byte
-// load per lane and 512 contiguous bytes per warp. Sums are f32 and the
-// result is stored once in the features' dtype.
+// The forward here is K1's first design: one block per roi; each warp owns
+// one bin at a time and each lane 8 channels, so every corner read is one
+// 16-byte load per lane and 512 contiguous bytes per warp (~6.4 GB of corner
+// rows at 16000 rois, C = 256, bf16, mostly L1 and L2 hits), but every lane
+// works out all four samples' corners and a sample's loads wait behind its
+// `continue`: issue, not bytes, bounds it. Sums are f32 and the result is
+// stored once in the features' dtype. K1 runs the row design of
+// roi_align_rotated_fwd.cu wherever a lane takes a 16-byte vector (S = 1 or
+// 2); this one serves one channel per lane and stays as the reference that
+// design is timed against
+// (ops/roi_align.py:roi_align_rotated_pyramid_first_design).
 //
 // The backward's first design, the atomic form, has the same shape with
 // atomics in place of loads: one block per roi, one warp per bin, each lane

@@ -49,9 +49,17 @@ SIGNATURES = {
     "rs_dw_conv_fwd_stream_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     "rs_dw_conv_fwd_stream": (
         [_P] * 4 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
+    "rs_dw_conv_chw": ([_P] * 4 + [_I] * 6 + [_L, _L, _I, _I, _P], _I),
     "rs_roi_align_rotated_pyramid_fwd": (
         [_P] * 4 + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F, _P, _I, _I, _P],
         _I),
+    "rs_roi_align_rows_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "rs_roi_align_rotated_pyramid_fwd_rows": (
+        [_P] * 4 + [_I] * 11 + [_F] * 4
+        + [_P, _P, _I, _I, _I, _F, _P, _I, _I, _P], _I),
+    "rs_roi_align_rows_buckets": ([_I] * 10, _I),
+    "rs_roi_align_rows_order": ([_I] * 10 + [_F] * 4 + [_P, _I, _F, _P, _P],
+                                _I),
     "rs_roi_align_rotated_pyramid_bwd": (
         [_P] + [_I] * 11 + [_F] * 4 + [_P, _I, _I, _I, _F] + [_P] * 8
         + [_I, _I, _P], _I),

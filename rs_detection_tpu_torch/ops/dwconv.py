@@ -7,10 +7,13 @@ prototype ``tools/analysis_tools/chw_dw_proto.py`` (``dw_chw``: x
 ``[N, H, C, W]``, wts ``[C, k*k]``). The kernel has two designs, picked
 by ``dw_plan`` from the shape and dtype: the streaming design of
 ``csrc/dw_conv_fwd_stream.cu`` for bf16 NHWC at (k, d) = (5, 1) and
-(7, 3), VAN's attention convs, and the first design,
+(7, 3), VAN's attention convs; the row-streaming design of
+``csrc/dw_conv_chw.cu`` for bf16 ``[N, H, C, W]`` with W a multiple of 8
+at dilation 1-3 (K7's form: a warp per channel and 256-column strip,
+taps, inputs and sums in registers); and the first design,
 ``csrc/dw_conv_fwd.cu`` (one kernel template with the layout as a
 template parameter), for everything else; taps accumulate in f32 and
-round once to the output dtype in both. The same kernels, with a bias,
+round once to the output dtype in all three. The same kernels, with a bias,
 run the two depthwise convs inside the fused VAN attention half-block
 (``ops/van_attn.py``).
 
@@ -39,6 +42,36 @@ H100_SMEM_PER_SM = 233472  # shared memory of one SM
 STREAM_WARPS = {(5, 1): 8, (7, 3): 6}
 STREAM_ROWS = STREAM_COLS = 4   # outputs per thread along rows / columns
 STREAM_STAGES = 3               # steps of 4 rows in a block's ring
+# the [N, H, C, W] row-streaming design: dilations it is built for, warps
+# per block, output columns per warp (8 per lane), and the warps one SM
+# holds by k (blocks of 4 warps that fit its registers: ptxas gives 63-72,
+# 96-120 and 154-168 registers a thread at k = 3, 5, 7)
+CHW_DILATIONS = (1, 2, 3)
+CHW_WARPS = 4
+CHW_STRIP = 256
+CHW_WARPS_PER_SM = {3: 24, 5: 16, 7: 12}
+
+
+def _chw_plan(k: int, d: int, h: int, w: int, c: int, n: int, sms: int):
+    """The ``[N, H, C, W]`` row-streaming design's launch: one warp per
+    (image, row segment, row class mod d, 256-column strip, channel);
+    the segments that take the fewest input rows of the busiest warp
+    slot: waves x (rows per segment + k - 1, a segment's first rows)."""
+    strips = -(-w // CHW_STRIP)
+    base = n * d * strips * c
+    rows = -(-h // d)  # output rows of the largest row class
+    best = None
+    for segs in range(1, rows + 1):
+        per = -(-rows // segs)
+        segs = -(-rows // per)
+        cost = -(-(base * segs) // (sms * CHW_WARPS_PER_SM[k])) \
+            * (per + k - 1)
+        if best is None or cost < best[0]:
+            best = (cost, segs, per)
+    _, segs, per = best
+    return dict(design="chw", strips=strips, segs=segs, seg_rows=per,
+                warps=base * segs, blocks=-(-base * segs // CHW_WARPS),
+                smem=0)
 
 
 def _rows_per_thread(k: int) -> int:
@@ -81,15 +114,21 @@ def dw_plan(k: int, d: int, h: int, w: int, c: int, dtype, n: int = 1,
     columns), the ring of ``ring_rows`` input rows in ``stages`` steps of
     4 rows, ``smem``, ``blocks_per_sm`` and the row segments (``segs`` of
     ``seg_steps`` steps) that take the fewest steps of the busiest SM:
-    waves x (steps + 1, a segment's first rows). ``"first"`` otherwise:
-    rows per thread and ``smem``. Raises ``ValueError`` for what no
-    design takes."""
+    waves x (steps + 1, a segment's first rows). ``"chw"`` (bf16
+    ``hcw``, w a multiple of 8, x 16-byte aligned, d in
+    ``CHW_DILATIONS``): ``strips`` of 256 columns, row ``segs`` of
+    ``seg_rows`` output rows per row class, ``warps`` and ``blocks``.
+    ``"first"`` otherwise: rows per thread and ``smem``. Raises
+    ``ValueError`` for what no design takes."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"depthwise kernel takes float32 or bfloat16, not "
                         f"{dtype}")
     if k not in (3, 5, 7) or d < 1:
         raise ValueError(f"depthwise kernel takes k in (3, 5, 7) and "
                          f"dilation >= 1, got k={k}, dilation={d}")
+    if hcw and dtype == torch.bfloat16 and w % 8 == 0 and aligned \
+            and d in CHW_DILATIONS:
+        return _chw_plan(k, d, h, w, c, n, sms)
     groups = STREAM_WARPS.get((k, d)) if (
         dtype == torch.bfloat16 and not hcw and c % 8 == 0 and aligned) \
         else None
@@ -158,6 +197,44 @@ def dw_chw_reference(x, wts, k: int, dil: int):
     return y.permute(0, 2, 1, 3)
 
 
+def dw_chw_stream_reference(x, wts, k: int, dil: int, segs: int,
+                            seg_rows: int, bias=None):
+    """Plain version of the ``[N, H, C, W]`` row-streaming design, in its
+    order: per row class rho mod ``dil`` and segment of ``seg_rows``
+    output rows, the input rows of the class one after the other, each
+    added (f32, taps left to right) into the k output rows it touches
+    (kept here in a ring of k); an output row is rounded once when its
+    last input row is in. Same function as ``dw_chw_reference``, for the CPU tests of the
+    design's row and segment arithmetic."""
+    n, h, c, w = x.shape
+    pad = _pad(k, dil)
+    xp = F.pad(x.float(), (pad, pad))
+    taps = wts.float().reshape(c, k * k)[None, :, None, :]
+    init = torch.zeros(n, c, w) if bias is None \
+        else bias.float()[None, :, None].expand(n, c, w)
+    y = torch.empty(n, h, c, w)
+    for rho in range(dil):
+        rows = -(-(h - rho) // dil)
+        for seg in range(segs):
+            i0, i1 = seg * seg_rows, min(rows, (seg + 1) * seg_rows)
+            if i0 >= i1:
+                continue
+            acc = [init.clone() for _ in range(k)]
+            for u in range(i1 - i0 + k - 1):
+                gy = rho - pad + dil * (i0 + u)
+                if 0 <= gy < h:
+                    row = xp[:, gy]
+                    for ky in range(k):
+                        a = acc[(u - ky) % k]
+                        for kx in range(k):
+                            a += row[..., kx * dil:kx * dil + w] \
+                                * taps[..., ky * k + kx]
+                if u >= k - 1:
+                    y[:, rho + dil * (i0 + u - k + 1)] = acc[(u + 1) % k]
+                acc[(u + 1) % k] = init.clone()
+    return y.to(x.dtype)
+
+
 def _launch(wrapper, name, x, w, bias, k, dilation, c, w_tap, w_ch, hcw):
     """Check the operands and launch the design ``dw_plan`` picks,
     counting the launch on ``wrapper``; ``w`` holds tap t of channel ch
@@ -206,6 +283,9 @@ def _launch(wrapper, name, x, w, bias, k, dilation, c, w_tap, w_ch, hcw):
             err = lib.rs_dw_conv_fwd_stream(*args, plan["groups"],
                                             plan["segs"], plan["seg_steps"],
                                             stream)
+        elif plan["design"] == "chw":
+            err = lib.rs_dw_conv_chw(*args, plan["segs"], plan["seg_rows"],
+                                     stream)
         else:
             err = lib.rs_dw_conv_fwd(*args, plan["rows"],
                                      _DTYPE_CODE[x.dtype], hcw, stream)
@@ -267,6 +347,29 @@ def dw_chw_cuda(x, wts, k: int, dil: int):
 
 
 dw_chw_cuda.launches = 0
+
+
+def dw_chw_first_design(x, wts, k: int, dil: int):
+    """``dw_chw_cuda``'s operands through the first design
+    (``csrc/dw_conv_fwd.cu`` in its ``[N, H, C, W]`` form) whatever
+    ``dw_plan`` picks: for timing the two designs side by side. Not
+    counted; checks the device and dtype of x, the launcher the rest."""
+    if not x.is_cuda:
+        raise ValueError(f"dw_chw first design: x is on {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"depthwise kernel takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    n, h, c, w = x.shape
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = kernel_library().rs_dw_conv_fwd(
+            x.data_ptr(), wts.data_ptr(), None, y.data_ptr(), n, h, w, c, k,
+            dil, 1, k * k, _rows_per_thread(k), _DTYPE_CODE[x.dtype], 1,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dw_chw first design launch failed: CUDA error "
+                           f"{err}")
+    return y
 
 
 def _forward(x, w, k, dilation):

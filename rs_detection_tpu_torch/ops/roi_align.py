@@ -5,9 +5,16 @@ Counterpart of ``rs_detection_tpu/ops/roi_align.py:roi_align_rotated_pyramid``
 ``ops/pallas_roi_align.py:roi_align_rotated_pyramid_pallas`` (the forward
 ``_pool_kernel`` and the backward ``_scatter_kernel``). On CUDA tensors
 ``roi_align_rotated_pyramid`` is an autograd function whose forward
-launches K1 (``csrc/roi_align_rotated.cu``) and whose backward launches
-K3; on CPU tensors it runs ``roi_align_rotated_pyramid_reference`` and
-autograd differentiates that. K3 is the destination-ordered gather of
+launches K1 and whose backward launches K3; on CPU tensors it runs
+``roi_align_rotated_pyramid_reference`` and autograd differentiates
+that. K1 runs the row design of ``csrc/roi_align_rotated_fwd.cu`` (a
+warp per row of bins, the row's corners worked out once into a table,
+merged where a bin spans 3 x 3 pixels; from ``K1_SORT_MIN`` rois the
+rois taken bucket by bucket, ``k1_buckets``) where ``k1_plan`` picks it,
+16-byte channel vectors at S = 1 or 2, and its first design
+(``csrc/roi_align_rotated.cu``, a block per roi, a warp per bin)
+otherwise; ``roi_align_rotated_pyramid_first_design`` times the first
+design on any shape. K3 is the destination-ordered gather of
 ``csrc/roi_align_rotated_bwd.cu`` (records, a stable sort by
 destination, one warp per pixel; no atomics, the same bits on every
 run; its plain version is
@@ -30,6 +37,7 @@ from typing import Sequence
 import torch
 
 from ._build import kernel_library
+from .dw_conv import H100_SMEM
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # rois per gather in the plain version: bounds its [r, G, G, C] corner
@@ -168,6 +176,119 @@ def roi_align_rotated_pyramid_reference(feats: Sequence[torch.Tensor], rois,
     return out
 
 
+def _merged_bins(o, wt, w: int):
+    """K1's corner merging on the bins of one level: o / wt [..., S*S, 4]
+    (pixel y * w + x, -1 for a dead sample; weight) -> (whether the bin's
+    live corners fit a 3 x 3 window, the window's 9 entries: pixel, -1
+    where the added weight is 0, and weight). A sample's weights are
+    added corner by corner into the window, then the samples' sums
+    pairwise, ((s0 + s1) + (s2 + s3)), as the kernel's shuffles add
+    them."""
+    live = o[..., 0] >= 0
+    y, x = torch.div(o, w, rounding_mode="floor"), o % w
+    big = torch.iinfo(torch.int64).max // 4
+    y0 = torch.where(live, y[..., 0], big).min(-1).values
+    x0 = torch.where(live, x[..., 0], big).min(-1).values
+    y1 = torch.where(live, y[..., 3], -big).max(-1).values
+    x1 = torch.where(live, x[..., 3], -big).max(-1).values
+    fits = live.any(-1) & (y1 - y0 < 3) & (x1 - x0 < 3)
+    slot = (y - y0[..., None, None]) * 3 + x - x0[..., None, None]
+    part = torch.zeros(*o.shape[:-1], 9, device=o.device)   # per sample
+    for k in range(4):
+        hit = live[..., None] & (slot[..., k, None] == torch.arange(
+            9, device=o.device))
+        part = part + torch.where(hit, wt[..., k, None], 0.0)
+    while part.shape[-2] > 1:           # pairwise, as the shuffles add
+        part = part[..., 0::2, :] + part[..., 1::2, :]
+    w9 = part[..., 0, :]
+    e = torch.arange(9, device=o.device)
+    pix = (y0[..., None] + e // 3) * w + x0[..., None] + e % 3
+    return fits, torch.where(w9 != 0, pix, -1), w9
+
+
+def k1_row_tables(feats: Sequence[torch.Tensor], rois, output_size: int = 7,
+                  strides=(4, 8, 16, 32), sampling_ratio: int = 2,
+                  finest_scale: float = 56.0):
+    """The corner tables of K1's row design, one per (roi, row of bins):
+    (level [R]; pixel y * w + x within the roi's image on its level
+    [R, P, P, 4 * S * S], -1 where nothing is loaded; weight, f32; the
+    entries a bin adds [R, P, P]), bins along dim 2. A bin holds its
+    samples (iy, ix) corner by corner in the order K1 adds them (a dead
+    sample: pixel -1, weight 0), worked out by ``_corners``, the plain
+    forward's arithmetic; at S = 2 a bin whose live corners fit a 3 x 3
+    pixel window holds that window instead (``_merged_bins``): 9
+    entries, then -1."""
+    p, s = output_size, sampling_ratio
+    feats = list(feats)[:len(strides)]
+    rois = rois.float()
+    r = rois.shape[0]
+    ss = s * s
+    lvl = map_roi_levels(rois[:, 3], rois[:, 4], len(strides), finest_scale)
+    pix = torch.full((r, p, p, 4 * ss), -1, dtype=torch.int64,
+                     device=rois.device)
+    wts = torch.zeros(r, p, p, 4 * ss, device=rois.device)
+    count = torch.full((r, p, p), 4 * ss, dtype=torch.int64,
+                       device=rois.device)
+    for i, (feat, stride) in enumerate(zip(feats, strides)):
+        idx = torch.nonzero(lvl == i).flatten()
+        if idx.numel() == 0:
+            continue
+        live, o, wt = _corners(rois[idx], feat.shape[1], feat.shape[2],
+                               float(stride), p, s)
+        o = torch.where(live[..., None], o, -1)
+        wt = torch.where(live[..., None], wt, 0.0)
+        # [k, Gy, Gx, 4] -> [k, py, iy, px, ix, 4] -> [k, py, px, iy, ix, 4]
+        o = o.reshape(-1, p, s, p, s, 4).permute(0, 1, 3, 2, 4, 5) \
+            .reshape(-1, p, p, ss, 4)
+        wt = wt.reshape(-1, p, s, p, s, 4).permute(0, 1, 3, 2, 4, 5) \
+            .reshape(-1, p, p, ss, 4)
+        merge = 4 * ss > 9
+        if merge:
+            fits, mpix, mw = _merged_bins(o, wt, feat.shape[2])
+        o, wt = o.reshape(-1, p, p, 4 * ss), wt.reshape(-1, p, p, 4 * ss)
+        if merge:
+            tail = 4 * ss - 9
+            mpix = torch.cat([mpix, torch.full_like(o[..., :tail], -1)], -1)
+            mw = torch.cat([mw, torch.zeros_like(wt[..., :tail])], -1)
+            o = torch.where(fits[..., None], mpix, o)
+            wt = torch.where(fits[..., None], mw, wt)
+            count[idx] = torch.where(fits, 9, 4 * ss)
+        pix[idx], wts[idx] = o, wt
+    return lvl, pix, wts, count
+
+
+def roi_align_rotated_pyramid_rows_reference(
+        feats: Sequence[torch.Tensor], rois, output_size: int = 7,
+        strides=(4, 8, 16, 32), sampling_ratio: int = 2,
+        finest_scale: float = 56.0):
+    """Plain version of K1's row design: ``k1_row_tables``, then per bin
+    its entries added one after the other in f32 (an entry with pixel -1
+    adds nothing), times 1 / S^2, one rounding to the features' dtype."""
+    p, s = output_size, sampling_ratio
+    feats = list(feats)[:len(strides)]
+    c = feats[0].shape[-1]
+    rois = rois.float()
+    lvl, pix, wts, _ = k1_row_tables(feats, rois, p, strides, s,
+                                     finest_scale)
+    b = rois[:, 0].long()
+    out = torch.zeros(rois.shape[0], p, p, c, device=rois.device)
+    for i, feat in enumerate(feats):
+        sel = lvl == i
+        if not sel.any():
+            continue
+        n, h, w = feat.shape[:3]
+        flat = feat.reshape(-1, c).float()
+        base = (torch.clamp(b[sel], 0, n - 1) * h * w)[:, None, None]
+        acc = torch.zeros(int(sel.sum()), p, p, c, device=rois.device)
+        for j in range(pix.shape[-1]):
+            o = pix[sel][..., j]
+            val = flat[torch.clamp(base + o, min=0)]
+            acc = acc + wts[sel][..., j, None] * torch.where(
+                (o >= 0)[..., None], val, 0.0)
+        out[sel] = acc
+    return (out * (1.0 / (s * s))).to(feats[0].dtype)
+
+
 def _requires_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -211,43 +332,165 @@ def _check_rois(rois, device):
                          f"{tuple(rois.shape)} on {rois.device}")
 
 
-def roi_align_rotated_pyramid_cuda(feats: Sequence[torch.Tensor], rois,
-                                   output_size: int = 7,
-                                   strides=(4, 8, 16, 32),
-                                   sampling_ratio: int = 2,
-                                   finest_scale: float = 56.0):
-    """Launch K1 on CUDA tensors (f32 or bf16 features). Raises when
-    grad mode is on and an input requires a gradient: autograd does not
-    see this launch, so a result from it would be cut off from the graph
-    (``roi_align_rotated_pyramid`` is the differentiable entry point)."""
+# the row design of K1: warps per block, samples per bin side it is built for
+K1_ROW_WARPS = 8
+K1_ROW_SAMPLES = (1, 2)
+# shared memory a block may take without opting in
+K1_SMEM_LIMIT = 48 * 1024
+# rois from which the row design takes them bucket by bucket (level, image,
+# cell of K1_CELL x K1_CELL pixels of the level; ``k1_buckets``): warps that
+# run together then read neighbouring pixels. One block orders them, with a
+# counter per bucket, 32 warp totals and each roi's bucket in shared memory
+# (4 bytes each).
+K1_SORT_MIN = 8192
+K1_CELL = 16
+
+
+def k1_bucket_count(n: int, sizes) -> int:
+    """Buckets of K1's order over ``n`` images with levels of ``sizes``
+    [(h, w), ...] pixels."""
+    return sum(n * -(-h // K1_CELL) * -(-w // K1_CELL) for h, w in sizes)
+
+
+def k1_buckets(feats: Sequence[torch.Tensor], rois, strides=(4, 8, 16, 32),
+               finest_scale: float = 56.0):
+    """Plain version of the bucket of each roi in K1's order: level (by
+    ``map_roi_levels``), clamped batch index, then the cell of K1_CELL x
+    K1_CELL pixels of the level that holds the centre (clamped to the
+    level), cells row by row; returns (bucket [R], bucket count)."""
+    feats = list(feats)[:len(strides)]
+    rois = rois.float()
+    n = feats[0].shape[0]
+    lvl = map_roi_levels(rois[:, 3], rois[:, 4], len(strides), finest_scale)
+    b = torch.clamp(rois[:, 0].long(), 0, n - 1)
+    out = torch.zeros(rois.shape[0], dtype=torch.int64, device=rois.device)
+    base = 0
+    for i, (f, stride) in enumerate(zip(feats, strides)):
+        cy, cx = -(-f.shape[1] // K1_CELL), -(-f.shape[2] // K1_CELL)
+        inv = 1.0 / torch.tensor(float(stride) * K1_CELL,
+                                 device=rois.device)
+        x = torch.clamp(torch.floor(rois[:, 1] * inv).long(), 0, cx - 1)
+        y = torch.clamp(torch.floor(rois[:, 2] * inv).long(), 0, cy - 1)
+        out = torch.where(lvl == i, base + (b * cy + y) * cx + x, out)
+        base += n * cy * cx
+    return out, base
+
+
+def k1_plan(c: int, dtype, output_size: int = 7, sampling_ratio: int = 2,
+            rois: int = 1, aligned: bool = True, buckets: int = 0):
+    """How K1 runs ``rois`` rois at width ``c`` in ``dtype``, mirrored
+    from the launchers in ``csrc/``: ``"rows"`` (one 16-byte vector of
+    channels per lane, C a multiple of it and the levels 16-byte aligned,
+    S in ``K1_ROW_SAMPLES``): ``vec``, ``warps`` per block, the corner
+    table's shared memory ``smem``, ``blocks`` (one warp per row of bins)
+    and ``sort`` (the rois taken bucket by bucket, from ``K1_SORT_MIN``
+    rois, where the order kernel's shared memory for ``buckets`` and the
+    rois fits the H100's); ``"first"`` otherwise: ``vec`` (1 or 16 bytes) and one block
+    per roi. Raises for what no design takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"roi_align kernel takes float32 or bfloat16 "
+                        f"features, not {dtype}")
+    p, s = output_size, sampling_ratio
+    if c < 1 or p < 1 or s < 1 or rois < 0:
+        raise ValueError(f"roi_align kernel: C={c}, output_size={p}, "
+                         f"sampling_ratio={s}, {rois} rois")
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    if c % vec or not aligned:
+        vec = 1
+    smem = K1_ROW_WARPS * p * (s * s * 4 * 8 + 4)
+    if vec > 1 and s in K1_ROW_SAMPLES and smem <= K1_SMEM_LIMIT \
+            and rois * p < 2 ** 31:
+        return dict(design="rows", vec=vec, warps=K1_ROW_WARPS, smem=smem,
+                    blocks=-(-rois * p // K1_ROW_WARPS),
+                    sort=rois >= K1_SORT_MIN
+                    and (buckets + 32 + rois) * 4 <= H100_SMEM)
+    return dict(design="first", vec=vec, blocks=rois)
+
+
+def _k1_order(lib, feats, n, hw, ss, rois, finest_scale, stream):
+    """The order in which K1's row design takes the rois (int64 roi
+    indices, bucket by bucket; one kernel)."""
+    order = torch.empty(rois.shape[0], dtype=torch.int64,
+                        device=rois.device)
+    err = lib.rs_roi_align_rows_order(len(feats), n, *hw, *ss,
+                                      rois.data_ptr(), rois.shape[0],
+                                      float(finest_scale), order.data_ptr(),
+                                      stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align order kernel launch failed: CUDA "
+                           f"error {err}")
+    return order
+
+
+def _k1_launch(feats, rois, output_size, strides, sampling_ratio,
+               finest_scale, first: bool):
+    """Check the operands and launch K1's design (the plan's, or the
+    first with ``first``); returns the output."""
     feats, n, c, hw, ss = _check_pyramid(feats, strides)
-    if _requires_grad(rois, *feats):
-        raise RuntimeError("roi_align_rotated_pyramid_cuda: an input requires "
-                           "a gradient; call roi_align_rotated_pyramid, whose "
-                           "backward is the K3 kernel")
     f0 = feats[0]
     _check_rois(rois, f0.device)
     p, s = output_size, sampling_ratio
     r = rois.shape[0]
+    plan = k1_plan(c, f0.dtype, p, s, r,
+                   not any(f.data_ptr() % 16 for f in feats),
+                   k1_bucket_count(n, [f.shape[1:3] for f in feats]))
     out = torch.empty(r, p, p, c, dtype=f0.dtype, device=f0.device)
-    vec = 16 // f0.element_size()
-    if c % vec or any(f.data_ptr() % 16 for f in feats):
-        vec = 1
     ptrs = [f.data_ptr() for f in feats] + [None] * (4 - len(feats))
     lib = kernel_library()
+    rows = not first and plan["design"] == "rows"
     with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        roi_align_rotated_pyramid_cuda.launches += 1
-        err = lib.rs_roi_align_rotated_pyramid_fwd(
-            *ptrs, len(feats), n, c, *hw, *ss, rois.data_ptr(), r, p, s,
-            float(finest_scale), out.data_ptr(), _DTYPE_CODE[f0.dtype], vec,
-            stream)
+        order = _k1_order(lib, feats, n, hw, ss, rois, finest_scale, stream) \
+            if rows and plan["sort"] else None
+        if not first:
+            roi_align_rotated_pyramid_cuda.launches += 1
+        if rows:
+            err = lib.rs_roi_align_rotated_pyramid_fwd_rows(
+                *ptrs, len(feats), n, c, *hw, *ss, rois.data_ptr(),
+                None if order is None else order.data_ptr(), r, p, s,
+                float(finest_scale), out.data_ptr(), _DTYPE_CODE[f0.dtype],
+                plan["vec"], stream)
+        else:
+            err = lib.rs_roi_align_rotated_pyramid_fwd(
+                *ptrs, len(feats), n, c, *hw, *ss, rois.data_ptr(), r, p, s,
+                float(finest_scale), out.data_ptr(), _DTYPE_CODE[f0.dtype],
+                plan["vec"], stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {err}")
     return out
 
 
+def roi_align_rotated_pyramid_cuda(feats: Sequence[torch.Tensor], rois,
+                                   output_size: int = 7,
+                                   strides=(4, 8, 16, 32),
+                                   sampling_ratio: int = 2,
+                                   finest_scale: float = 56.0):
+    """Launch K1 on CUDA tensors (f32 or bf16 features), the design
+    ``k1_plan`` picks. Raises when grad mode is on and an input requires
+    a gradient: autograd does not see this launch, so a result from it
+    would be cut off from the graph (``roi_align_rotated_pyramid`` is the
+    differentiable entry point)."""
+    if _requires_grad(rois, *feats):
+        raise RuntimeError("roi_align_rotated_pyramid_cuda: an input requires "
+                           "a gradient; call roi_align_rotated_pyramid, whose "
+                           "backward is the K3 kernel")
+    return _k1_launch(feats, rois, output_size, strides, sampling_ratio,
+                      finest_scale, first=False)
+
+
 roi_align_rotated_pyramid_cuda.launches = 0
+
+
+def roi_align_rotated_pyramid_first_design(feats: Sequence[torch.Tensor],
+                                           rois, output_size: int = 7,
+                                           strides=(4, 8, 16, 32),
+                                           sampling_ratio: int = 2,
+                                           finest_scale: float = 56.0):
+    """``roi_align_rotated_pyramid_cuda``'s operands through K1's first
+    design (one block per roi, one warp per bin) whatever ``k1_plan``
+    picks: for timing the two designs side by side. Not counted."""
+    return _k1_launch(feats, rois, output_size, strides, sampling_ratio,
+                      finest_scale, first=True)
 
 
 def k3_vec(c: int, dtype, aligned: bool = True) -> int:

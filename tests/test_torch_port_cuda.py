@@ -11,7 +11,8 @@ width, partial hidden chunks, every kernel size and dilation in both
 memory formats, launch plans mirrored in Python, K2q's weight
 preparation against ``qweight``; K3's gather design bit for bit across
 launches and on clustered rois, K5's streaming design at ragged shapes
-with and without bias), the rule that a kernel
+with and without bias; K1's row design and the row-streaming design of
+K7's form at ragged shapes, beside their first designs), the rule that a kernel
 wrapper never hands autograd a detached result, and the tiny config's
 predict (fused and not, int8 and not) and training step, CUDA against
 CPU."""
@@ -33,6 +34,8 @@ from rs_detection_tpu_torch.ops.roi_align import (
     roi_align_rotated_pyramid_bwd_reference,
     roi_align_rotated_pyramid_bwd_sorted_reference,
     roi_align_rotated_pyramid_cuda, roi_align_rotated_pyramid_reference)
+from rs_detection_tpu_torch.ops import roi_align as _roi_align
+from rs_detection_tpu_torch.ops import dwconv as _dwconv
 from rs_detection_tpu_torch.ops.dwconv import (
     depthwise_conv2d, depthwise_conv2d_cuda, depthwise_conv2d_first_design,
     depthwise_conv2d_reference, dw_chw_cuda, dw_chw_reference, dw_plan)
@@ -876,7 +879,95 @@ def test_dw_plan_mirrors_the_launchers(dev, k, d, h, c, dtype, hcw):
     if plan["design"] == "stream":
         assert plan["smem"] == lib.rs_dw_conv_fwd_stream_smem_bytes(
             k, d, plan["groups"])
+    elif plan["design"] == "chw":   # K7's form: no shared memory
+        assert plan["smem"] == 0 and hcw
     else:
         assert plan["smem"] == lib.rs_dw_conv_fwd_smem_bytes(
             k, plan["rows"], d, code, int(hcw))
     assert lib.rs_dw_conv_fwd_stream_smem_bytes(3, 1, 8) == 0
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 256),
+                                     (torch.bfloat16, 40),
+                                     (torch.float32, 32),
+                                     (torch.bfloat16, 512)])
+def test_roi_align_row_design_matches_plain(dev, dtype, c):
+    """K1's row design (a warp per row of bins, 16-byte vectors; C = 40:
+    five vectors, the other lanes idle; C = 512: two vectors a lane)
+    against the plain forward and against its first design, one count
+    per launch, the same bits over two launches."""
+    feats, rois = _pyramid(dev, dtype, c, seed=31)
+    assert _roi_align.k1_plan(c, dtype, rois=rois.shape[0])["design"] \
+        == "rows"
+    before = roi_align_rotated_pyramid_cuda.launches
+    got = roi_align_rotated_pyramid_cuda(feats, rois)
+    again = roi_align_rotated_pyramid_cuda(feats, rois)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, roi_align_rotated_pyramid_reference(feats, rois),
+                  dtype)
+    first = _roi_align.roi_align_rotated_pyramid_first_design(feats, rois)
+    assert roi_align_rotated_pyramid_cuda.launches == before + 2
+    _assert_close(got, first, dtype)
+
+
+def test_k1_plan_mirrors_the_launcher(dev):
+    lib = kernel_library()
+    for p, s in ((7, 2), (7, 1), (14, 2)):
+        plan = _roi_align.k1_plan(256, torch.bfloat16, p, s, rois=10)
+        assert plan["smem"] == lib.rs_roi_align_rows_smem_bytes(p, s)
+    for n, sizes in ((8, [(256, 256), (128, 128), (64, 64), (32, 32)]),
+                     (2, [(37, 45), (19, 23)])):
+        hw = [v for hw_ in sizes for v in hw_] + [1] * (8 - 2 * len(sizes))
+        assert _roi_align.k1_bucket_count(n, sizes) \
+            == lib.rs_roi_align_rows_buckets(len(sizes), n, *hw)
+
+
+def test_k1_order_kernel_takes_the_rois_bucket_by_bucket(dev):
+    """The order kernel's output is a permutation of the rois whose plain
+    buckets (``k1_buckets``) never decrease; with it the row design gives
+    the same bits as with the rois as given."""
+    feats, rois = _pyramid(dev, torch.bfloat16, 256, seed=33, r=9000)
+    lib = kernel_library()
+    hw = [v for f in feats for v in f.shape[1:3]]
+    order = _roi_align._k1_order(lib, feats, 2, hw, [4.0, 8.0, 16.0, 32.0],
+                                 rois, 56.0,
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(order.sort().values,
+                       torch.arange(9000, device=dev))
+    bucket, _ = _roi_align.k1_buckets(feats, rois)
+    assert (bucket[order].diff() >= 0).all()
+    assert _roi_align.k1_plan(256, torch.bfloat16, rois=9000)["sort"]
+    got = roi_align_rotated_pyramid_cuda(feats, rois)
+    rows = [roi_align_rotated_pyramid_cuda(feats, rois[i:i + 1000])
+            for i in range(0, 9000, 1000)]   # fewer than K1_SORT_MIN each
+    assert torch.equal(got, torch.cat(rows))
+
+
+@pytest.mark.parametrize("k,d", [(3, 1), (5, 1), (7, 3), (5, 2)])
+@pytest.mark.parametrize("shape", [(2, 37, 64, 200), (1, 40, 64, 264),
+                                   (2, 19, 72, 256), (1, 256, 64, 256)])
+def test_dw_chw_row_design_matches_plain(dev, k, d, shape):
+    """The row-streaming design of K7's form against ``F.conv2d`` (f32
+    tap sums, one rounding on both sides: one bf16 ulp of the largest
+    value): W short of a strip, W = 264 (a second strip), C = 72, H = 37
+    and 19, the prototype's H and W; the first design beside it."""
+    n, h, c, w = shape
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    wts = (torch.randn(c, k * k, generator=g, device=dev) / k) \
+        .to(torch.bfloat16)
+    assert dw_plan(k, d, h, w, c, torch.bfloat16, n=n, hcw=True)["design"] \
+        == "chw"
+    before = dw_chw_cuda.launches
+    got = dw_chw_cuda(x, wts, k, d)
+    torch.cuda.synchronize()
+    assert dw_chw_cuda.launches == before + 1
+    ref = dw_chw_reference(x, wts, k, d)
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+    first = _dwconv.dw_chw_first_design(x, wts, k, d)
+    assert dw_chw_cuda.launches == before + 1
+    assert (first.float() - ref.float()).abs().max().item() <= 1e-2 * scale

@@ -143,7 +143,7 @@ def test_dw_plan_of_each_attention_shape_streams(k, d, h, c):
 @pytest.mark.parametrize("k,d,c,dtype,hcw,aligned", [
     (3, 1, 512, torch.bfloat16, False, True),     # the MLP's dw3
     (7, 3, 64, torch.float32, False, True),
-    (7, 3, 64, torch.bfloat16, True, True),       # K7's layout
+    (7, 3, 64, torch.float32, True, True),        # K7's layout in f32
     (5, 1, 36, torch.bfloat16, False, True),      # C not a multiple of 8
     (5, 1, 64, torch.bfloat16, False, False),     # x not 16-byte aligned
     (5, 2, 64, torch.bfloat16, False, True),      # no build for (5, 2)
