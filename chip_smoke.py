@@ -88,10 +88,27 @@ Phases, each of which raises (exit code 1) on failure:
  20. the fused int8 serving path (3 requests): K4 38, the residual form
      of K2q 38, K5's kernel 76, K1 once, K2, K2r and K2q's plain form
      never
+ 21. the runner on the tiny config: a config file (the tiny model as
+     ``type=`` dicts, an ``ImageDataset`` over 2 seeded 256^2 tiles,
+     ``flip_test``) served by ``Runner(device="cuda").test()`` and
+     ``Runner(device="cpu").test()`` from one seed; dense outputs CUDA
+     against CPU within phase 5's tolerances, and the CUDA pickle merged
+     a second time into identical after-NMS files
+ 22. the test task at full width: ``run_net --task test`` (its ``main``,
+     in this process) on a config that builds on
+     ``configs/orcnn_van3_fair1m_1_5.py`` (VAN-b3 in bf16, seeded random
+     weights, flip-TTA) over 8 seeded uint8 1024^2 PNG tiles of 2 scenes
+     x 4 offsets: checks the results pickle (32 entries, finite), the
+     after-NMS files and the FAIR1M-1.5 CSV (rows, fewer than went in)
+     and that the 32 forwards launched K2 38 times and K1 once each;
+     prints tiles/s of inference, the merge's seconds and the detections
+     in and out, then where they go (host data against ``predict`` per
+     tile, the merge's stages)
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one; K1's and K3's time on the step-like rois, K1's on a serving
-request's, K5's in a CUDA graph), the
+request's, K5's in a CUDA graph; K1's and K2's launches in phase 22's
+test task), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -103,6 +120,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -154,6 +172,10 @@ INT8_SHARE = 0.03
 # FLOP/s, dense int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_INT8, PEAK_F32 = 3.35e12, 989e12, 1979e12, 67e12
 INT8_REQUESTS_FUSED = 3  # timed requests of the fused int8 serving path
+# phase 22: 2 scenes of 4 tiles each, at the offsets of a 1024 / 200-overlap
+# split of a 1848^2 scene (name__rate__x___y, as the devkits' split writes)
+SCENE_OFFSETS = [(0, 0), (824, 0), (0, 824), (824, 824)]
+FLIPS = 4  # flip-TTA: none, H, V, HV
 DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
     + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
     + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
@@ -1301,6 +1323,218 @@ def phase_train(torch, build_flagship, make_targets, normalize, train_mod,
     return launches
 
 
+def write_tiles(tiles_dir, names, size, seed):
+    """Seeded uint8 RGB tiles as PNG files."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(tiles_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for name in names:
+        Image.fromarray(rng.randint(0, 256, (size, size, 3)).astype(
+            np.uint8)).save(os.path.join(tiles_dir, name))
+
+
+def write_config(path, **entries):
+    """A ``.py`` config file of ``name = value`` lines."""
+    with open(path, "w") as f:
+        for k, v in entries.items():
+            f.write(f"{k} = {v!r}\n")
+    return path
+
+
+def read_rows(paths):
+    rows = 0
+    for p in paths:
+        with open(p) as f:
+            rows += sum(1 for line in f if line.strip())
+    return rows
+
+
+def phase_runner_tiny(torch, dev, tmp):
+    """The tiny config through the runner, CUDA (kernels) against the CPU
+    (plain versions)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.config import get_cfg, init_cfg, update_cfg
+    from rs_detection_tpu_torch.data.devkits.data_merge import \
+        data_merge_result
+    from rs_detection_tpu_torch.flagship import (PIXEL_MEAN, PIXEL_STD,
+                                                 flagship_cfg)
+    from rs_detection_tpu_torch.runner import Runner
+
+    tiles = os.path.join(tmp, "tiny_tiles")
+    write_tiles(tiles, ["S0__1.0__0___0.png", "S0__1.0__200___0.png"], 256,
+                21)
+    cfg = write_config(
+        os.path.join(tmp, "tiny_runner.py"), seed=5, flip_test=True,
+        model=flagship_cfg(tiny=True),
+        dataset=dict(test=dict(
+            type="ImageDataset", images_dir=tiles, dataset_type="FAIR1M_1_5",
+            batch_size=1, transforms=[
+                dict(type="RotatedResize", min_size=256, max_size=256),
+                dict(type="Pad", size_divisor=32),
+                dict(type="Normalize", mean=list(PIXEL_MEAN),
+                     std=list(PIXEL_STD), to_bgr=False)])),
+        optimizer=dict(type="AdamW", lr=1e-4, weight_decay=0.05),
+        merge_cfg=dict(dataset_type="FAIR1M_1_5"))
+    runners, cwd = {}, os.getcwd()
+    try:
+        for name, device in (("cuda", dev), ("cpu", "cpu")):
+            init_cfg(cfg)
+            update_cfg({"work_dir": os.path.join(tmp, name, "work")})
+            os.makedirs(os.path.join(tmp, name))
+            os.chdir(os.path.join(tmp, name))
+            runners[name] = Runner(device=device)
+            runners[name].test(flip_test=bool(get_cfg().flip_test))
+        err = {"polys": 0.0, "scores": 0.0}
+        for mode in (None, "H", "V", "HV"):
+            for images, targets, _ in runners["cpu"].test_dataset.batches(
+                    mode):
+                got = runners["cuda"].predict(images, targets)
+                ref = runners["cpu"].predict(images, targets)
+                if not (got["valid"] == ref["valid"]).all():
+                    raise AssertionError(f"tiny runner, flip {mode}: valid "
+                                         f"masks differ")
+                for key in err:
+                    err[key] = max(err[key], float(
+                        np.abs(got[key] - ref[key]).max()))
+        for key, atol in (("polys", 1e-2), ("scores", 1e-5)):
+            log(f"  tiny runner test, CUDA vs CPU, 2 tiles x 4 flips, {key}: "
+                f"max_abs_err {err[key]:.3e} (atol {atol})")
+            if not err[key] <= atol:
+                raise AssertionError(f"tiny runner: {key} differ by "
+                                     f"{err[key]}")
+        pkl = os.path.join(tmp, "cuda", "work", "test", "test_0.pkl")
+        again = os.path.join(tmp, "merge_again")
+        os.makedirs(again)
+        os.chdir(again)
+        data_merge_result(pkl, again, 0, "tiny_runner",
+                          dataset_type="FAIR1M_1_5")
+    finally:
+        os.chdir(cwd)
+    a = os.path.join(tmp, "cuda", "work", "test", "submit_0", "after_nms")
+    b = os.path.join(again, "test", "submit_0", "after_nms")
+    names = sorted(os.listdir(a))
+    same = names == sorted(os.listdir(b)) and all(
+        open(os.path.join(a, n), "rb").read()
+        == open(os.path.join(b, n), "rb").read() for n in names)
+    log(f"  the CUDA pickle merged twice: {len(names)} after-NMS files, "
+        f"{read_rows(os.path.join(a, n) for n in names)} rows, identical: "
+        f"{same}")
+    if not same or not names:
+        raise AssertionError("tiny runner: merges of one pickle differ")
+
+
+def phase_run_net(torch, tmp, kernels, card):
+    """``run_net --task test`` at full width, the wrappers' launches
+    counted over the whole task; returns them."""
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.tools import run_net
+
+    tiles = os.path.join(tmp, "tiles")
+    names = [f"S{k}__1.0__{x}___{y}.png" for k in range(2)
+             for x, y in SCENE_OFFSETS]
+    write_tiles(tiles, names, TILE, 22)
+    base = os.path.join(ROOT, "configs", "orcnn_van3_fair1m_1_5.py")
+    work = os.path.join(tmp, "work")
+    cfg = write_config(
+        os.path.join(tmp, "orcnn_van3_fair1m_1_5_chip.py"), _base_=base,
+        model=dict(compute_dtype="bfloat16"),
+        dataset=dict(test=dict(images_dir=tiles)), allow_random_init=True,
+        merge_cfg=dict(dataset_type="FAIR1M_1_5"), work_dir=work)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        runner = run_net.main(["--config-file", cfg, "--task", "test"])
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    stats = runner.test_stats
+    forwards = len(names) * FLIPS
+    n_blocks = sum(st[3] for st in STAGES)
+    want = dict.fromkeys(kernels, 0)
+    want.update(van_mlp=n_blocks * forwards,
+                roi_align_rotated_pyramid=forwards)
+    if launches != want:
+        raise AssertionError(f"test task kernel launches {launches}, "
+                             f"expected {want}")
+    with open(os.path.join(work, "test", "test_0.pkl"), "rb") as f:
+        results = pickle.load(f)
+    if len(results) != forwards or stats["tiles"] != forwards:
+        raise AssertionError(f"test task: {len(results)} results for "
+                             f"{forwards} forwards")
+    n_in = 0
+    for (polys, scores, labels), meta in results:
+        if not (np.isfinite(polys).all() and np.isfinite(scores).all()
+                and polys.shape == (len(scores), 8)
+                and ((labels >= 1) & (labels <= 10)).all()):
+            raise AssertionError(f"test task: bad detections for {meta}")
+        n_in += len(scores)
+    after = os.path.join(work, "test", "submit_0", "after_nms")
+    n_out = read_rows(os.path.join(after, n) for n in os.listdir(after))
+    csv = os.path.join(tmp, "submit_zips", "orcnn_van3_fair1m_1_5_chip.csv")
+    n_csv = read_rows([csv])
+    if not (0 < n_out == n_csv < n_in) or n_in != stats["detections"]:
+        raise AssertionError(f"test task: {n_in} detections in, {n_out} "
+                             f"after NMS, {n_csv} CSV rows")
+    log(f"  run_net --task test, VAN-b3 Oriented R-CNN bf16 from "
+        f"configs/orcnn_van3_fair1m_1_5.py: {len(names)} tiles of "
+        f"{TILE}^2 x {FLIPS} flips = {forwards} forwards at batch 1 in "
+        f"{stats['inference_s']:.3f} s = {forwards / stats['inference_s']:.2f}"
+        f" tiles/s of inference (decode, transforms, H2D, predict, "
+        f"threshold); merge {stats['merge_s']:.3f} s; detections {n_in} in, "
+        f"{n_out} out after NMS ({len(os.listdir(after))} class files, "
+        f"{n_csv} CSV rows); whole task {wall:.1f} s [{card}]")
+    log(f"  launches in the test task: {launches}")
+    phase_run_net_breakdown(runner, work, tmp, card)
+    return launches
+
+
+def phase_run_net_breakdown(runner, work, tmp, card):
+    """Where the test task's seconds go: one unflipped pass over the
+    tiles with the host data (decode, transforms, collate) and ``predict``
+    timed apart, then the merge's stages on the task's pickle."""
+    from rs_detection_tpu_torch.config import get_classes_by_name
+    from rs_detection_tpu_torch.data.devkits.data_merge import prepare_data
+    from rs_detection_tpu_torch.data.devkits.result_merge import mergebypoly
+
+    t0 = time.perf_counter()
+    batches = list(runner.test_dataset.batches())
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [runner.predict(images, targets) for images, targets, _ in batches]
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for out, (_, _, metas) in zip(outs, batches):
+        runner.postprocess_dense(out, metas)
+    t_post = time.perf_counter() - t0
+    n = len(batches)
+    log(f"  test task per tile (one unflipped pass, {n} tiles): host data "
+        f"{1e3 * t_data / n:.1f} ms, predict (H2D, forward, D2H) "
+        f"{1e3 * t_pred / n:.1f} ms, threshold {1e3 * t_post / n:.1f} ms "
+        f"[{card}]")
+    pkl = os.path.join(work, "test", "test_0.pkl")
+    before = os.path.join(tmp, "breakdown", "before_nms")
+    after = os.path.join(tmp, "breakdown", "after_nms")
+    t0 = time.perf_counter()
+    prepare_data(pkl, before, get_classes_by_name("FAIR1M_1_5"))
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mergebypoly(before, after, nms_threshold_type=1)
+    t_nms = time.perf_counter() - t0
+    log(f"  merge stages: pickle -> per-class files {t_prep:.3f} s, "
+        f"mergebypoly (spawned class workers, native NMS) {t_nms:.3f} s, "
+        f"of the task's merge {runner.test_stats['merge_s']:.3f} s [{card}]")
+
+
 def main():
     import torch
 
@@ -1401,6 +1635,11 @@ def main():
         f"{mode} {t:.2f} tiles/s, request median {med:.1f} ms, peak "
         f"{peak:.2f} GiB" for mode, (t, peak, med) in modes.items())
         + f" [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[21] tiny config through the runner: CUDA vs CPU")
+        phase_runner_tiny(torch, dev, tmp)
+        log("[22] run_net --task test at full width")
+        test_launches = phase_run_net(torch, tmp, serving, card)
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -1415,11 +1654,13 @@ def main():
 
     kernels = [
         entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
-              launches["van_mlp"], k2),
+              launches["van_mlp"], k2,
+              test_task_launches=test_launches["van_mlp"]),
         entry("roi_align_rotated_pyramid", "roi_align_rotated_fwd.cu",
               jops + "pallas_roi_align.py:116",
               launches["roi_align_rotated_pyramid"], k1,
-              step_like_ms=k1_step_ms, serving_ms=k1_serving_ms),
+              step_like_ms=k1_step_ms, serving_ms=k1_serving_ms,
+              test_task_launches=test_launches["roi_align_rotated_pyramid"]),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,

@@ -14,17 +14,15 @@ assigners and samplers.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from .models.backbones.van import VAN
-from .models.necks.fpn import FPN
 from .models.networks.rcnn import OrientedRCNN
-from .models.roi_heads.oriented_head import OrientedHead
-from .models.roi_heads.oriented_rpn_head import OrientedRPNHead
+from .utils.registry import MODELS, build_from_cfg
 
 # on-device input normalization of the competition config (to_bgr=False)
 PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -42,6 +40,18 @@ HEAD_SAMPLER = dict(num=512, pos_fraction=0.25, add_gt_as_proposals=True)
 NUM_CLASSES = 10
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when None (an error where there is
+    none: the port runs on the card unless the caller asks for the
+    CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def normalize(images_u8):
     """uint8 NHWC tiles -> normalized f32 NHWC, on the tiles' device."""
     m = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=images_u8.device)
@@ -49,7 +59,7 @@ def normalize(images_u8):
     return (images_u8.float() - m) / s
 
 
-def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
+def init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
     """Seeded random init in the spirit of the flax initializers:
     He-normal (fan_out, truncated) convs, N(0, 0.01) RPN convs, Xavier
     shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases.
@@ -71,6 +81,35 @@ def _init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
         model.bbox_head.fc_reg.weight.normal_(0.0, 0.001, generator=g)
 
 
+def flagship_cfg(tiny: bool = False) -> dict:
+    """The flagship's model config section (``type=`` dicts, as a config
+    file writes it; a fresh copy the caller may change); ``tiny=True``
+    the cut-down form of the CPU tests."""
+    if tiny:
+        dims, depths, width, fc = [16, 32, 40, 64], [1, 1, 2, 1], 32, 64
+        nms_pre, nms_post, cap = 256, 64, 512
+    else:
+        dims, depths, width, fc = [64, 128, 320, 512], [3, 5, 27, 3], 256, 1024
+        nms_pre, nms_post, cap = 2000, 2000, 4096
+    return copy.deepcopy(dict(
+        type="OrientedRCNN",
+        backbone=dict(type="VAN", embed_dims=dims, mlp_ratios=[8, 8, 4, 4],
+                      depths=depths),
+        neck=dict(type="FPN", in_channels=dims, out_channels=width,
+                  num_outs=5),
+        rpn=dict(type="OrientedRPNHead", in_channels=width,
+                 feat_channels=width, anchor_generator=RPN_ANCHORS,
+                 nms_pre=nms_pre, nms_post=nms_post, pre_nms_cap=cap,
+                 assigner=RPN_ASSIGNER, sampler=RPN_SAMPLER),
+        bbox_head=dict(type="OrientedHead", num_classes=NUM_CLASSES,
+                       in_channels=width, fc_out_channels=fc,
+                       assigner=HEAD_ASSIGNER, sampler=HEAD_SAMPLER,
+                       bbox_roi_extractor=dict(
+                           roi_layer=dict(output_size=7, sampling_ratio=2),
+                           out_channels=width, extend_factor=(1.4, 1.2),
+                           featmap_strides=[4, 8, 16, 32]))))
+
+
 def build_flagship(tiny: bool = False, device=None,
                    dtype: torch.dtype = torch.float32,
                    generator: Optional[torch.Generator] = None,
@@ -90,34 +129,15 @@ def build_flagship(tiny: bool = False, device=None,
     parameters, and the activations are cast to ``dtype``. The weights
     are drawn on the CPU from ``generator`` (seed 0 if None), so one seed
     gives the same model on every device."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port runs on the card by "
-                               "default; pass device='cpu' to run on the CPU")
-        device = torch.device("cuda")
-    if tiny:
-        dims, depths, width, fc = (16, 32, 40, 64), (1, 1, 2, 1), 32, 64
-        nms_pre, nms_post, cap = 256, 64, 512
-    else:
-        dims, depths, width, fc = (64, 128, 320, 512), (3, 5, 27, 3), 256, 1024
-        nms_pre, nms_post, cap = 2000, 2000, 4096
-    model = OrientedRCNN(
-        backbone=VAN(embed_dims=dims, mlp_ratios=(8, 8, 4, 4), depths=depths,
-                     fused=fused, int8=int8),
-        neck=FPN(in_channels=dims, out_channels=width, num_outs=5,
-                 int8=int8),
-        rpn=OrientedRPNHead(in_channels=width, feat_channels=width,
-                            anchor_generator=RPN_ANCHORS, nms_pre=nms_pre,
-                            nms_post=nms_post, pre_nms_cap=cap,
-                            assigner=RPN_ASSIGNER, sampler=RPN_SAMPLER,
-                            int8=int8),
-        bbox_head=OrientedHead(num_classes=NUM_CLASSES, in_channels=width,
-                               fc_out_channels=fc, assigner=HEAD_ASSIGNER,
-                               sampler=HEAD_SAMPLER),
-        compute_dtype=dtype)
+    device = resolve_device(device)
+    cfg = flagship_cfg(tiny)
+    cfg["backbone"].update(fused=fused, int8=int8)
+    cfg["neck"]["int8"] = int8
+    cfg["rpn"]["int8"] = int8
+    model = build_from_cfg(dict(cfg, compute_dtype=dtype), MODELS)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    _init_weights(model, generator)
+    init_weights(model, generator)
     if train:
         return model.to(device=device).train()
     return model.to(device=device, dtype=dtype).eval()

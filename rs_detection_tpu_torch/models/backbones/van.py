@@ -47,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.van_attn import sa_core, van_attn
 from ...ops.van_mlp import (van_mlp, van_mlp_int8, van_mlp_reference,
                             van_mlp_residual, van_mlp_residual_int8)
+from ...utils.registry import BACKBONES
+from ..networks.compat import config_fields
 from ..utils.modules import (BatchNorm2d, DropPath, frozen_stats,
                              maybe_int8_conv2d)
 
@@ -195,14 +197,23 @@ class OverlapPatchEmbed(nn.Module):
             self.proj, x, self.int8 and not self.training))
 
 
+@BACKBONES.register_module()
 class VAN(nn.Module):
+    """``out_indices``: the stages whose outputs are returned;
+    ``remat``: recompute each block's forward in the backward when
+    training (as the JAX ``nn.remat``)."""
+
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  depths: Sequence[int] = (3, 5, 27, 3),
-                 drop_path_rate: float = 0.0, fused: bool = False,
+                 drop_path_rate: float = 0.0,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 remat: bool = True, fused: bool = False,
                  int8: bool = False):
         super().__init__()
         self.depths = tuple(depths)
+        self.out_indices = tuple(out_indices)
+        self.remat = remat
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         cin, cur = 3, 0
         for i, (dim, depth) in enumerate(zip(embed_dims, depths)):
@@ -217,10 +228,11 @@ class VAN(nn.Module):
             cin, cur = dim, cur + depth
 
     def forward(self, images):
-        """images: NHWC [B, H, W, 3] -> the 4 NHWC stage outputs."""
+        """images: NHWC [B, H, W, 3] -> the NHWC outputs of the stages in
+        ``out_indices``."""
         x = images.permute(0, 3, 1, 2)
         outs = []
-        remat = self.training and torch.is_grad_enabled()
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, depth in enumerate(self.depths):
             x = getattr(self, f"patch_embed{i + 1}")(x)
             for j in range(depth):
@@ -236,6 +248,36 @@ class VAN(nn.Module):
             y = F.layer_norm(x.permute(0, 2, 3, 1), norm.normalized_shape,
                              norm.weight.to(x.dtype), norm.bias.to(x.dtype),
                              norm.eps)
-            outs.append(y)
+            if i in self.out_indices:
+                outs.append(y)
             x = y.permute(0, 3, 1, 2)
         return tuple(outs)
+
+
+_VAN_ARCH = {
+    "van_b0": dict(embed_dims=(32, 64, 160, 256), mlp_ratios=(8, 8, 4, 4),
+                   depths=(3, 3, 5, 2)),
+    "van_b1": dict(embed_dims=(64, 128, 320, 512), mlp_ratios=(8, 8, 4, 4),
+                   depths=(2, 2, 4, 2)),
+    "van_b2": dict(embed_dims=(64, 128, 320, 512), mlp_ratios=(8, 8, 4, 4),
+                   depths=(3, 3, 12, 3)),
+    "van_b3": dict(embed_dims=(64, 128, 320, 512), mlp_ratios=(8, 8, 4, 4),
+                   depths=(3, 5, 27, 3)),
+}
+
+
+def _make_van(arch):
+    @BACKBONES.register_module(name=arch)
+    def ctor(pretrained=False, **kw):
+        """VAN of ``arch``. The configs pass timm's surface keys too
+        (img_size, num_stages, ...): only VAN's own arguments are kept,
+        and ``pretrained`` is the runner's business."""
+        cfg = dict(_VAN_ARCH[arch])
+        fields = config_fields(VAN)
+        cfg.update({k: v for k, v in kw.items() if k in fields})
+        return VAN(**cfg)
+    return ctor
+
+
+for _arch in _VAN_ARCH:
+    _make_van(_arch)

@@ -10,12 +10,15 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ...utils.registry import BOXES
+
 
 def _meshgrid(x: np.ndarray, y: np.ndarray):
     """Row-major: x varies fastest."""
     return np.tile(x, len(y)), np.repeat(y, len(x))
 
 
+@BOXES.register_module()
 class AnchorGenerator:
     """Scale-major anchors centred on the stride grid's corners (the
     mmdet-v2 defaults, the only ones the Oriented RPN configs use)."""

@@ -14,6 +14,7 @@ import torch
 
 from ...ops.nms import bbox_overlaps_hbb
 from ...ops.rotated_iou import box_iou_rotated
+from ...utils.registry import BOXES
 
 
 def assign_wrt_overlaps(overlaps, gt_mask, pos_iou_thr: float, neg_iou_thr,
@@ -58,6 +59,7 @@ def assign_wrt_overlaps(overlaps, gt_mask, pos_iou_thr: float, neg_iou_thr,
     return assigned, max_overlaps
 
 
+@BOXES.register_module()
 class MaxIoUAssigner:
     """Assigner built from a config dict (reference ``assigner.py``):
     hbb IoU, or rotated IoU when ``iou_calculator`` names a rotated one.

@@ -10,6 +10,7 @@ import math
 import torch
 
 from ...ops import box_ops as B
+from ...utils.registry import BOXES
 
 
 def _affine(deltas, means, stds, dim: int):
@@ -134,6 +135,7 @@ def oriented_delta_decode(rois, deltas, means, stds,
     return obb.reshape(deltas.shape) if k > 1 else obb[..., 0, :]
 
 
+@BOXES.register_module()
 class MidpointOffsetCoder:
     def __init__(self, target_means=(0.,) * 6, target_stds=(1.,) * 6):
         self.means = tuple(target_means)
@@ -148,6 +150,7 @@ class MidpointOffsetCoder:
                                       self.stds, wh_ratio_clip)
 
 
+@BOXES.register_module()
 class OrientedDeltaXYWHTCoder:
     def __init__(self, target_means=(0.,) * 5, target_stds=(1.,) * 5):
         self.means = tuple(target_means)

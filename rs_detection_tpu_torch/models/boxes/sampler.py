@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.registry import BOXES
+
 
 def random_choice_mask(mask, num_expected: int, generator):
     """Uniformly choose up to ``num_expected`` True entries along the
@@ -23,6 +25,7 @@ def random_choice_mask(mask, num_expected: int, generator):
     return torch.zeros_like(mask).scatter(-1, idx, True) & mask
 
 
+@BOXES.register_module()
 class RandomSampler:
     """Random balanced sampling (reference ``sampler.py:133-178``).
     ``add_gt_as_proposals`` is read by the caller, which puts the ground

@@ -6,25 +6,78 @@ detections)."""
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
+                               build_from_cfg)
+from ..backbones import van  # noqa: F401  (registers VAN, van_b0..van_b3)
+from ..necks.fpn import FPN
+from ..roi_heads.oriented_head import OrientedHead
+from ..roi_heads.oriented_rpn_head import OrientedRPNHead
+from .compat import normalize_cfg
 
+
+def _build(cfg, registry, default):
+    """A sub-module from its config section (normalized as in the JAX
+    package), ``default()`` when None, or the module itself."""
+    if cfg is None:
+        return default()
+    if isinstance(cfg, Mapping):
+        return build_from_cfg(normalize_cfg(cfg, registry), registry)
+    return cfg
+
+
+def _resnet50():
+    raise NotImplementedError("OrientedRCNN: a config without a backbone "
+                              "means ResNet-50, which is not ported yet "
+                              "(ROADMAP.md, item 10)")
+
+
+def _dtype(name):
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"OrientedRCNN: compute_dtype {name!r} is not a "
+                         f"floating dtype")
+    return dtype
+
+
+@MODELS.register_module()
 class OrientedRCNN(nn.Module):
-    def __init__(self, backbone: nn.Module, neck: nn.Module, rpn: nn.Module,
-                 bbox_head: nn.Module,
-                 compute_dtype: Optional[torch.dtype] = None):
-        """``compute_dtype``: the dtype the images are cast to, and so
-        the activations' (the JAX ``compute_dtype``); the parameters'
-        dtype when None."""
+    """The competition model. ``backbone``, ``neck``, ``rpn`` and
+    ``bbox_head`` are modules or their config sections (``type=`` dicts,
+    built through the registries; the JAX package's defaults when None,
+    but a missing backbone, ResNet-50 there, raises).
+    ``compute_dtype`` (a torch dtype or its name, e.g. "bfloat16"): the
+    dtype the images are cast to, and so the activations'; the
+    parameters' dtype when None. The legacy mmdet-v1 sections
+    (``rpn_head``, ``rbbox_head``, ...) are not ported and raise;
+    ``pretrained`` is read by the runner."""
+
+    def __init__(self, backbone=None, neck=None, rpn=None, bbox_head=None,
+                 compute_dtype=None, rpn_head=None, bbox_roi_extractor=None,
+                 rbbox_roi_extractor=None, rbbox_head=None, shared_head=None,
+                 train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
-        self.backbone = backbone
-        self.neck = neck
-        self.rpn = rpn
-        self.bbox_head = bbox_head
-        self.compute_dtype = compute_dtype
+        legacy = dict(rpn_head=rpn_head, bbox_roi_extractor=bbox_roi_extractor,
+                      rbbox_roi_extractor=rbbox_roi_extractor,
+                      rbbox_head=rbbox_head, shared_head=shared_head,
+                      train_cfg=train_cfg, test_cfg=test_cfg)
+        given = sorted(k for k, v in legacy.items() if v is not None)
+        if given:
+            raise NotImplementedError(
+                f"OrientedRCNN: the legacy config sections {given} are not "
+                f"ported yet (ROADMAP.md, item 10)")
+        self.backbone = _build(backbone, BACKBONES, _resnet50)
+        self.neck = _build(neck, NECKS, FPN)
+        self.rpn = _build(rpn, HEADS, OrientedRPNHead)
+        self.bbox_head = _build(bbox_head, HEADS, OrientedHead)
+        self.compute_dtype = _dtype(compute_dtype)
 
     def extract_feats(self, images):
         """images NHWC, cast to the compute dtype -> FPN levels, NHWC."""

@@ -9,19 +9,27 @@ from typing import Sequence
 import torch
 
 from ...ops.roi_align import roi_align_rotated_pyramid
+from ...utils.registry import ROI_EXTRACTORS
 
 
+@ROI_EXTRACTORS.register_module()
 class OrientedSingleRoIExtractor:
-    """7x7 bins of 2x2 samples over the strides 4-32 levels, routed by
-    ``finest_scale`` 56 (the values every Oriented R-CNN config uses)."""
+    """Rotated RoIAlign of ``roi_layer``'s ``output_size`` x
+    ``output_size`` bins of ``sampling_ratio`` x ``sampling_ratio``
+    samples, each roi on the level ``finest_scale`` routes it to, after
+    inflating it by ``extend_factor``. ``out_channels`` is recorded, as
+    in the JAX extractor, and not used."""
 
-    output_size = 7
-    sampling_ratio = 2
-    featmap_strides = (4, 8, 16, 32)
-    finest_scale = 56.0
-
-    def __init__(self, extend_factor=(1.0, 1.0)):
+    def __init__(self, roi_layer=None, out_channels: int = 256,
+                 featmap_strides: Sequence[int] = (4, 8, 16, 32),
+                 extend_factor=(1.0, 1.0), finest_scale: float = 56):
+        roi_layer = roi_layer or {}
+        self.output_size = roi_layer.get("output_size", 7)
+        self.sampling_ratio = max(int(roi_layer.get("sampling_ratio", 2)), 1)
+        self.out_channels = out_channels
+        self.featmap_strides = tuple(featmap_strides)
         self.extend_factor = tuple(extend_factor)
+        self.finest_scale = float(finest_scale)
 
     def __call__(self, feats: Sequence[torch.Tensor], rois):
         """feats: per-level NHWC; rois [R, 6] (b, cx, cy, w, h, theta).

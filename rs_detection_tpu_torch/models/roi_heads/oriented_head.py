@@ -9,50 +9,70 @@ merge)."""
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import top_k
+from ...utils.registry import HEADS
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coder import OrientedDeltaXYWHTCoder
 from ..boxes.sampler import RandomSampler
 from ..losses.common import smooth_l1_loss, softmax_cross_entropy
+from ..networks.compat import section_kwargs
 from ..roi_extractors.oriented_single_level import OrientedSingleRoIExtractor
 from ..utils.modules import linear
 
 
+@HEADS.register_module()
 class OrientedHead(nn.Module):
-    """``assigner`` and ``sampler``: ``MaxIoUAssigner`` and
-    ``RandomSampler`` kwargs, the JAX head's when None. The JAX head's
-    defaults that no config changes are constants here: 2 shared FCs,
-    class-agnostic regression, coder stds (0.1, 0.1, 0.2, 0.2, 0.1), the
-    extractor's 7x7 x 2x2 sampling over strides 4-32 with rois inflated
-    by (1.4, 1.2), and positive weight 1."""
+    """The JAX head's arguments with its defaults. ``assigner``,
+    ``sampler``, ``bbox_coder`` and ``bbox_roi_extractor``:
+    ``MaxIoUAssigner``, ``RandomSampler``, ``OrientedDeltaXYWHTCoder``
+    and ``OrientedSingleRoIExtractor`` kwargs (``type`` keys dropped, as
+    in the JAX head); the JAX head's defaults when None.
+    ``score_thresh`` is recorded and not used, as in the JAX head: the
+    runner's fixed 0.05 filters the detections. Regression per class
+    (``reg_class_agnostic=False``) is not ported."""
 
-    NUM_SHARED_FCS = 2
     REG_DIM = 5
-    ASSIGNER = dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5,
-                    match_low_quality=False,
-                    iou_calculator=dict(type="BboxOverlaps2D_rotated_v1"))
-    SAMPLER = dict(num=512, pos_fraction=0.25, add_gt_as_proposals=True)
 
-    def __init__(self, num_classes: int, in_channels: int,
-                 fc_out_channels: int = 1024, assigner: Optional[dict] = None,
-                 sampler: Optional[dict] = None):
+    def __init__(self, num_classes: int = 15, in_channels: int = 256,
+                 fc_out_channels: int = 1024, num_shared_fcs: int = 2,
+                 score_thresh: float = 0.05, reg_class_agnostic: bool = True,
+                 pos_weight: float = -1.0, assigner=None, sampler=None,
+                 bbox_coder=None, bbox_roi_extractor=None):
         super().__init__()
+        if not reg_class_agnostic:
+            raise NotImplementedError(
+                "OrientedHead: reg_class_agnostic=False (a regression per "
+                "class) is not ported; the port regresses one box per roi")
         self.num_classes = num_classes
-        self.assigner = MaxIoUAssigner(**(assigner or self.ASSIGNER))
-        self.sampler = RandomSampler(**(sampler or self.SAMPLER))
-        self.coder = OrientedDeltaXYWHTCoder(
-            target_stds=(0.1, 0.1, 0.2, 0.2, 0.1))
-        self.extractor = OrientedSingleRoIExtractor(extend_factor=(1.4, 1.2))
+        self.num_shared_fcs = num_shared_fcs
+        self.score_thresh = score_thresh
+        self.pos_weight = pos_weight
+        self.assigner = MaxIoUAssigner(**section_kwargs(
+            assigner, dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5,
+                           match_low_quality=False,
+                           iou_calculator=dict(
+                               type="BboxOverlaps2D_rotated_v1"))))
+        self.sampler = RandomSampler(**section_kwargs(
+            sampler, dict(num=512, pos_fraction=0.25,
+                          add_gt_as_proposals=True)))
+        self.coder = OrientedDeltaXYWHTCoder(**section_kwargs(
+            bbox_coder, dict(target_means=[0.0] * 5,
+                             target_stds=[0.1, 0.1, 0.2, 0.2, 0.1])))
+        ex = section_kwargs(bbox_roi_extractor, dict(
+            roi_layer=dict(output_size=7, sampling_ratio=2),
+            out_channels=256, extend_factor=(1.4, 1.2),
+            featmap_strides=[4, 8, 16, 32]))
+        if "roi_layer" in ex:
+            ex["roi_layer"] = section_kwargs(ex["roi_layer"], {})
+        self.extractor = OrientedSingleRoIExtractor(**ex)
         p = self.extractor.output_size
         cin = in_channels * p * p
-        for i in range(self.NUM_SHARED_FCS):
+        for i in range(num_shared_fcs):
             self.add_module(f"shared_fc{i}", nn.Linear(cin, fc_out_channels))
             cin = fc_out_channels
         self.fc_cls = nn.Linear(cin, num_classes + 1)
@@ -64,7 +84,7 @@ class OrientedHead(nn.Module):
         order, as in the JAX head."""
         x = self.extractor(feats, rois)
         x = x.reshape(x.shape[0], -1)
-        for i in range(self.NUM_SHARED_FCS):
+        for i in range(self.num_shared_fcs):
             x = F.relu(linear(getattr(self, f"shared_fc{i}"), x))
         return linear(self.fc_cls, x).float(), linear(self.fc_reg, x).float()
 
@@ -103,9 +123,10 @@ class OrientedHead(nn.Module):
         targets = self.coder.encode(rois, matched_gts)
         labels = torch.where(sel_pos, torch.gather(gt_labels0, 1, matched),
                              self.num_classes)
+        pw = 1.0 if self.pos_weight <= 0 else self.pos_weight
         return dict(
             rois=rois, labels=labels,
-            label_weights=torch.where(sel_pos, 1.0, sel_neg.float()),
+            label_weights=torch.where(sel_pos, pw, sel_neg.float()),
             bbox_targets=torch.where(sel_pos[..., None], targets, 0.0),
             bbox_weights=sel_pos[..., None].float().expand_as(targets))
 

@@ -10,7 +10,7 @@ Batched over images instead of vmapped."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -19,12 +19,14 @@ from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import greedy_suppress_mask, overlap_gt_mask_hbb, top_k
+from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGenerator
 from ..boxes.anchor_target import anchor_target_single
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coder import MidpointOffsetCoder
 from ..boxes.sampler import RandomSampler
 from ..losses.common import binary_cross_entropy, smooth_l1_loss
+from ..networks.compat import section_kwargs
 from ..utils.modules import conv2d, maybe_int8_conv2d
 
 
@@ -33,44 +35,60 @@ def _take(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+@HEADS.register_module()
 class OrientedRPNHead(nn.Module):
-    """``anchor_generator``: ``AnchorGenerator`` kwargs (strides, ratios,
-    scales); ``assigner`` and ``sampler``: ``MaxIoUAssigner`` and
-    ``RandomSampler`` kwargs, the JAX head's when None. The JAX head's
-    defaults that no config changes are constants here: 6-dim
-    regression, one class, hbb NMS at IoU 0.8, boxes kept when w and
-    h > 0, coder stds (1, 1, 1, 1, 0.5, 0.5), anchors used for training
-    only inside the image (allowed border 0), positive weight 1,
-    SmoothL1 beta 1/9, loss weights 1."""
+    """The JAX head's arguments with its defaults. ``anchor_generator``,
+    ``bbox_coder``, ``assigner`` and ``sampler``: ``AnchorGenerator``,
+    ``MidpointOffsetCoder``, ``MaxIoUAssigner`` and ``RandomSampler``
+    kwargs (a ``type`` key is dropped, as in the JAX head); the JAX
+    head's defaults when None. Boxes are kept when w and h exceed
+    ``min_bbox_size`` (all of them when it is negative); anchors take
+    part in training inside the image plus ``allowed_border``.
+    ``int8=True`` serves the 3x3 tower conv through ``ops.quant``."""
 
-    REG_DIM = 6
-    NMS_THRESH = 0.8
-    MIN_BBOX_SIZE = 0.0
-    ALLOWED_BORDER = 0
-    SMOOTH_L1_BETA = 1.0 / 9.0
-    ASSIGNER = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
-                    match_low_quality=True)
-    SAMPLER = dict(num=256, pos_fraction=0.5)
-
-    def __init__(self, in_channels: int, feat_channels: int,
-                 anchor_generator, nms_pre: int = 2000, nms_post: int = 2000,
-                 pre_nms_cap: int = 4096, assigner: Optional[dict] = None,
-                 sampler: Optional[dict] = None, int8: bool = False):
+    def __init__(self, in_channels: int = 256, feat_channels: int = 256,
+                 num_classes: int = 1, reg_dim: int = 6,
+                 min_bbox_size: float = 0.0, nms_thresh: float = 0.8,
+                 nms_pre: int = 2000, nms_post: int = 2000,
+                 pre_nms_cap: int = 4096, pos_weight: float = -1.0,
+                 allowed_border: int = 0, anchor_generator=None,
+                 bbox_coder=None, assigner=None, sampler=None,
+                 loss_cls_weight: float = 1.0, loss_bbox_weight: float = 1.0,
+                 smooth_l1_beta: float = 1.0 / 9.0, int8: bool = False):
         super().__init__()
+        if num_classes != 1 or reg_dim != 6:
+            raise NotImplementedError(
+                f"OrientedRPNHead: num_classes={num_classes}, reg_dim="
+                f"{reg_dim}; the port scores one class and regresses the "
+                f"6 midpoint offsets")
         self.int8 = int8  # serve the 3x3 tower conv through int8_conv
-        self.anchor_gen = AnchorGenerator(**anchor_generator)
-        self.coder = MidpointOffsetCoder(
-            target_stds=(1.0, 1.0, 1.0, 1.0, 0.5, 0.5))
-        self.assigner = MaxIoUAssigner(**(assigner or self.ASSIGNER))
-        self.sampler = RandomSampler(**(sampler or self.SAMPLER))
+        self.reg_dim = reg_dim
+        self.min_bbox_size = min_bbox_size
+        self.nms_thresh = nms_thresh
         self.nms_pre = nms_pre
         self.nms_post = nms_post
         self.pre_nms_cap = pre_nms_cap
+        self.pos_weight = pos_weight
+        self.allowed_border = allowed_border
+        self.loss_cls_weight = loss_cls_weight
+        self.loss_bbox_weight = loss_bbox_weight
+        self.smooth_l1_beta = smooth_l1_beta
+        self.anchor_gen = AnchorGenerator(**section_kwargs(
+            anchor_generator, dict(scales=[8], ratios=[0.5, 1.0, 2.0],
+                                   strides=[4, 8, 16, 32, 64])))
+        self.coder = MidpointOffsetCoder(**section_kwargs(
+            bbox_coder, dict(target_means=[0.0] * 6,
+                             target_stds=[1.0, 1.0, 1.0, 1.0, 0.5, 0.5])))
+        self.assigner = MaxIoUAssigner(**section_kwargs(
+            assigner, dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
+                           match_low_quality=True)))
+        self.sampler = RandomSampler(**section_kwargs(
+            sampler, dict(num=256, pos_fraction=0.5)))
         self.num_anchors = self.anchor_gen.num_base_anchors[0]
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, self.num_anchors, 1)
         self.rpn_reg = nn.Conv2d(feat_channels,
-                                 self.num_anchors * self.REG_DIM, 1)
+                                 self.num_anchors * self.reg_dim, 1)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """Per-level (cls [B, H, W, A], reg [B, H, W, A*6]), NHWC."""
@@ -104,7 +122,7 @@ class OrientedRPNHead(nn.Module):
         # fixed-size tiles: one border for the whole batch
         img_h = targets["img_hw"][:, 0].max()
         img_w = targets["img_hw"][:, 1].max()
-        border = self.ALLOWED_BORDER
+        border = self.allowed_border
         inside = (valid & (anchors[:, 0] >= -border)
                   & (anchors[:, 1] >= -border)
                   & (anchors[:, 2] < img_w + border)
@@ -112,7 +130,7 @@ class OrientedRPNHead(nn.Module):
         res = anchor_target_single(
             anchors, inside, B.obb2hbb(gt_obb), targets["gt_mask"], None,
             self.assigner, self.sampler, self.coder.encode, generator,
-            gt_bboxes_encode=gt_obb)
+            pos_weight=self.pos_weight, gt_bboxes_encode=gt_obb)
         num_total = (res.num_pos.clamp(min=1)
                      + res.num_neg.clamp(min=1)).sum()
 
@@ -125,13 +143,13 @@ class OrientedRPNHead(nn.Module):
             sl = slice(start, start + h * w * self.num_anchors)
             start = sl.stop
             nhwc = reg.shape
-            loss_cls = loss_cls + binary_cross_entropy(
+            loss_cls = loss_cls + self.loss_cls_weight * binary_cross_entropy(
                 cls.reshape(b, -1).float(), res.labels[:, sl].float(),
                 res.label_weights[:, sl], avg_factor=num_total)
-            loss_bbox = loss_bbox + smooth_l1_loss(
+            loss_bbox = loss_bbox + self.loss_bbox_weight * smooth_l1_loss(
                 reg.float(), res.bbox_targets[:, sl].reshape(nhwc),
                 res.bbox_weights[:, sl].reshape(nhwc),
-                beta=self.SMOOTH_L1_BETA, avg_factor=num_total)
+                beta=self.smooth_l1_beta, avg_factor=num_total)
         return dict(loss_rpn_cls=loss_cls, loss_rpn_bbox=loss_bbox)
 
     def get_proposals(self, cls_scores, bbox_preds):
@@ -141,7 +159,7 @@ class OrientedRPNHead(nn.Module):
         sizes = [tuple(c.shape[1:3]) for c in cls_scores]
         dev = cls_scores[0].device
         b = cls_scores[0].shape[0]
-        na, rd = self.num_anchors, self.REG_DIM
+        na, rd = self.num_anchors, self.reg_dim
         cand_s, cand_d, cand_a, cand_l = [], [], [], []
         for lvl, (anchors, cls, reg) in enumerate(zip(
                 self.anchor_gen.grid_anchors(sizes), cls_scores, bbox_preds)):
@@ -169,8 +187,10 @@ class OrientedRPNHead(nn.Module):
         lvl_ids = torch.gather(lvl_ids, 1, sel)
 
         proposals = self.coder.decode(anchors, deltas)
-        ok = ((proposals[..., 2] > self.MIN_BBOX_SIZE)
-              & (proposals[..., 3] > self.MIN_BBOX_SIZE))
+        ok = torch.ones_like(scores, dtype=torch.bool)
+        if self.min_bbox_size >= 0:
+            ok = ((proposals[..., 2] > self.min_bbox_size)
+                  & (proposals[..., 3] > self.min_bbox_size))
         # level-offset trick: separate the levels in coordinate space
         hbb = B.obb2hbb(proposals)
         span = hbb.amax(dim=(1, 2)) - hbb.amin(dim=(1, 2))
@@ -179,7 +199,7 @@ class OrientedRPNHead(nn.Module):
         neg_inf = torch.tensor(float("-inf"), device=dev)
         order = torch.argsort(-torch.where(ok, scores, neg_inf), dim=1,
                               stable=True)
-        over = overlap_gt_mask_hbb(_take(hbb, order), self.NMS_THRESH)
+        over = overlap_gt_mask_hbb(_take(hbb, order), self.nms_thresh)
         keep_sorted = greedy_suppress_mask(over, torch.gather(ok, 1, order))
         keep = torch.zeros_like(ok).scatter(1, order, keep_sorted)
 

@@ -8,6 +8,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from ..utils.registry import OPTIMS
+
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
@@ -23,6 +25,7 @@ def clip_by_global_norm(grads, max_norm: float):
     return norm
 
 
+@OPTIMS.register_module()
 class AdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` over one parameter group, with optax's
     global-norm clip ahead of each step (``grad_clip=dict(max_norm=...)``,

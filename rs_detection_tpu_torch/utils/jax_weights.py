@@ -11,14 +11,24 @@ names, so the mapping is mechanical:
 * ``kernel`` -> ``weight``: a conv HWIO ``(kh, kw, in/groups, out)``
   becomes OIHW (a depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``),
   an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``;
-* every other leaf (``bias``, ``layer_scale_*``) keeps its name.
+* every other leaf (``bias``, ``layer_scale_*``) keeps its name;
+* the detector's ``_backbone``, ``_neck``, ``_rpn`` and ``_bbox_head``
+  (the names flax gives the submodules a config builds in ``setup``)
+  are the port's ``backbone``, ``neck``, ``rpn`` and ``bbox_head``, the
+  names of submodules given to it as modules.
 
 Any name or shape that does not match, in either direction, raises:
 nothing is silently left at its init.
+
+``load_jax_checkpoint`` reads the pickle the JAX runner's ``save``
+writes without importing jax: its arrays are jax arrays, which pickle
+as a numpy array plus a call to rebuild the device array; that call is
+replaced by one that keeps the numpy array.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Mapping
 
 import numpy as np
@@ -27,6 +37,8 @@ from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
+_BUILT = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn",
+          "_bbox_head": "bbox_head"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -53,6 +65,8 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
             parts = [p for p in path[:-1] if p != "BatchNorm_0"]
+            if parts:
+                parts[0] = _BUILT.get(parts[0], parts[0])
             name = ".".join(parts + [_LEAF.get(path[-1], path[-1])])
             if name in out:
                 raise ValueError(f"two flax leaves map to {name}")
@@ -79,3 +93,29 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
         for k, v in state.items():
             v.copy_(torch.from_numpy(np.array(arrays[k], dtype=np.float32)))
     return module
+
+
+def _numpy_of_jax_array(fun, args, arr_state, aval_state):
+    """Stands in for ``jax._src.array._reconstruct_array``: the numpy
+    value the jax array was pickled from."""
+    arr = fun(*args)
+    arr.__setstate__(arr_state)
+    return arr
+
+
+class _JaxCheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _numpy_of_jax_array
+        if module.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+            raise pickle.UnpicklingError(
+                f"the checkpoint holds {module}.{name}, which has no form "
+                f"without jax")
+        return super().find_class(module, name)
+
+
+def load_jax_checkpoint(path: str):
+    """The object pickled at ``path`` (a JAX runner checkpoint, or a bare
+    flax variables tree), with every jax array as a numpy array."""
+    with open(path, "rb") as f:
+        return _JaxCheckpointUnpickler(f).load()

@@ -13,15 +13,17 @@ preparation against ``qweight``; K3's gather design bit for bit across
 launches and on clustered rois, K5's streaming design at ragged shapes
 with and without bias; K1's row design and the row-streaming design of
 K7's form at ragged shapes, beside their first designs), the rule that a kernel
-wrapper never hands autograd a detached result, and the tiny config's
-predict (fused and not, int8 and not) and training step, CUDA against
-CPU."""
+wrapper never hands autograd a detached result, the tiny config's
+predict (fused and not, int8 and not) and training step, and its test
+task through ``Runner``, CUDA against CPU."""
+
+import os
 
 import pytest
 import torch
 
-from rs_detection_tpu_torch.flagship import (build_flagship, make_targets,
-                                             normalize)
+from rs_detection_tpu_torch.flagship import (build_flagship, flagship_cfg,
+                                             make_targets, normalize)
 from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
 from rs_detection_tpu_torch.ops import dw_conv, van_mlp
 from rs_detection_tpu_torch.ops._build import kernel_library
@@ -971,3 +973,73 @@ def test_dw_chw_row_design_matches_plain(dev, k, d, shape):
     first = _dwconv.dw_chw_first_design(x, wts, k, d)
     assert dw_chw_cuda.launches == before + 1
     assert (first.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
+def _runner_on(device, tiles_dir, work_dir):
+    """The tiny flagship config served by ``Runner`` (flip TTA, FAIR1M-1.5
+    merge) from ``work_dir``'s parent, the merge's working directory."""
+    from rs_detection_tpu_torch.config import get_cfg
+    from rs_detection_tpu_torch.flagship import PIXEL_MEAN, PIXEL_STD
+    from rs_detection_tpu_torch.runner import Runner
+
+    cfg = get_cfg()
+    cfg.clear()
+    cfg.update(dict(
+        name="tiny", work_dir=str(work_dir), seed=4,
+        model=flagship_cfg(tiny=True),
+        dataset=dict(test=dict(
+            type="ImageDataset", images_dir=str(tiles_dir),
+            dataset_type="FAIR1M_1_5", batch_size=2,
+            transforms=[dict(type="RotatedResize", min_size=128, max_size=128),
+                        dict(type="Normalize", mean=list(PIXEL_MEAN),
+                             std=list(PIXEL_STD), to_bgr=False)])),
+        optimizer=dict(type="AdamW", lr=1e-4),
+        merge_cfg=dict(dataset_type="FAIR1M_1_5")))
+    os.makedirs(work_dir, exist_ok=True)
+    os.chdir(os.path.dirname(work_dir))
+    return Runner(device=device)
+
+
+def test_runner_test_task_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """``Runner.test`` with flip TTA on the card (K1 and K2 launched)
+    and on the CPU from one config and seed: dense outputs within the
+    tiny predict's tolerances (polys 1e-2 px, scores 1e-5), and the
+    merge of one pickle twice gives identical files."""
+    import numpy as np
+    from PIL import Image
+
+    from rs_detection_tpu_torch.data.devkits.data_merge import \
+        data_merge_result
+    from rs_detection_tpu_torch.ops.roi_align import \
+        roi_align_rotated_pyramid_cuda as k1
+    from rs_detection_tpu_torch.ops.van_mlp import van_mlp_cuda as k2
+
+    monkeypatch.chdir(tmp_path)
+    tiles = tmp_path / "tiles"
+    tiles.mkdir()
+    rng = np.random.RandomState(8)
+    for name in ("P0001__1.0__0___0.png", "P0001__1.0__64___0.png"):
+        Image.fromarray(rng.randint(0, 256, (128, 128, 3)).astype(
+            np.uint8)).save(tiles / name)
+    gpu = _runner_on(None, tiles, tmp_path / "gpu" / "work")
+    cpu = _runner_on("cpu", tiles, tmp_path / "cpu" / "work")
+    assert gpu.device.type == "cuda"
+    k1.launches = k2.launches = 0
+    gpu.test(flip_test=True)
+    assert (k1.launches, k2.launches) == (4, 4 * 5)  # 4 flips, batch 2
+    for mode in (None, "HV"):
+        for images, targets, _ in gpu.test_dataset.batches(mode):
+            got, ref = gpu.predict(images, targets), cpu.predict(images,
+                                                                 targets)
+            assert (got["valid"] == ref["valid"]).all()
+            for key, atol in (("polys", 1e-2), ("scores", 1e-5)):
+                assert np.abs(got[key] - ref[key]).max() <= atol, key
+    pkl = str(tmp_path / "gpu" / "work" / "test" / "test_0.pkl")
+    os.chdir(tmp_path / "cpu")
+    data_merge_result(pkl, str(tmp_path / "cpu" / "again"), 0, "tiny",
+                      dataset_type="FAIR1M_1_5")
+    a = tmp_path / "gpu" / "work" / "test" / "submit_0" / "after_nms"
+    b = tmp_path / "cpu" / "again" / "test" / "submit_0" / "after_nms"
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for name in os.listdir(a):
+        assert (a / name).read_bytes() == (b / name).read_bytes()
