@@ -104,11 +104,33 @@ Phases, each of which raises (exit code 1) on failure:
      prints tiles/s of inference, the merge's seconds and the detections
      in and out, then where they go (host data against ``predict`` per
      tile, the merge's stages)
+ 23. the runner's training on the tiny config: a config file (the tiny
+     model, samplers that take every candidate, a ``DOTADataset`` over 4
+     seeded 128^2 tiles with a ``labels.pkl``, ``RotatedRandomFlip`` and
+     ``RandomRotateAug``, batch 2, the SWA switch after epoch 0: 4 steps)
+     run by ``Runner(device="cuda").run()`` and ``Runner(device="cpu")
+     .run()`` from one seed: the same rates, losses within phase 9's
+     tolerance, parameters within the AdamW bound; and on CUDA 2 steps,
+     a save, a resume and 2 more steps against the unbroken run
+ 24. the train task at full width: ``run_net --task train`` (its
+     ``main``, in this process) on ``configs/orcnn_van3_fair1m_1_5.py``
+     (VAN-b3, bf16 compute, f32 master weights) over 24 seeded uint8
+     1024^2 PNG tiles with a ``labels.pkl`` of 42 boxes each, the
+     config's own transforms, batch 8, 8 loader threads, 2 epochs of 3
+     steps with the SWA switch after the first and a checkpoint each;
+     checks finite losses, nonzero bbox losses, the SWA optimizer's 3
+     steps from its schedule's step-0 rate, f32 master weights and K1 1
+     / K3 1 / K6 114 / K2 0 launches per step; then ``get_swa_model``
+     over epochs 1-2 and ``run_net --task val`` from the average on 8 of
+     the tiles (K2 38 and K1 1 in its one forward, 10 class APs and the
+     mean, finite); prints the runner's median ms/step beside phase
+     10's, the loader's wait and the peak memory
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one; K1's and K3's time on the step-like rois, K1's on a serving
 request's, K5's in a CUDA graph; K1's and K2's launches in phase 22's
-test task), the
+test task, K1's, K3's and K6's in phase 24's train task, K1's and K2's in
+its val task), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -132,6 +154,7 @@ TILE = 1024
 REQUESTS = 10
 TRAIN_STEPS = 5
 MAX_GT = 42
+TRAIN_TASK_TILES = 24  # phase 24: 3 steps of batch 8 an epoch, 2 epochs
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -1232,7 +1255,7 @@ def phase_train_tiny(torch, build_flagship, make_targets, train_mod, dev):
         losses = train_mod.train_step(
             model, opt, StepLR([7, 10]), images.to(device),
             {k: v.to(device) for k, v in targets.items()},
-            torch.Generator(device=device).manual_seed(0))
+            torch.Generator(device=device).manual_seed(0), epoch=0)
         out[str(device)] = ({k: float(v) for k, v in losses.items()},
                             {k: p.grad.cpu() for k, p in
                              model.named_parameters()})
@@ -1276,7 +1299,8 @@ def phase_train(torch, build_flagship, make_targets, normalize, train_mod,
     targets = make_targets(BATCH, TILE, MAX_GT, gen)
 
     def step():
-        return train_mod.train_step(model, opt, sched, images, targets, gen)
+        return train_mod.train_step(model, opt, sched, images, targets, gen,
+                                    epoch=0)
 
     step()  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
@@ -1320,7 +1344,7 @@ def phase_train(torch, build_flagship, make_targets, normalize, train_mod,
     log("  losses, first and last timed step: " + ", ".join(
         f"{k} {float(first[k]):.4f} -> {float(last[k]):.4f}" for k in first))
     log(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
-    return launches
+    return launches, 1e3 * times[len(times) // 2]
 
 
 def write_tiles(tiles_dir, names, size, seed):
@@ -1444,8 +1468,9 @@ def phase_run_net(torch, tmp, kernels, card):
     cfg = write_config(
         os.path.join(tmp, "orcnn_van3_fair1m_1_5_chip.py"), _base_=base,
         model=dict(compute_dtype="bfloat16"),
-        dataset=dict(test=dict(images_dir=tiles)), allow_random_init=True,
-        merge_cfg=dict(dataset_type="FAIR1M_1_5"), work_dir=work)
+        dataset=dict(test=dict(images_dir=tiles), train=None, val=None),
+        allow_random_init=True, merge_cfg=dict(dataset_type="FAIR1M_1_5"),
+        work_dir=work)
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -1535,6 +1560,310 @@ def phase_run_net_breakdown(runner, work, tmp, card):
         f"of the task's merge {runner.test_stats['merge_s']:.3f} s [{card}]")
 
 
+def write_labelled(root, names, size, seed, rboxes, labels):
+    """Seeded tiles under ``root/images`` and a ``labels.pkl`` of their
+    rotated boxes and 1-based labels (one row of ``rboxes`` / ``labels``
+    per tile)."""
+    import pickle
+
+    import numpy as np
+
+    write_tiles(os.path.join(root, "images"), names, size, seed)
+    infos = [dict(filename=n, width=size, height=size, ann=dict(
+        bboxes=np.asarray(r, np.float32), labels=np.asarray(lab, np.int64),
+        bboxes_ignore=np.zeros((0, 5), np.float32)))
+        for n, r, lab in zip(names, rboxes, labels)]
+    with open(os.path.join(root, "labels.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return root
+
+
+def assert_near_params(a, b, lrs, what):
+    """Two models' parameters after the same AdamW steps: each element
+    within 2 x (the sum of the step rates), since one step moves a weight
+    by about lr x sign(gradient) and a gradient that is noise (the biases
+    ahead of a BatchNorm) may take either sign; at most 0.5% of the
+    elements beyond 1e-6 (tests/test_torch_port_train_runner.py holds the
+    CPU port to the JAX runner by the same bound). BN statistics to 1e-4
+    relative."""
+    bound = 2 * sum(lrs) + 1e-6
+    sa, sb = a.state_dict(), b.state_dict()
+    worst, beyond, total = 0.0, 0, 0
+    for k, va in sa.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (va.detach().float().cpu() - sb[k].detach().float().cpu()).abs()
+        if k.endswith(("running_mean", "running_var")):
+            scale = sb[k].detach().float().abs().max().item()
+            if not d.max().item() <= 1e-4 * max(scale, 0.1):
+                raise AssertionError(f"{what}: {k} differs by "
+                                     f"{d.max().item()}")
+            continue
+        worst = max(worst, d.max().item())
+        beyond += int((d > 1e-6).sum())
+        total += d.numel()
+    log(f"  {what}: parameters max_abs_err {worst:.3e} (bound {bound:.3e}), "
+        f"{beyond} of {total} elements beyond 1e-6 (at most 0.5%)")
+    if not (worst <= bound and beyond <= 0.005 * total):
+        raise AssertionError(f"{what}: parameters differ")
+
+
+def phase_runner_train_tiny(torch, dev, tmp):
+    """The tiny config through the runner's training (the SWA switch
+    after epoch 0), CUDA (kernels) against the CPU (plain versions), and
+    a run broken by a save and a resume against the unbroken one."""
+    import copy
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.config import get_cfg, init_cfg
+    from rs_detection_tpu_torch.flagship import (PIXEL_MEAN, PIXEL_STD,
+                                                 flagship_cfg)
+    from rs_detection_tpu_torch.runner import Runner
+
+    size, max_gt = 128, 8
+    rng = np.random.RandomState(23)
+    rboxes, labels = [], []
+    for _ in range(4):
+        # axis-aligned, as phase 9's: one ulp of sin / cos between the
+        # devices can change the RPN's tie-keeping low-quality matches
+        r = np.stack([rng.uniform(24, 104, 5), rng.uniform(24, 104, 5),
+                      rng.uniform(16, 48, 5), rng.uniform(8, 24, 5),
+                      np.zeros(5)], 1)
+        rboxes.append(r)
+        labels.append(rng.randint(1, 11, 5))
+    ds = write_labelled(os.path.join(tmp, "tiny_labelled"),
+                        [f"T{i}.png" for i in range(4)], size, 23, rboxes,
+                        labels)
+    model = flagship_cfg(tiny=True)
+    # every candidate sampled: >= the 9548 anchors of a 128^2 image, and
+    # nms_post + max_gt proposals
+    model["rpn"]["sampler"] = dict(num=16384, pos_fraction=1.0)
+    model["bbox_head"]["sampler"] = dict(num=64 + max_gt, pos_fraction=1.0,
+                                         add_gt_as_proposals=True)
+    norm = dict(type="Normalize", mean=list(PIXEL_MEAN), std=list(PIXEL_STD),
+                to_bgr=False)
+    cfg = write_config(
+        os.path.join(tmp, "tiny_train.py"), seed=6, model=model,
+        max_epoch=2, swa_start_epoch=1, log_interval=1,
+        dataset=dict(train=dict(
+            type="DOTADataset", dataset_dir=ds, batch_size=2, shuffle=True,
+            max_gt=max_gt, transforms=[
+                dict(type="RotatedResize", min_size=size, max_size=size),
+                dict(type="RotatedRandomFlip", prob=0.5),
+                dict(type="RandomRotateAug", random_rotate_on=True),
+                dict(type="Pad", size_divisor=32), norm])),
+        optimizer=dict(type="AdamW", lr=1e-4, weight_decay=0.05,
+                       grad_clip=dict(max_norm=35)),
+        scheduler=dict(type="StepLR", warmup="linear", warmup_iters=500,
+                       warmup_ratio=1.0 / 3, milestones=[7, 10]),
+        optimizer_swa=dict(type="AdamW", lr=1e-4, weight_decay=0.05),
+        scheduler_swa=dict(type="CosineAnnealingLR", max_steps=1,
+                           min_lr_ratio=0.01))
+    init_cfg(cfg)
+    base = copy.deepcopy(dict(get_cfg()))
+
+    def run(name, device, **extra):
+        c = get_cfg()
+        c.clear()
+        c.update(copy.deepcopy(base))
+        c.update(work_dir=os.path.join(tmp, "tiny_train", name), **extra)
+        runner = Runner(device=device)
+        runner.run()
+        return runner
+
+    gpu, cpu = run("cuda", dev), run("cpu", "cpu")
+    lrs = [r["lr"] for r in gpu.history]
+    if [r["lr"] for r in cpu.history] != lrs or len(lrs) != 4:
+        raise AssertionError(f"tiny train task: rates {lrs}")
+    worst = 0.0
+    for g, c in zip(gpu.history, cpu.history):
+        for k, v in c.items():
+            if "loss" in k:
+                worst = max(worst, abs(g[k] - v) / max(abs(v), 1e-6))
+    log(f"  tiny train task, CUDA vs CPU, 4 steps across the SWA switch "
+        f"(rates {', '.join(f'{x:.4g}' for x in lrs)}): losses worst "
+        f"relative error {worst:.2e} (tolerance 1e-4, phase 9's)")
+    if not worst <= 1e-4:
+        raise AssertionError("tiny train task: losses differ")
+    assert_near_params(gpu.model, cpu.model, lrs, "tiny train task, CUDA "
+                       "vs CPU")
+    if not (gpu._swa_active and gpu.optimizer.iterations == 2):
+        raise AssertionError("tiny train task: no SWA phase of 2 steps")
+    run("resumed", dev, max_epoch=1)
+    resumed = run("resumed", dev)
+    if [r["lr"] for r in resumed.history] != lrs[2:] or resumed.iter != 4:
+        raise AssertionError(f"tiny train task: the resumed run took "
+                             f"{resumed.iter} steps at {resumed.history}")
+    assert_near_params(resumed.model, gpu.model, lrs,
+                       "tiny train task on CUDA, 2 steps + save + resume + "
+                       "2 steps vs 4 unbroken")
+
+
+def phase_train_task(torch, tmp, kernels, card, phase10_ms):
+    """``run_net --task train`` at full width across the SWA switch,
+    ``get_swa_model``, then ``run_net --task val`` from the averaged
+    checkpoint; the wrappers' launches counted over each task. Returns
+    (train task launches, val task launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.tools import get_swa_model, run_net
+
+    n_tiles, steps_per_epoch = TRAIN_TASK_TILES, TRAIN_TASK_TILES // BATCH
+    names = [f"F{i:02d}.png" for i in range(n_tiles)]
+    t = make_targets(n_tiles, TILE, MAX_GT, torch.Generator().manual_seed(24))
+    t0 = time.perf_counter()
+    ds = write_labelled(os.path.join(tmp, "train_task"), names, TILE, 24,
+                        t["rboxes"].numpy(), t["labels"].numpy())
+    t_write = time.perf_counter() - t0
+    base = os.path.join(ROOT, "configs", "orcnn_van3_fair1m_1_5.py")
+    work = os.path.join(tmp, "train_work")
+    cfg = write_config(
+        os.path.join(tmp, "orcnn_van3_fair1m_1_5_train.py"), _base_=base,
+        model=dict(compute_dtype="bfloat16"), allow_random_init=True,
+        dataset=dict(train=dict(dataset_dir=ds), val=None, test=None),
+        max_epoch=2, swa_start_epoch=1, checkpoint_interval=1,
+        log_interval=1, work_dir=work)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = run_net.main(["--config-file", cfg, "--task", "train"])
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = {k: fn.launches for k, fn in kernels.items()}
+    steps = 2 * steps_per_epoch
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=steps,
+                roi_align_rotated_pyramid_bwd=steps,
+                dw_wgrad=3 * sum(st[3] for st in STAGES) * steps)
+    if train_launches != want:
+        raise AssertionError(f"train task kernel launches {train_launches}, "
+                             f"expected {want}")
+    hist = runner.history
+    if len(hist) != steps or runner.iter != steps:
+        raise AssertionError(f"train task: {runner.iter} steps, {len(hist)} "
+                             f"records")
+    for rec in hist:
+        losses = {k: v for k, v in rec.items() if "loss" in k}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train task: losses not finite: {rec}")
+        if not (losses["loss_rpn_bbox"] > 0 and losses["orcnn_bbox_loss"] > 0):
+            raise AssertionError(f"train task: a bbox loss is zero: {rec}")
+    swa = runner.optimizer_swa
+    swa_lr0 = runner.scheduler_swa(swa.defaults["lr"], 0, 0.0)
+    if not (runner._swa_active and runner.optimizer is swa
+            and swa.iterations == steps_per_epoch
+            and hist[steps_per_epoch]["lr"] == swa_lr0):
+        raise AssertionError(f"train task: SWA phase {runner._swa_active}, "
+                             f"{swa.iterations} steps, first rate "
+                             f"{hist[steps_per_epoch]['lr']} (want {swa_lr0})")
+    dtypes = {p.dtype for p in runner.model.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"train task: master weights {dtypes}")
+    ckpts = os.path.join(work, "checkpoints")
+    t0 = time.perf_counter()
+    swa_path = get_swa_model.get_swa_model(work, 1, 2)
+    t_swa = time.perf_counter() - t0
+    have = sorted(os.listdir(ckpts))
+    if have != ["ckpt_1.pkl", "ckpt_2.pkl", "swa_1-2.pkl"]:
+        raise AssertionError(f"train task: checkpoints {have}")
+    step_ms = sorted(1e3 * x for x in runner.train_stats["step_s"][1:])
+    med = step_ms[len(step_ms) // 2]
+    wait = runner.train_stats["loader_wait_s"]
+    log(f"  run_net --task train, VAN-b3 Oriented R-CNN from "
+        f"configs/orcnn_van3_fair1m_1_5.py, bf16 compute, f32 master "
+        f"weights: {n_tiles} tiles of {TILE}^2 with {MAX_GT} boxes, batch "
+        f"{BATCH}, 8 loader threads, {steps} steps ({steps_per_epoch} AdamW "
+        f"+ StepLR, {steps_per_epoch} SWA from rate {swa_lr0:.3g}); "
+        f"{t_train:.1f} s whole task (2 checkpoints); ms/step through the "
+        f"runner, median of steps 2-{steps}: {med:.1f} (min {step_ms[0]:.1f}"
+        f", max {step_ms[-1]:.1f}); phase 10's train_step alone "
+        f"{phase10_ms:.1f}; the loop waited {wait:.2f} s on the loader in "
+        f"all; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    log("  losses, first and last step: " + ", ".join(
+        f"{k} {hist[0][k]:.4f} -> {hist[-1][k]:.4f}" for k in hist[0]
+        if "loss" in k))
+    log(f"  launches in the train task: {train_launches}; tiles written in "
+        f"{t_write:.1f} s, get_swa_model {t_swa:.1f} s")
+    phase_train_task_breakdown(torch, runner, card)
+
+    val_ds = os.path.join(tmp, "val_task")
+    write_labelled(val_ds, names[:BATCH], TILE, 24,
+                   t["rboxes"][:BATCH].numpy(), t["labels"][:BATCH].numpy())
+    vcfg = write_config(
+        os.path.join(tmp, "orcnn_van3_fair1m_1_5_val.py"), _base_=base,
+        model=dict(compute_dtype="bfloat16"), allow_random_init=True,
+        dataset=dict(train=None, val=dict(dataset_dir=val_ds), test=None),
+        resume_path=swa_path, work_dir=os.path.join(tmp, "val_work"))
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    vrunner = run_net.main(["--config-file", vcfg, "--task", "val"])
+    t_val = time.perf_counter() - t0
+    val_launches = {k: fn.launches for k, fn in kernels.items()}
+    want = dict.fromkeys(kernels, 0)
+    want.update(van_mlp=sum(st[3] for st in STAGES),
+                roi_align_rotated_pyramid=1)
+    if val_launches != want:
+        raise AssertionError(f"val task kernel launches {val_launches}, "
+                             f"expected {want} (one forward of {BATCH})")
+    aps = vrunner.val_aps
+    classes = [k for k in aps if k != "eval/0_meanAP"]
+    if len(classes) != 10 or not all(math.isfinite(v) for v in aps.values()):
+        raise AssertionError(f"val task: APs {aps}")
+    log(f"  run_net --task val from swa_1-2.pkl, {BATCH} tiles in one "
+        f"forward: {t_val:.1f} s whole task; eval/0_meanAP "
+        f"{aps['eval/0_meanAP']:.4f} (random weights, no gate); launches "
+        f"{val_launches} [{card}]")
+    return train_launches, val_launches
+
+
+def phase_train_task_breakdown(torch, runner, card):
+    """Where the train task's step goes beyond phase 10's: ``train_step``
+    on the runner's model (after its run) with phase 10's seeded batch,
+    its ground truths as they are (MAX_GT slots) and padded to the
+    dataset's ``max_gt`` (the collated batches' width), 1 warm-up and 2
+    timed steps each."""
+    from rs_detection_tpu_torch.flagship import make_targets, normalize
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import AdamW
+    from rs_detection_tpu_torch.parallel.train_step import train_step
+
+    dev = runner.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    images = normalize(torch.randint(0, 256, (BATCH, TILE, TILE, 3),
+                                     generator=gen, device=dev,
+                                     dtype=torch.uint8))
+    t = make_targets(BATCH, TILE, MAX_GT, gen)
+    width = runner.train_dataset.max_gt
+    padded = dict(img_hw=t["img_hw"])
+    for k, v in (("rboxes", t["rboxes"]), ("labels", t["labels"]),
+                 ("gt_mask", t["gt_mask"])):
+        p = torch.zeros((BATCH, width) + v.shape[2:], dtype=v.dtype,
+                        device=dev)
+        p[:, :MAX_GT] = v
+        padded[k] = p
+    opt = AdamW(runner.model.parameters(), lr=1e-4, weight_decay=0.05)
+    out = []
+    for n, tg in ((MAX_GT, t), (width, padded)):
+        train_step(runner.model, opt, StepLR([7, 10]), images, tg, gen,
+                   epoch=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            train_step(runner.model, opt, StepLR([7, 10]), images, tg, gen,
+                       epoch=0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 2
+        out.append(f"{n} ground-truth slots {ms:.1f} ms/step, peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  train_step on the train task's model, phase 10's batch: "
+        f"{'; '.join(out)} [{card}]")
+
+
 def main():
     import torch
 
@@ -1594,13 +1923,14 @@ def main():
     log("[9] tiny config training step: CUDA (kernels) vs CPU (plain), f32")
     phase_train_tiny(torch, build_flagship, make_targets, train_mod, dev)
     log("[10] training path")
-    train_launches = phase_train(
-        torch, build_flagship, make_targets, normalize, train_mod,
-        {"van_mlp": vm.van_mlp_cuda,
-         "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
-         "roi_align_rotated_pyramid_bwd":
-             ra.roi_align_rotated_pyramid_bwd_cuda,
-         "dw_wgrad": dwc.dw_wgrad_cuda}, dev, card)
+    training = {"van_mlp": vm.van_mlp_cuda,
+                "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
+                "roi_align_rotated_pyramid_bwd":
+                    ra.roi_align_rotated_pyramid_bwd_cuda,
+                "dw_wgrad": dwc.dw_wgrad_cuda}
+    train_launches, phase10_ms = phase_train(
+        torch, build_flagship, make_targets, normalize, train_mod, training,
+        dev, card)
     log("[11] K5 depthwise forward (and K7's layout) vs plain")
     k5, k7 = phase_k5(torch, dw, dev)
     k7_launches = phase_k7_path(torch, dw, dev)
@@ -1640,6 +1970,13 @@ def main():
         phase_runner_tiny(torch, dev, tmp)
         log("[22] run_net --task test at full width")
         test_launches = phase_run_net(torch, tmp, serving, card)
+        log("[23] tiny config through the runner's training: CUDA vs CPU, "
+            "resume")
+        phase_runner_train_tiny(torch, dev, tmp)
+        log("[24] run_net --task train at full width, get_swa_model, "
+            "run_net --task val")
+        train_task_launches, val_task_launches = phase_train_task(
+            torch, tmp, dict(serving, **training), card, phase10_ms)
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -1655,18 +1992,26 @@ def main():
     kernels = [
         entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
               launches["van_mlp"], k2,
-              test_task_launches=test_launches["van_mlp"]),
+              test_task_launches=test_launches["van_mlp"],
+              val_task_launches=val_task_launches["van_mlp"]),
         entry("roi_align_rotated_pyramid", "roi_align_rotated_fwd.cu",
               jops + "pallas_roi_align.py:116",
               launches["roi_align_rotated_pyramid"], k1,
               step_like_ms=k1_step_ms, serving_ms=k1_serving_ms,
-              test_task_launches=test_launches["roi_align_rotated_pyramid"]),
+              test_task_launches=test_launches["roi_align_rotated_pyramid"],
+              train_task_launches=train_task_launches[
+                  "roi_align_rotated_pyramid"],
+              val_task_launches=val_task_launches[
+                  "roi_align_rotated_pyramid"]),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,
-              step_like_ms=k3_step_ms),
+              step_like_ms=k3_step_ms,
+              train_task_launches=train_task_launches[
+                  "roi_align_rotated_pyramid_bwd"]),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
-              train_launches["dw_wgrad"], k6, k6[4]),
+              train_launches["dw_wgrad"], k6, k6[4],
+              train_task_launches=train_task_launches["dw_wgrad"]),
         entry("van_attn", "van_attn_wgmma.cu", jops + "pallas_van_attn.py:89",
               fused_launches["van_attn"], k4),
         entry("van_mlp_residual", "van_mlp_wgmma.cu",

@@ -1,1 +1,1 @@
-"""Tile merge and submission packaging."""
+"""Tile merge, submission packaging and the VOC-style AP evaluation."""

@@ -1,8 +1,13 @@
-"""Host-side transforms of the test pipeline (counterpart of
-``Compose``, ``Resize``, ``RotatedResize``, ``Pad`` and ``Normalize`` in
-``rs_detection_tpu/data/transforms.py``): PIL + numpy, before batching.
-``Normalize`` emits float32 HWC arrays, so batches are NHWC. The
-training augmentations come with the training half of the runner."""
+"""Host-side transforms (counterpart of ``Compose``, ``Resize``,
+``RotatedResize``, ``Pad``, ``Normalize`` and the training augmentations
+``RandomFlip``, ``RotatedRandomFlip``, ``RandomRotateAug``, ``RandmNoise``
+and ``RandmGrayScale`` in ``rs_detection_tpu/data/transforms.py``): PIL +
+numpy, before batching. ``Normalize`` emits float32 HWC arrays, so
+batches are NHWC. The augmentations draw from Python's ``random`` and
+from ``np.random`` in the JAX package's order, so one seed gives the
+same augmentation in both. The SSD / YOLO transforms (``MinIoURandomCrop``,
+``Expand``, ``PhotoMetricDistortion``, ``Resize_keep_ratio``) wait for
+those families (ROADMAP.md, Queue 1, item 11)."""
 
 from __future__ import annotations
 
@@ -11,7 +16,8 @@ import random
 import numpy as np
 from PIL import Image
 
-from ..ops.box_ops import poly_to_rotated_box_np, rotated_box_to_poly_np
+from ..ops.box_ops import (norm_angle, poly_to_rotated_box_np,
+                           rotated_box_to_poly_np)
 from ..utils.registry import TRANSFORMS, build_from_cfg
 
 _BOX_KEYS = ["bboxes", "hboxes", "rboxes", "polys",
@@ -165,4 +171,161 @@ class Normalize:
         image = (image - self.mean) / self.std
         if target is not None:
             target["to_bgr"] = self.to_bgr
+        return image, target
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    """Flip with probability ``prob`` (one ``random.random()`` draw per
+    call): the image, and the hboxes (``bboxes``, ``hboxes``,
+    ``hboxes_ignore``) as x -> w - x."""
+
+    def __init__(self, prob=0.5, direction="horizontal"):
+        if direction not in ("horizontal", "vertical", "diagonal"):
+            raise ValueError(f"RandomFlip: unknown direction {direction!r}")
+        self.prob = prob
+        self.direction = direction
+
+    def _flip_image(self, image):
+        if self.direction == "horizontal":
+            return image.transpose(Image.FLIP_LEFT_RIGHT)
+        if self.direction == "vertical":
+            return image.transpose(Image.FLIP_TOP_BOTTOM)
+        return image.transpose(Image.FLIP_LEFT_RIGHT) \
+                    .transpose(Image.FLIP_TOP_BOTTOM)
+
+    def _flip_boxes(self, target, size):
+        w, h = size
+        for key in ["bboxes", "hboxes", "hboxes_ignore"]:
+            b = target.get(key)
+            if b is None or b.shape[0] == 0:
+                continue
+            target[key] = self._flip_hbb(b, w, h)
+
+    def _flip_hbb(self, b, w, h):
+        f = b.copy()
+        if self.direction in ("horizontal", "diagonal"):
+            f[..., 0::4] = w - b[..., 2::4]
+            f[..., 2::4] = w - b[..., 0::4]
+        if self.direction in ("vertical", "diagonal"):
+            f[..., 1::4] = h - b[..., 3::4]
+            f[..., 3::4] = h - b[..., 1::4]
+        return f
+
+    def __call__(self, image, target=None):
+        if random.random() < self.prob:
+            image = self._flip_image(image)
+            if target is not None:
+                self._flip_boxes(target, image.size)
+                target["flip"] = self.direction
+        return image, target
+
+
+@TRANSFORMS.register_module()
+class RotatedRandomFlip(RandomFlip):
+    """Flip that also carries rotated boxes and polygons: horizontal x ->
+    w - x - 1, theta -> pi - theta; vertical y -> h - y - 1, theta ->
+    -theta (le135). A diagonal flip of rotated boxes raises."""
+
+    def _flip_boxes(self, target, size):
+        w, h = size
+        for key in _BOX_KEYS:
+            b = target.get(key)
+            if b is None or b.shape[0] == 0:
+                continue
+            if "rboxes" in key:
+                f = b.copy()
+                if self.direction == "horizontal":
+                    f[..., 0] = w - b[..., 0] - 1
+                    f[..., 4] = norm_angle(np.pi - b[..., 4])
+                elif self.direction == "vertical":
+                    f[..., 1] = h - b[..., 1] - 1
+                    f[..., 4] = norm_angle(-b[..., 4])
+                else:
+                    raise ValueError("RotatedRandomFlip: no diagonal flip "
+                                     "of rotated boxes")
+            elif "polys" in key:
+                f = b.copy()
+                if self.direction in ("horizontal", "diagonal"):
+                    f[..., 0::2] = w - b[..., 0::2] - 1
+                if self.direction in ("vertical", "diagonal"):
+                    f[..., 1::2] = h - b[..., 1::2] - 1
+            else:
+                f = self._flip_hbb(b, w, h)
+            target[key] = f
+
+
+@TRANSFORMS.register_module()
+class RandomRotateAug:
+    """With ``random_rotate_on``, k x 90-degree anticlockwise rotations,
+    k = int(100 * random.random()) // 25; hboxes map directly, rotated
+    boxes through their polygons."""
+
+    def __init__(self, angle_version="le135", random_rotate_on=False):
+        self.random_rotate_on = random_rotate_on
+        self.angle_version = angle_version
+
+    def _rotate_boxes_90(self, target, size):
+        w, _ = size
+        for key in _BOX_KEYS + ["bboxes"]:
+            b = target.get(key)
+            if b is None or getattr(b, "ndim", 0) < 2 or b.shape[0] == 0:
+                continue
+            if "bboxes" in key or "hboxes" in key:
+                nb = np.zeros_like(b)
+                nb[:, 0::2] = b[:, 1::2]
+                nb[:, 1] = w - b[:, 2]
+                nb[:, 3] = w - b[:, 0]
+                target[key] = nb
+                continue
+            is_rbox = "rboxes" in key
+            if is_rbox:
+                b = rotated_box_to_poly_np(b, self.angle_version)
+            nb = np.zeros_like(b)
+            nb[:, 0::2] = b[:, 1::2]
+            nb[:, 1::2] = w - b[:, 0::2]
+            if is_rbox:
+                nb = poly_to_rotated_box_np(nb, self.angle_version)
+            target[key] = nb
+
+    def __call__(self, image, target=None):
+        if self.random_rotate_on:
+            k = int(random.random() * 100) // 25
+            for _ in range(k):
+                if target is not None:
+                    self._rotate_boxes_90(target, image.size)
+                image = image.rotate(90, expand=True)
+            if target is not None:
+                target["rotate_angle"] = 90 * k
+        return image, target
+
+
+@TRANSFORMS.register_module()
+class RandmNoise:
+    """With probability ``prob``, uniform noise in [-max_noise, max_noise)
+    from ``np.random``, clipped to uint8."""
+
+    def __init__(self, prob=0.3, max_noise=10.0):
+        self.prob = prob
+        self.max_noise = max_noise
+
+    def __call__(self, image, target=None):
+        if random.random() < self.prob:
+            arr = np.asarray(image, np.float32)
+            arr = arr + np.random.uniform(-self.max_noise, self.max_noise,
+                                          arr.shape)
+            image = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+        return image, target
+
+
+@TRANSFORMS.register_module()
+class RandmGrayScale:
+    """With probability ``prob``, PIL's grey level copied to RGB."""
+
+    def __init__(self, prob=0.1):
+        self.prob = prob
+
+    def __call__(self, image, target=None):
+        if random.random() < self.prob:
+            image = image.convert("L").convert("RGB")
         return image, target

@@ -1,6 +1,6 @@
 """Rotated-box algebra on torch tensors (the subset of
 ``rs_detection_tpu/ops/box_ops.py`` that Oriented R-CNN inference uses),
-and the numpy conversions of the host-side transforms.
+and the numpy conversions of the host-side data pipeline.
 
 obb = (cx, cy, w, h, theta), theta in radians, OBBDetection convention
 (``obb2poly`` rotates by R = [[cos, sin], [-sin, cos]]); hbb = (x0, y0,
@@ -130,3 +130,16 @@ def rotated_box_to_poly_np(rrects, angle_version: str = "le90"):
     py = s[..., None] * lx + c[..., None] * ly + cy[..., None]
     poly = np.stack([px, py], axis=-1).reshape(*r.shape[:-1], 8)
     return _best_begin_point(poly).astype(np.float32)
+
+
+def rotated_box_to_bbox_np(rrects):
+    """(cx, cy, w, h, theta) [N, 5] -> (enclosing hbbs [N, 4], quads [N,
+    8]), f32: the hbb of ``rotated_box_to_poly_np``'s quad (le90)."""
+    r = np.asarray(rrects, dtype=np.float32)
+    if r.shape[0] == 0:
+        return np.zeros((0, 4), np.float32), np.zeros((0, 8), np.float32)
+    polys = rotated_box_to_poly_np(r)
+    xs, ys = polys[:, 0::2], polys[:, 1::2]
+    hbb = np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)],
+                   axis=1).astype(np.float32)
+    return hbb, polys

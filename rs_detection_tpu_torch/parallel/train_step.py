@@ -8,13 +8,17 @@ from typing import Dict
 
 
 def train_step(model, optimizer, scheduler, images, targets, generator,
-               epoch: int = 0) -> Dict:
+               epoch: float) -> Dict:
     """``model.loss`` -> backward -> ``optimizer.step`` at the scheduled
     learning rate. ``optimizer`` is an ``optims.optimizer.AdamW``; its
     base learning rate and step count feed ``scheduler(base_lr, step,
-    epoch)``. Returns the detached losses and "total_loss", the sum of
-    the entries named "loss", which is what is differentiated. The BN
-    running statistics move once, in the forward."""
+    epoch)``. ``epoch`` is the optimizer's own count in epochs (its
+    ``iterations`` over the steps per epoch, as the JAX runner's
+    schedule reads it; a fresh optimizer restarts it), required: a
+    wrong or missing one silently moves every StepLR milestone. Returns
+    the detached losses and "total_loss", the sum of the entries named
+    "loss", which is what is differentiated. The BN running statistics
+    move once, in the forward."""
     model.train()
     lr = scheduler(optimizer.defaults["lr"], optimizer.iterations, epoch)
     for group in optimizer.param_groups:

@@ -1,20 +1,35 @@
-"""The serving half of the train/eval engine (counterpart of
+"""The train/eval engine (counterpart of
 ``rs_detection_tpu/runner/runner.py``): builds the model, the optimizers
-and schedulers and the test dataset from the global config, resumes from
-the newest checkpoint of the JAX runner's pickle format, and runs
-``test`` (tile inference with optional flip-TTA -> results pickle ->
-tile merge -> submission), ``test_time`` and ``run_on_images`` on the
-card (or on the CPU when the caller asks for it).
+and schedulers and the train / val / test datasets from the global
+config, and runs on the card (or on the CPU when the caller asks for it):
 
-``train``, ``run``, ``val`` and ``save`` raise: the training half comes
-in a later slice (ROADMAP.md, item 9). So do the train and val datasets,
-which the test task does not read.
+* ``run``: the epoch loop of ``train``, ``val`` every ``eval_interval``
+  epochs, a checkpoint every ``checkpoint_interval`` epochs, and the SWA
+  switch-over at ``swa_start_epoch`` (a fresh ``optimizer_swa`` state
+  and the ``scheduler_swa`` schedule from its step 0);
+* ``val``: ``predict`` -> ``postprocess_dense`` -> the dataset's
+  VOC-style oriented mAP, on the f32 master weights (the activations in
+  the model's compute dtype), leaving training as it was;
+* ``test`` (tile inference with optional flip-TTA -> results pickle ->
+  tile merge -> submission), ``test_time`` and ``run_on_images``;
+* ``save`` / ``load``: the port's checkpoint pickle
+  (``utils/checkpoint.py``), and resume (auto, or ``resume_path``) from
+  it or from the JAX runner's, with the epoch, the iteration and the
+  AdamW state.
+
+The learning rate of a step is the schedule at the optimizer's own step
+count and that count in epochs, as the JAX runner's optax schedule reads
+it. Step ``i`` samples with a generator seeded from (``seed``, i), and
+epoch ``e`` draws its augmentations from Python's and numpy's global
+generators seeded from (``seed``, e) (``seed_host_rngs``), so a resumed
+run trains as an unbroken one.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import random
 import time
 from typing import Dict
 
@@ -22,20 +37,39 @@ import numpy as np
 import torch
 
 from ..config import get_cfg, save_cfg
+from ..data import dota as _dota  # noqa: F401  (registers the datasets)
 from ..data import image as _image  # noqa: F401  (registers ImageDataset)
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)
 from ..optims import optimizer as _optim  # noqa: F401  (OPTIMS)
-from ..utils.general import build_file, search_ckpt
-from ..utils.jax_weights import load_jax_checkpoint, load_jax_variables
+from ..parallel.train_step import train_step
+from ..utils.checkpoint import (FORMAT, load_model_arrays,
+                                load_optimizer_arrays, model_arrays,
+                                optimizer_arrays, read_checkpoint)
+from ..utils.general import build_file, check_interval, search_ckpt
 from ..utils.logger import RunLogger
 from ..utils.registry import (DATASETS, MODELS, OPTIMS, SCHEDULERS,
                               build_from_cfg)
 
-_TRAINING = ("is not ported yet: training through the runner comes with its "
-             "training half (ROADMAP.md, Queue 1, item 9)")
+
+def constant_lr(base_lr, step, epoch):
+    """The schedule of a config without one."""
+    return base_lr
+
+
+def seed_of(*keys: int) -> int:
+    """A 32-bit seed drawn from the integers ``keys``."""
+    return int(np.random.SeedSequence(list(keys)).generate_state(1)[0])
+
+
+def seed_host_rngs(seed: int, epoch: int) -> None:
+    """Seed Python's ``random`` and ``np.random``, from which the
+    transforms draw, for epoch ``epoch`` of a run seeded ``seed``."""
+    s = seed_of(seed, epoch)
+    random.seed(s)
+    np.random.seed(s)
 
 
 class Runner:
@@ -52,6 +86,10 @@ class Runner:
         self.eval_interval = cfg.eval_interval
         self.log_interval = cfg.log_interval or 50
         self.swa_start_epoch = cfg.swa_start_epoch
+        if (cfg.model or {}).get("ema"):
+            raise NotImplementedError(
+                "model.ema (the per-step EMA of the YOLO configs) is not "
+                "ported yet (ROADMAP.md, Queue 1, item 11)")
 
         os.makedirs(self.work_dir, exist_ok=True)
         save_cfg(os.path.join(self.work_dir, "config.yaml"))
@@ -62,12 +100,24 @@ class Runner:
         self.model = build_from_cfg(cfg.model, MODELS)
         init_weights(self.model, torch.Generator().manual_seed(cfg.seed or 0))
         self.model.to(self.device)
-        self.test_dataset = build_from_cfg(
-            cfg.dataset and cfg.dataset.get("test"), DATASETS)
+        datasets = cfg.dataset or {}
+        self.train_dataset = build_from_cfg(datasets.get("train"), DATASETS)
+        self.val_dataset = build_from_cfg(datasets.get("val"), DATASETS)
+        self.test_dataset = build_from_cfg(datasets.get("test"), DATASETS)
+        self.steps_per_epoch = 1 if self.train_dataset is None else max(
+            1, len(self.train_dataset) // self.train_dataset.batch_size)
         self.epoch = 0
         self.iter = 0
-        self._eval_ready = False
+        self._swa_active = False
+        self._serving_cast = False
+        self._profiler = None
         self.test_stats: Dict[str, float] = {}
+        # host seconds of each training step (from the end of the one
+        # before) and seconds the loop waited for a batch; the records
+        # logged every log_interval steps; the last val's APs
+        self.train_stats = dict(step_s=[], loader_wait_s=0.0)
+        self.history = []
+        self.val_aps: Dict[str, float] = {}
 
         self._build_optimizers()
 
@@ -109,55 +159,194 @@ class Runner:
             f"'{bb_type}' (pretrained={pv!r}) but no usable checkpoint "
             "was found and this environment cannot download published "
             "weights. Either (a) set pretrained_weights=<path> in the "
-            "config to a checkpoint pickle of the JAX runner or a flax "
-            "variables pickle (tools/convert_checkpoint.py converts a "
+            "config to a checkpoint pickle of the port or of the JAX "
+            "runner, or a flax variables pickle "
+            "(tools/convert_checkpoint.py converts a "
             "torch/jittor checkpoint), or (b) opt into random "
             "initialization explicitly with allow_random_init=True in the "
             "config (or RS_ALLOW_RANDOM_INIT=1).")
 
     def _build_optimizers(self):
         """The optimizer and schedule, and the SWA pair when the config
-        sets ``optimizer_swa`` (the JAX runner's default optimizer, SGD,
-        is not ported and raises)."""
+        sets ``optimizer_swa`` (its learning rate defaults to the main
+        one's). The JAX runner's default optimizer, SGD, is not ported
+        and raises."""
         cfg = self.cfg
         if cfg.parameter_groups_generator is not None:
             raise NotImplementedError(
-                f"parameter_groups_generator {_TRAINING}")
+                "parameter_groups_generator is not ported yet (ROADMAP.md, "
+                "Queue 1, item 8)")
         params = list(self.model.parameters())
-        self.optimizer = build_from_cfg(
-            dict(cfg.optimizer or dict(type="SGD", lr=0.01)), OPTIMS,
-            params=params)
-        self.scheduler = build_from_cfg(cfg.scheduler, SCHEDULERS)
-        self.optimizer_swa = self.scheduler_swa = None
+        opt_cfg = dict(cfg.optimizer or dict(type="SGD"))
+        opt_cfg.setdefault("lr", 0.01)
+        self.optimizer = build_from_cfg(opt_cfg, OPTIMS, params=params)
+        self.scheduler = build_from_cfg(cfg.scheduler, SCHEDULERS) \
+            or constant_lr
+        self.optimizer_swa, self.scheduler_swa = None, constant_lr
         if cfg.optimizer_swa is not None:
-            self.optimizer_swa = build_from_cfg(dict(cfg.optimizer_swa),
-                                                OPTIMS, params=params)
-            self.scheduler_swa = build_from_cfg(cfg.scheduler_swa, SCHEDULERS)
+            swa_cfg = dict(cfg.optimizer_swa)
+            swa_cfg.setdefault("lr", opt_cfg["lr"])
+            self.optimizer_swa = build_from_cfg(swa_cfg, OPTIMS, params=params)
+            self.scheduler_swa = build_from_cfg(cfg.scheduler_swa,
+                                                SCHEDULERS) or constant_lr
+
+    def _adopt_swa(self):
+        """Train on with the SWA optimizer (its state fresh unless a
+        checkpoint's is loaded into it) and the SWA schedule."""
+        self._swa_active = True
+        self.optimizer, self.scheduler = self.optimizer_swa, self.scheduler_swa
 
     def _ensure_state(self):
-        """Eval mode, with the parameters in the model's compute dtype (as
-        ``build_flagship`` serves)."""
-        if self._eval_ready:
-            return
+        """Eval mode, with the parameters cast once to the model's compute
+        dtype (as ``build_flagship`` serves); training raises after."""
         dtype = self.model.compute_dtype
-        if dtype is not None:
+        if dtype is not None and next(self.model.parameters()).dtype != dtype:
             self.model.to(dtype=dtype)
+            self._serving_cast = True
         self.model.eval()
-        self._eval_ready = True
 
     # ------------------------------------------------------------------
 
+    @property
+    def finish(self):
+        if self.max_iter is not None:
+            return self.iter >= self.max_iter
+        return self.epoch >= self.max_epoch
+
     def run(self):
-        raise NotImplementedError(f"Runner.run {_TRAINING}")
+        """Train to ``max_epoch`` (or ``max_iter``) with the intervals'
+        val and checkpoints; a last checkpoint and val at the end."""
+        self.logger.print_log({"msg": "start running"})
+        saved_epoch = validated_epoch = -1
+        while not self.finish:
+            self.train()
+            if check_interval(self.epoch - 1, self.eval_interval):
+                self.val()
+                validated_epoch = self.epoch
+            if check_interval(self.epoch - 1, self.checkpoint_interval):
+                self.save()
+                saved_epoch = self.epoch
+        if saved_epoch != self.epoch:
+            self.save()
+        if self.val_dataset is not None and validated_epoch != self.epoch:
+            self.val()
 
     def train(self):
-        raise NotImplementedError(f"Runner.train {_TRAINING}")
+        """One epoch (or up to ``max_iter``) of training steps over the
+        train dataset, prefetched by a background thread. The losses
+        become host numbers only every ``log_interval`` steps.
+        ``profile_step`` traces that step and the next two with
+        ``torch.profiler`` into ``work_dir/profile``."""
+        if self.train_dataset is None:
+            raise ValueError("the config has no dataset.train")
+        if self._serving_cast:
+            raise RuntimeError(
+                "the parameters were cast to the compute dtype to serve; "
+                "training needs the f32 master weights: build a new Runner")
+        if (self.swa_start_epoch is not None and self.optimizer_swa is not None
+                and self.epoch >= self.swa_start_epoch
+                and not self._swa_active):
+            self._adopt_swa()
+        seed = self.cfg.seed or 0
+        seed_host_rngs(seed, self.epoch)
+        self.model.train()
+        profile_at = self.cfg.profile_step
+        t_start, first_iter, n_imgs = time.time(), self.iter, 0
+        batches = self.train_dataset.prefetch(seed=self.epoch)
+        t_last = time.perf_counter()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = next(batches, None)
+                self.train_stats["loader_wait_s"] += time.perf_counter() - t0
+                if item is None:
+                    break
+                images, targets, _ = item
+                x = self._to_device(images)
+                tgt = {k: self._to_device(v) for k, v in targets.items()}
+                gen = torch.Generator(device=self.device).manual_seed(
+                    seed_of(seed, self.iter))
+                if profile_at is not None and self.iter == profile_at:
+                    self._start_profile()
+                losses = train_step(
+                    self.model, self.optimizer, self.scheduler, x, tgt, gen,
+                    epoch=self.optimizer.iterations / self.steps_per_epoch)
+                lr = self.optimizer.param_groups[0]["lr"]
+                self.iter += 1
+                n_imgs += images.shape[0]
+                if self._profiler is not None and self.iter == profile_at + 3:
+                    self._stop_profile()
+                if check_interval(self.iter - 1, self.log_interval):
+                    dt = time.time() - t_start
+                    remaining = (self.max_epoch * self.steps_per_epoch
+                                 - self.iter)
+                    record = dict(
+                        name=self.cfg.name or "run", epoch=self.epoch,
+                        iter=self.iter, lr=lr,
+                        fps=round(n_imgs / max(dt, 1e-9), 2),
+                        eta_s=int(remaining * dt
+                                  / max(self.iter - first_iter, 1)),
+                        **{k: float(v) for k, v in losses.items()})
+                    self.logger.log(record)
+                    self.history.append(record)
+                now = time.perf_counter()
+                self.train_stats["step_s"].append(now - t_last)
+                t_last = now
+                if self.finish:
+                    break
+        finally:
+            batches.close()
+        self.epoch += 1
+        if self._profiler is not None and self.finish:
+            self._stop_profile()
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the model's device; to the card through pinned
+        memory, so that the copy does not wait for the step before."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profile(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        path = build_file(self.work_dir, "profile/trace.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        self.logger.print_log({"msg": f"profiler trace -> {path}"})
 
     def val(self):
-        raise NotImplementedError(f"Runner.val (with voc_eval) {_TRAINING}")
-
-    def save(self):
-        raise NotImplementedError(f"Runner.save {_TRAINING}")
+        """mAP of the val dataset (``evaluate``'s dict, also logged). The
+        model serves its f32 master weights in eval mode, its activations
+        in the compute dtype, and goes back to the mode it was in."""
+        if self.val_dataset is None:
+            self.logger.print_log({"msg": "no val dataset, skip"})
+            return {}
+        training = self.model.training
+        self.model.eval()
+        results = []
+        try:
+            for images, targets, metas in self.val_dataset.batches():
+                dets = self.postprocess_dense(self._forward(images, targets),
+                                              metas)
+                for det, meta in zip(dets, [m for m in metas if m]):
+                    results.append((det, meta))
+        finally:
+            self.model.train(training)
+        aps = self.val_dataset.evaluate(results, self.work_dir, self.epoch,
+                                        self.logger)
+        self.val_aps = {k: float(v) for k, v in aps.items()}
+        self.logger.log(self.val_aps)
+        return aps
 
     # ------------------------------------------------------------------
 
@@ -166,6 +355,9 @@ class Runner:
         ``images``, ``targets["scale_factor"]``) as numpy: polys
         [B, P, 8], scores [B, P, C], valid [B, P]."""
         self._ensure_state()
+        return self._forward(images, targets)
+
+    def _forward(self, images: np.ndarray, targets: Dict) -> Dict:
         out = self.model.predict(
             torch.from_numpy(images).to(self.device),
             torch.from_numpy(targets["scale_factor"]).to(self.device))
@@ -273,29 +465,48 @@ class Runner:
 
     # ------------------------------------------------------------------
 
+    def save(self):
+        """``checkpoints/ckpt_{epoch}.pkl`` in the port's format
+        (``utils/checkpoint.py``); returns its path."""
+        if self.cfg.use_orbax:
+            raise NotImplementedError(
+                "use_orbax: orbax checkpoints are JAX-only; the port saves "
+                "its own pickle (leave use_orbax unset)")
+        path = build_file(self.work_dir, f"checkpoints/ckpt_{self.epoch}.pkl")
+        data = dict(
+            meta=dict(format=FORMAT, epoch=self.epoch, iter=self.iter,
+                      max_epoch=self.max_epoch, swa_active=self._swa_active,
+                      save_time=time.time(), config=self.cfg.dump()),
+            model=model_arrays(self.model),
+            opt_state=optimizer_arrays(self.optimizer, self.model),
+            ema=None)
+        with open(path, "wb") as f:
+            pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+        self.logger.print_log({"msg": f"saved {path}"})
+        return path
+
     def load(self, path, model_only=False):
-        """Load a checkpoint pickle of the JAX runner (``{"meta", "model",
-        "opt_state", "ema"}``, ``model`` a flax ``{"params",
-        "batch_stats"}`` tree) or a bare flax variables pickle into the
-        model. A resume (``model_only=False``) takes the epoch and
-        iteration from ``meta`` and serves the EMA weights where the
-        checkpoint has them, as the JAX runner evaluates; the optimizer
-        state waits for the training half."""
+        """Load a checkpoint of the port, one of the JAX runner (read
+        without jax) or a bare flax variables pickle into the model. A
+        resume (``model_only=False``) also takes the epoch and iteration
+        from ``meta``, adopts the SWA optimizer when the checkpoint was
+        saved in the SWA phase, loads the optimizer state into the
+        optimizer in use, and serves the EMA weights where the
+        checkpoint has them, as the JAX runner evaluates."""
         if os.path.isdir(path):
             raise RuntimeError(
                 f"{path} is an orbax checkpoint directory; orbax is JAX-only. "
                 f"Save the checkpoint as a pickle with the JAX runner "
-                f"(use_orbax unset) to serve it here")
-        data = load_jax_checkpoint(path)
-        if isinstance(data, dict) and "model" in data:
-            variables = data["model"]
-            meta = data.get("meta") or {}
-        else:
-            variables, meta = data, {}
+                f"(use_orbax unset) to load it here")
+        meta, arrays, opt_state, ema = read_checkpoint(path)
         if not model_only and meta:
             self.epoch = int(meta.get("epoch", 0))
             self.iter = int(meta.get("iter", 0))
-            if data.get("ema") is not None:
-                variables = dict(variables, params=data["ema"])
-        load_jax_variables(self.model, variables)
+            if ema is not None:
+                arrays = dict(arrays, **ema)
+            if meta.get("swa_active") and self.optimizer_swa is not None:
+                self._adopt_swa()
+            if opt_state is not None:
+                load_optimizer_arrays(self.optimizer, self.model, opt_state)
+        load_model_arrays(self.model, arrays)
         self.logger.print_log({"msg": f"loaded {path}"})

@@ -1,14 +1,18 @@
 """Command line of the port (counterpart of ``tools/run_net.py``):
 
     python -m rs_detection_tpu_torch.tools.run_net --config-file CFG \
-        --task test [--flip_test] [--save_dir DIR] [--cpu]
+        --task train|val|test|vis_test [--flip_test] [--save_dir DIR] [--cpu]
 
-``--task test`` serves the config's test tiles and writes the results
-pickle, the merged per-class files and the submission under the work
-directory (``submit_zips/`` under the working directory); flip-TTA runs
-when ``--flip_test`` is passed or the config sets ``flip_test``.
-``vis_test`` draws the detections on the images of the config's
-``vis_test_dir``. ``train`` and ``val`` are not ported yet and raise.
+``--task train`` runs the config's training (``Runner.run``: epochs,
+checkpoints under ``work_dir/checkpoints``, the SWA switch-over, val
+when the config sets ``eval_interval`` and at the end), resuming from
+the newest checkpoint of the work directory or ``resume_path``.
+``--task val`` computes the val dataset's mAP. ``--task test`` serves
+the config's test tiles and writes the results pickle, the merged
+per-class files and the submission under the work directory
+(``submit_zips/`` under the working directory); flip-TTA runs when
+``--flip_test`` is passed or the config sets ``flip_test``. ``vis_test``
+draws the detections on the images of the config's ``vis_test_dir``.
 The model runs on the CUDA card (an error where there is none) unless
 ``--cpu`` is passed.
 """

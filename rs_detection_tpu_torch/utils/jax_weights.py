@@ -23,7 +23,11 @@ nothing is silently left at its init.
 ``load_jax_checkpoint`` reads the pickle the JAX runner's ``save``
 writes without importing jax: its arrays are jax arrays, which pickle
 as a numpy array plus a call to rebuild the device array; that call is
-replaced by one that keeps the numpy array.
+replaced by one that keeps the numpy array. ``jax_adamw_state`` carries
+that checkpoint's ``opt_state`` (an optax AdamW chain) over to the
+port's AdamW: ``count`` -> ``step`` and ``iterations``, ``mu`` ->
+``exp_avg``, ``nu`` -> ``exp_avg_sq``, each leaf in the torch layout of
+its parameter.
 """
 
 from __future__ import annotations
@@ -119,3 +123,30 @@ def load_jax_checkpoint(path: str):
     flax variables tree), with every jax array as a numpy array."""
     with open(path, "rb") as f:
         return _JaxCheckpointUnpickler(f).load()
+
+
+def _adam_states(tree):
+    """The ``{"count", "mu", "nu"}`` nodes of a serialized optax state."""
+    if not isinstance(tree, Mapping):
+        return []
+    if {"count", "mu", "nu"} <= set(tree):
+        return [tree]
+    return [s for v in tree.values() for s in _adam_states(v)]
+
+
+def jax_adamw_state(opt_state: Mapping) -> Dict:
+    """A JAX runner checkpoint's ``opt_state`` (``flax.serialization``
+    state dict of the optax chain ``[clip_by_global_norm ->] adamw``) ->
+    the port's optimizer state: {"iterations": count, "state": {parameter
+    name: {"step", "exp_avg", "exp_avg_sq"}}}. Any other optimizer's
+    state raises."""
+    found = _adam_states(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"the checkpoint's opt_state holds {len(found)} "
+                         f"Adam states; only an AdamW chain carries over")
+    adam = found[0]
+    count = int(np.asarray(adam["count"]))
+    mu = jax_to_state_dict({"params": adam["mu"]})
+    nu = jax_to_state_dict({"params": adam["nu"]})
+    return dict(iterations=count, state={
+        k: dict(step=count, exp_avg=mu[k], exp_avg_sq=nu[k]) for k in mu})

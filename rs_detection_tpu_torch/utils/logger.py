@@ -1,11 +1,12 @@
-"""Run logging: a text file and the console (counterpart of
-``rs_detection_tpu/utils/logger.py``; its TensorBoard scalars come with
-the training half of the runner)."""
+"""Run logging: a text file, TensorBoard scalars and the console
+(counterpart of ``rs_detection_tpu/utils/logger.py``)."""
 
 from __future__ import annotations
 
 import os
+import sys
 import time
+import types
 from typing import Dict
 
 from .registry import HOOKS
@@ -23,14 +24,50 @@ class TextLogger:
 
 
 @HOOKS.register_module()
+class TensorboardLogger:
+    """The numbers of each record as scalars under
+    ``work_dir/tensorboard``, at the record's ``iter``; nothing where
+    ``torch.utils.tensorboard`` cannot be imported. The writer is opened
+    at the first record, with TensorBoard's TensorFlow-free stub (the
+    ``tensorboard.compat.notf`` marker): where TensorFlow is installed,
+    importing it takes seconds and pulls in jax."""
+
+    def __init__(self, work_dir: str):
+        self.log_dir = os.path.join(work_dir, "tensorboard")
+        self.writer = None
+        self._opened = False
+
+    def _open(self):
+        self._opened = True
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self.writer = SummaryWriter(self.log_dir)
+
+    def log(self, data: Dict):
+        if not self._opened:
+            self._open()
+        if self.writer is None:
+            return
+        step = int(data.get("iter", 0))
+        for k, v in data.items():
+            if isinstance(v, (int, float)) and k != "iter":
+                self.writer.add_scalar(k, v, global_step=step)
+        self.writer.flush()
+
+
+@HOOKS.register_module()
 class RunLogger:
-    """The text logger, and a console line per record."""
+    """The text and TensorBoard loggers, and a console line per record."""
 
     def __init__(self, work_dir: str, enabled=True):
         self.loggers = []
         self.enabled = enabled
         if enabled:
-            self.loggers = [TextLogger(work_dir)]
+            self.loggers = [TextLogger(work_dir), TensorboardLogger(work_dir)]
 
     def log(self, data: Dict):
         if not self.enabled:

@@ -15,7 +15,7 @@ with and without bias; K1's row design and the row-streaming design of
 K7's form at ragged shapes, beside their first designs), the rule that a kernel
 wrapper never hands autograd a detached result, the tiny config's
 predict (fused and not, int8 and not) and training step, and its test
-task through ``Runner``, CUDA against CPU."""
+and train tasks through ``Runner``, CUDA against CPU."""
 
 import os
 
@@ -234,7 +234,8 @@ def test_tiny_train_step_cuda_matches_cpu(dev):
         losses = train_step(model, AdamW(model.parameters()), StepLR([7]),
                             images.to(device),
                             {k: v.to(device) for k, v in targets.items()},
-                            torch.Generator(device=device).manual_seed(0))
+                            torch.Generator(device=device).manual_seed(0),
+                            epoch=0)
         runs.append((losses, {k: p.grad.cpu() for k, p in
                               model.named_parameters()}))
     assert dw_wgrad_cuda.launches == before + 15      # 5 blocks x 3 convs
@@ -1043,3 +1044,93 @@ def test_runner_test_task_cuda_matches_cpu(dev, tmp_path, monkeypatch):
     assert sorted(os.listdir(a)) == sorted(os.listdir(b))
     for name in os.listdir(a):
         assert (a / name).read_bytes() == (b / name).read_bytes()
+
+
+def _train_runner_on(device, ds, work_dir):
+    """The tiny flagship config trained by ``Runner`` over 2 labelled
+    128^2 tiles: batch 2, flips and rotations, the SWA switch after
+    epoch 0 (2 steps), samplers that take every candidate, f32; val on
+    the same tiles."""
+    from rs_detection_tpu_torch.config import get_cfg
+    from rs_detection_tpu_torch.flagship import PIXEL_MEAN, PIXEL_STD
+    from rs_detection_tpu_torch.runner import Runner
+
+    model = flagship_cfg(tiny=True)
+    model["rpn"]["sampler"] = dict(num=16384, pos_fraction=1.0)
+    model["bbox_head"]["sampler"] = dict(num=64 + 8, pos_fraction=1.0,
+                                         add_gt_as_proposals=True)
+    pipe = [dict(type="RotatedResize", min_size=128, max_size=128),
+            dict(type="RotatedRandomFlip", prob=0.5),
+            dict(type="RandomRotateAug", random_rotate_on=True),
+            dict(type="Normalize", mean=list(PIXEL_MEAN),
+                 std=list(PIXEL_STD), to_bgr=False)]
+    split = dict(type="DOTADataset", dataset_dir=str(ds), batch_size=2,
+                 max_gt=8, transforms=pipe)
+    cfg = get_cfg()
+    cfg.clear()
+    cfg.update(dict(
+        name="tiny_train", work_dir=str(work_dir), seed=4, model=model,
+        max_epoch=2, swa_start_epoch=1, log_interval=1,
+        dataset=dict(train=dict(split, shuffle=True), val=split),
+        optimizer=dict(type="AdamW", lr=1e-4, grad_clip=dict(max_norm=35)),
+        scheduler=dict(type="StepLR", milestones=[7, 10]),
+        optimizer_swa=dict(type="AdamW", lr=1e-4),
+        scheduler_swa=dict(type="CosineAnnealingLR", max_steps=1)))
+    return Runner(device=device)
+
+
+def test_runner_train_task_cuda_matches_cpu(dev, tmp_path):
+    """``Runner.run`` on the card (K1, K3 and K6 in each step, K1 and K2
+    in val) and on the CPU from one config and seed: the same rates,
+    losses within 1e-4 relative (the tiny training step's), parameters
+    within 2 x the summed rates (one AdamW step moves a weight about lr,
+    either way where the gradient is noise)."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from rs_detection_tpu_torch.ops.roi_align import \
+        roi_align_rotated_pyramid_cuda as k1
+    from rs_detection_tpu_torch.ops.van_mlp import van_mlp_cuda as k2
+
+    ds = tmp_path / "ds"
+    (ds / "images").mkdir(parents=True)
+    rng = np.random.RandomState(9)
+    infos = []
+    for i in range(2):
+        Image.fromarray(rng.randint(0, 256, (128, 128, 3)).astype(
+            np.uint8)).save(ds / "images" / f"T{i}.png")
+        boxes = np.stack([rng.uniform(24, 104, 4), rng.uniform(24, 104, 4),
+                          rng.uniform(16, 48, 4), rng.uniform(8, 24, 4),
+                          np.zeros(4)], 1).astype(np.float32)  # axis-aligned
+        infos.append(dict(filename=f"T{i}.png", width=128, height=128,
+                          ann=dict(bboxes=boxes,
+                                   labels=rng.randint(1, 11, 4))))
+    with open(ds / "labels.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    gpu = _train_runner_on(None, ds, tmp_path / "gpu")
+    cpu = _train_runner_on("cpu", ds, tmp_path / "cpu")
+    before = (k1.launches, k2.launches, roi_align_rotated_pyramid_bwd_cuda
+              .launches, dw_wgrad_cuda.launches)
+    gpu.run()
+    after = (k1.launches, k2.launches, roi_align_rotated_pyramid_bwd_cuda
+             .launches, dw_wgrad_cuda.launches)
+    # 2 steps: K1 and K3 once, K6 15 times (5 blocks x 3 convs) each;
+    # the final val: one forward, K1 once and K2 5 times
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 5, 2, 30)
+    cpu.run()
+    lrs = [r["lr"] for r in gpu.history]
+    assert lrs == [r["lr"] for r in cpu.history] and len(lrs) == 2
+    assert gpu._swa_active and gpu.optimizer.iterations == 1
+    for g, c in zip(gpu.history, cpu.history):
+        for k, v in c.items():
+            if "loss" in k:
+                assert abs(g[k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+    bound = 2 * sum(lrs) + 1e-6
+    ref = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            continue
+        assert (v.cpu() - ref[k]).abs().max().item() <= bound, k
+    assert len(gpu.val_aps) == 16  # the 15 DOTA classes and the mean

@@ -92,8 +92,8 @@ def test_pad_to_size_and_errors():
     assert tg == tr == {"pad_shape": (64, 48)}
     with pytest.raises(ValueError):
         transforms.Pad()
-    with pytest.raises(KeyError, match="RotatedRandomFlip"):
-        transforms.Compose([dict(type="RotatedRandomFlip", prob=0.5)])
+    with pytest.raises(KeyError, match="MinIoURandomCrop"):
+        transforms.Compose([dict(type="MinIoURandomCrop")])
 
 
 def test_collate_matches_jax():

@@ -236,16 +236,34 @@ def test_pretrained_request_is_loud(served, tmp_path, monkeypatch):
     _port_runner(tmp_path, monkeypatch, served["images"], model=model)
 
 
-def test_unported_tasks_and_formats_raise(served, tmp_path, monkeypatch):
-    pr = _port_runner(tmp_path, monkeypatch, served["images"])
-    for task in (pr.train, pr.val, pr.run, pr.save):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            task()
-    (tmp_path / "orbax_ckpt").mkdir()
-    with pytest.raises(RuntimeError, match="orbax"):
-        pr.load(str(tmp_path / "orbax_ckpt"))
-    with pytest.raises(KeyError, match="SGD"):
-        _port_runner(tmp_path, monkeypatch, served["images"], optimizer=None)
+UNPORTED = {
+    "sgd": (dict(optimizer=None), None, KeyError, "SGD"),
+    "ema": (dict(model=dict(flagship_cfg(tiny=True), ema=True)), None,
+            NotImplementedError, "ROADMAP"),
+    "parameter_groups": (dict(parameter_groups_generator=dict(
+        type="YoloParameterGroupsGenerator")), None, NotImplementedError,
+        "ROADMAP"),
+    "orbax_save": (dict(use_orbax=True), "save", NotImplementedError,
+                   "orbax"),
+    "orbax_load": ({}, "load_dir", RuntimeError, "orbax"),
+    "no_train_dataset": ({}, "train", ValueError, "dataset.train"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_tasks_and_formats_raise(served, tmp_path, monkeypatch,
+                                          case):
+    """What the port does not do raises: SGD (ROADMAP item 8), per-step
+    EMA (item 11), parameter groups, orbax checkpoints (JAX-only), and
+    training without a train dataset."""
+    extra, call, error, match = UNPORTED[case]
+    with pytest.raises(error, match=match):
+        pr = _port_runner(tmp_path, monkeypatch, served["images"], **extra)
+        if call == "load_dir":
+            (tmp_path / "orbax_ckpt").mkdir()
+            pr.load(str(tmp_path / "orbax_ckpt"))
+        elif call is not None:
+            getattr(pr, call)()
 
 
 def test_default_device_needs_a_card(served, tmp_path, monkeypatch):
@@ -299,22 +317,53 @@ def test_run_net_cli_serves_a_config(served, tmp_path):
 
 
 def test_runner_and_run_net_import_no_jax(served, tmp_path):
-    """Importing the runner and the CLI, loading a JAX checkpoint and
-    serving the tiny config's test task pull in no jax, flax or the JAX
-    package."""
+    """Importing the runner, the CLI, the labelled datasets, the
+    evaluation and the tools, loading a JAX checkpoint, serving the tiny
+    config's test task, training it one step (``--task train``, a
+    checkpoint of the port's format), averaging checkpoints and
+    validating pull in no jax, flax or the JAX package."""
     work = tmp_path / "work"
     (work / "checkpoints").mkdir(parents=True)
     shutil.copy(served["ckpt"], work / "checkpoints" / "ckpt_0.pkl")
     cfg = write_config(str(tmp_path / "tiny_runner.py"), tiny_config(
         served["images"], str(work)))
+    labelled = tmp_path / "labelled"
+    (labelled / "images").mkdir(parents=True)
+    for t in TILES:
+        shutil.copy(os.path.join(served["images"], t), labelled / "images")
+    with open(labelled / "labels.pkl", "wb") as f:
+        pickle.dump([dict(filename=t, width=128, height=128, ann=dict(
+            bboxes=np.array([[40, 40, 30, 14, 0.3], [80, 70, 20, 10, -0.4]],
+                            np.float32), labels=np.array([1, 2])))
+            for t in TILES], f)
+    split = dict(type="FAIR1M_1_5_Dataset", dataset_dir=str(labelled),
+                 batch_size=2, max_gt=4, transforms=[
+                     dict(type="RotatedRandomFlip", prob=0.5),
+                     dict(type="Pad", size_divisor=32), NORM])
+    train_cfg = write_config(str(tmp_path / "tiny_train.py"), tiny_config(
+        served["images"], str(tmp_path / "train_work"), max_epoch=1,
+        log_interval=1,
+        pretrained_weights=str(served["ckpt"]),
+        dataset=dict(train=split, val=split)))
     code = ("import sys\n"
             "import rs_detection_tpu_torch.runner\n"
+            "from rs_detection_tpu_torch.data import custom, dota\n"
+            "from rs_detection_tpu_torch.data.devkits import voc_eval\n"
+            "from rs_detection_tpu_torch.tools import get_swa_model, val\n"
             "from rs_detection_tpu_torch.tools.run_net import main\n"
             f"runner = main(['--config-file', {cfg!r}, '--task', 'test',\n"
             "               '--cpu'])\n"
             "assert runner.test_stats['tiles'] == 2, runner.test_stats\n"
+            f"runner = main(['--config-file', {train_cfg!r}, '--task',\n"
+            "               'train', '--cpu'])\n"
+            "assert runner.iter == 1 and runner.history, runner.history\n"
+            "get_swa_model.get_swa_model(runner.work_dir, 1, 1)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'rs_detection_tpu')]\n"
             "assert not bad, bad\n")
     _subprocess(["-c", code], str(tmp_path))
     assert (tmp_path / "submit_zips" / "tiny_runner.csv").exists()
+    assert sorted(os.listdir(tmp_path / "train_work" / "checkpoints")) == [
+        "ckpt_1.pkl", "swa_1-1.pkl"]
+    assert (tmp_path / "train_work" / "detections" / "val_1" /
+            "val.pkl").exists()

@@ -147,7 +147,7 @@ def test_port_imports_no_jax():
             "g = torch.Generator().manual_seed(0)\n"
             "train_step(m, AdamW(m.parameters()), StepLR([7, 10]),\n"
             "           torch.zeros(1, 64, 64, 3), make_targets(1, 64, 4, g),"
-            " g)\n"
+            " g, epoch=0)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in\n"
             "       ('jax', 'flax', 'rs_detection_tpu')]\n"
             "assert not bad, bad\n")

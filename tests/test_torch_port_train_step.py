@@ -139,7 +139,7 @@ def one_step():
     losses = train_step(port, opt, StepLR(**SCHED),
                         torch.from_numpy(images),
                         {k: torch.from_numpy(v) for k, v in targets.items()},
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), epoch=0)
     got = dict(losses={k: float(v) for k, v in losses.items()},
                grads={k: (torch.zeros_like(p) if p.grad is None
                           else p.grad).numpy()
