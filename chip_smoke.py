@@ -125,12 +125,36 @@ Phases, each of which raises (exit code 1) on failure:
      the tiles (K2 38 and K1 1 in its one forward, 10 class APs and the
      mean, finite); prints the runner's median ms/step beside phase
      10's, the loader's wait and the peak memory
+ 25. the tiny ResNet config (``tests/test_runner.py:_tiny_cfg``'s
+     Resnet18 Oriented R-CNN with the zoo's ``frozen_stages=1``,
+     ``norm_eval=True``, samplers that take every candidate): ``predict``
+     and two SGD steps on CUDA (K1, K3) against the CPU, f32; checks the
+     frozen conv weights decayed and no running statistic moved
+ 26. the ResNet path at full width: ``run_net --task train`` on
+     ``projects/oriented_rcnn/configs/orcnn_r50_fpn_1x_dota.py``
+     (ResNet-50, f32 as written, SGD, batch 2) over 12 seeded 1024^2
+     tiles with 42 boxes each (6 steps), then ``--task test`` with the
+     DOTA merge from its checkpoint over 8 scene tiles; checks losses,
+     results and K1 1 / K3 1 launches a step, K1 1 a test forward;
+     prints ms/step, peak memory, tiles/s; times K1 on the 4,000 rois of
+     one test forward and K3 on the 1,024 of one step (captured at the
+     RoI extractor's call) against their plain versions and bounds
+ 27. EQLv2 at full width: ``run_net --task train`` on
+     ``orcnn_r101_fpn_ms_flip_rotate_bc_le90_eqlv2.py`` (ResNet-101,
+     ``OrientedEQLv2Head``) for 2 steps at batch 2 (the config's 8, cut:
+     printed), then a new ``Runner`` resumes the checkpoint: the EQLv2
+     state moved and came back bit for bit
+ 28. the overfit test on the card (``tests/test_torch_overfit_map.py``):
+     200 epochs of the tiny ResNet config on 4 rendered tiles, per-class
+     APs at least 0.3, float and int8 (within 0.05), merged detections
+     on the scene's ground truth
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one; K1's and K3's time on the step-like rois, K1's on a serving
 request's, K5's in a CUDA graph; K1's and K2's launches in phase 22's
 test task, K1's, K3's and K6's in phase 24's train task, K1's and K2's in
-its val task), the
+its val task; K1's and K3's launches in phase 26's tasks and their
+times, plain times and bounds at its shapes, ``resnet_*``), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -155,6 +179,7 @@ REQUESTS = 10
 TRAIN_STEPS = 5
 MAX_GT = 42
 TRAIN_TASK_TILES = 24  # phase 24: 3 steps of batch 8 an epoch, 2 epochs
+RESNET_TILES = 12  # phase 26: 6 steps of batch 2
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -1864,6 +1889,382 @@ def phase_train_task_breakdown(torch, runner, card):
         f"{'; '.join(out)} [{card}]")
 
 
+def resnet_tiny_model():
+    """The model section of ``tests/test_runner.py:_tiny_cfg`` (Resnet18,
+    32-wide FPN and heads; its copy in ``tests/test_torch_overfit_map.py``)
+    with the zoo's freezing (``frozen_stages=1``, ``norm_eval=True``) and
+    samplers that take every candidate (>= the 4092 anchors of a 128^2
+    tile; nms_post + 6 ground truths), as the CPU runner tests train it."""
+    from test_torch_overfit_map import tiny_cfg
+
+    model = tiny_cfg("", "", None)["model"]
+    model["backbone"].update(frozen_stages=1, norm_eval=True)
+    model["rpn"]["sampler"] = dict(num=4096, pos_fraction=1.0)
+    model["bbox_head"]["sampler"] = dict(num=32 + 6, pos_fraction=1.0,
+                                         add_gt_as_proposals=True)
+    return model
+
+
+def phase_resnet_tiny(torch, dev):
+    """The tiny ResNet config's ``predict`` and two SGD steps, CUDA (K1,
+    K3) against the CPU (plain versions), f32, TF32 off, from one seed."""
+    from rs_detection_tpu_torch.flagship import (init_weights, make_targets,
+                                                 normalize)
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import SGD
+    from rs_detection_tpu_torch.parallel.train_step import train_step
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    g = torch.Generator().manual_seed(25)
+    tiles = torch.randint(0, 256, (2, 128, 128, 3), generator=g,
+                          dtype=torch.uint8)
+    targets = make_targets(2, 128, 6, g)
+    # axis-aligned, as phase 9's (the RPN's tie-keeping rescue)
+    targets["rboxes"][..., 4] = 0.0
+    runs = {}
+    for device in ("cpu", dev):
+        model = build_from_cfg(resnet_tiny_model(), MODELS)
+        init_weights(model, torch.Generator().manual_seed(3))
+        model.to(device)
+        start = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        pred = model.eval().predict(normalize(tiles.to(device)))
+        opt = SGD(model.parameters(), lr=0.01, momentum=0.9,
+                  grad_clip=dict(max_norm=35))
+        sched = StepLR([8], warmup="linear", warmup_iters=4,
+                       warmup_ratio=0.25)
+        losses = []
+        for step in range(2):
+            out = train_step(model, opt, sched, normalize(tiles.to(device)),
+                             {k: v.to(device) for k, v in targets.items()},
+                             torch.Generator(device=device).manual_seed(step),
+                             epoch=opt.iterations / 2)
+            losses.append({k: float(v) for k, v in out.items()})
+        runs[str(device)] = (pred, losses, start, {
+            k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (p_cpu, l_cpu, s0, w_cpu), (p_gpu, l_gpu, _, w_gpu) = runs["cpu"], \
+        runs[str(dev)]
+    if not torch.equal(p_cpu["valid"], p_gpu["valid"].cpu()):
+        raise AssertionError("tiny ResNet predict: valid masks differ")
+    for key, atol in (("polys", 1e-2), ("scores", 1e-5)):  # phase 5's
+        err = (p_gpu[key].cpu() - p_cpu[key]).abs().max().item()
+        log(f"  tiny ResNet predict, CUDA vs CPU, {key}: max_abs_err "
+            f"{err:.3e} (atol {atol})")
+        if not err <= atol:
+            raise AssertionError(f"tiny ResNet predict: {key} differ")
+    worst = max(abs(g_[k] - c[k]) / max(abs(c[k]), 1e-6)
+                for g_, c in zip(l_gpu, l_cpu) for k in c if "loss" in k)
+    log(f"  tiny ResNet, 2 SGD steps, losses CUDA vs CPU: worst relative "
+        f"error {worst:.2e} (tolerance 1e-4, phase 9's)")
+    if not worst <= 1e-4:
+        raise AssertionError("tiny ResNet training: losses differ")
+    # each parameter within 1e-6 + 3% of its move (the CPU runner test's
+    # bound, tests/test_torch_resnet_runner.py); the frozen stem and
+    # layer1 moved too (weight decay), and no running statistic moved
+    worst, frozen_moved = 0.0, True
+    for k, c in w_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (w_gpu[k] - c).abs().max().item()
+        moved = (c - s0[k]).abs().max().item()
+        if k.endswith(("running_mean", "running_var")):
+            if moved != 0.0 or d != 0.0:
+                raise AssertionError(f"tiny ResNet training: {k} moved")
+            continue
+        worst = max(worst, d / (moved + 1e-12))
+        if not d <= 1e-6 + 0.03 * moved:
+            raise AssertionError(f"tiny ResNet training: {k} differs by "
+                                 f"{d} of a move of {moved}")
+        if k.startswith(("backbone.Conv_0", "backbone.layer1_")) and \
+                ".Conv_" in f".{k}" and k.endswith("weight"):
+            frozen_moved &= moved > 0.0
+    log(f"  tiny ResNet, 2 SGD steps, parameters CUDA vs CPU: worst "
+        f"difference {100 * worst:.3f}% of the parameter's move (tolerance "
+        f"3%); frozen stem and layer1 conv weights decayed: {frozen_moved}; "
+        f"running "
+        f"statistics unmoved")
+    if not frozen_moved:
+        raise AssertionError("tiny ResNet training: a frozen parameter "
+                             "did not decay")
+
+
+def captured_roi_calls(torch, fn):
+    """The (features, rois) of each RoI extractor call inside ``fn()``."""
+    from rs_detection_tpu_torch.models.roi_extractors import \
+        oriented_single_level as extractor
+
+    seen = []
+    call = extractor.roi_align_rotated_pyramid
+
+    def capture(feats, rois, *args, **kwargs):
+        seen.append(([f.detach().clone() for f in feats],
+                     rois.detach().clone()))
+        return call(feats, rois, *args, **kwargs)
+
+    extractor.roi_align_rotated_pyramid = capture
+    try:
+        fn()
+    finally:
+        extractor.roi_align_rotated_pyramid = call
+    return seen
+
+
+def phase_resnet_train_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` with the merge on
+    ``projects/oriented_rcnn/configs/orcnn_r50_fpn_1x_dota.py`` at full
+    width; the wrappers' launches counted over each task; K1 and K3 at
+    this path's shapes. Returns (train task launches, test task launches,
+    K1 (ms, plain ms, bound), K3 (ms, plain ms, bound))."""
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import make_targets, normalize
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.tools import run_net
+
+    names = [f"R{i:02d}.png" for i in range(RESNET_TILES)]
+    t = make_targets(RESNET_TILES, TILE, MAX_GT,
+                     torch.Generator().manual_seed(26))
+    ds = write_labelled(os.path.join(tmp, "r50_train"), names, TILE, 26,
+                        t["rboxes"].numpy(), t["labels"].numpy())
+    tiles = os.path.join(tmp, "r50_test")
+    test_names = [f"S{k}__1.0__{x}___{y}.png" for k in range(2)
+                  for x, y in SCENE_OFFSETS]
+    write_tiles(tiles, test_names, TILE, 27)
+    base = os.path.join(ROOT, "projects", "oriented_rcnn", "configs",
+                        "orcnn_r50_fpn_1x_dota.py")
+    work = os.path.join(tmp, "r50_work")
+    cfg = write_config(
+        os.path.join(tmp, "orcnn_r50_fpn_1x_dota_chip.py"), _base_=base,
+        allow_random_init=True, max_epoch=1, log_interval=1,
+        checkpoint_interval=1, work_dir=work,
+        dataset=dict(train=dict(dataset_dir=ds),
+                     test=dict(images_dir=tiles)),
+        merge_cfg=dict(dataset_type="DOTA"))
+    steps = RESNET_TILES // 2
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = run_net.main(["--config-file", cfg, "--task", "train"])
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = {k: fn.launches for k, fn in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        want.update(roi_align_rotated_pyramid=steps,
+                    roi_align_rotated_pyramid_bwd=steps)
+        if train_launches != want:
+            raise AssertionError(f"ResNet train task launches "
+                                 f"{train_launches}, expected {want}")
+        hist = runner.history
+        if len(hist) != steps or type(runner.optimizer).__name__ != "SGD":
+            raise AssertionError(f"ResNet train task: {len(hist)} records, "
+                                 f"{type(runner.optimizer).__name__}")
+        for rec in hist:
+            losses = {k: v for k, v in rec.items() if "loss" in k}
+            if not (all(math.isfinite(v) for v in losses.values())
+                    and losses["loss_rpn_bbox"] > 0
+                    and losses["orcnn_bbox_loss"] > 0):
+                raise AssertionError(f"ResNet train task: losses {rec}")
+        dtypes = {p.dtype for p in runner.model.parameters()}
+        if dtypes != {torch.float32} or runner.model.compute_dtype:
+            raise AssertionError(f"ResNet train task: dtypes {dtypes}")
+        step_ms = sorted(1e3 * x for x in runner.train_stats["step_s"][1:])
+        log(f"  run_net --task train, ResNet-50 Oriented R-CNN from "
+            f"projects/oriented_rcnn/configs/orcnn_r50_fpn_1x_dota.py (f32, "
+            f"as written; SGD, 3-ratio RPN, 15 classes, frozen stem and "
+            f"layer1, norms on running statistics): {RESNET_TILES} tiles of "
+            f"{TILE}^2 with {MAX_GT} boxes, batch 2, 4 loader threads, "
+            f"{steps} steps in {t_train:.1f} s whole task; ms/step through "
+            f"the runner, median of steps 2-{steps}: "
+            f"{step_ms[len(step_ms) // 2]:.1f} (min {step_ms[0]:.1f}, max "
+            f"{step_ms[-1]:.1f}); loader wait "
+            f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        log("  losses, first and last step: " + ", ".join(
+            f"{k} {hist[0][k]:.4f} -> {hist[-1][k]:.4f}" for k in hist[0]
+            if "loss" in k))
+        log(f"  launches in the train task: {train_launches}")
+
+        model = runner.model
+        x = normalize(torch.randint(
+            0, 256, (2, TILE, TILE, 3), dtype=torch.uint8,
+            generator=torch.Generator().manual_seed(28)).to(runner.device))
+        tgt = {k: v[:2].to(runner.device) for k, v in t.items()}
+        fwd = captured_roi_calls(torch, lambda: model.eval().predict(x))
+        with torch.no_grad():
+            step = captured_roi_calls(torch, lambda: model.train().loss(
+                x, tgt, torch.Generator(device=runner.device).manual_seed(0)))
+        del runner, model
+        torch.cuda.empty_cache()
+
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tester = run_net.main(["--config-file", cfg, "--task", "test"])
+        t_test = time.perf_counter() - t0
+        test_launches = {k: fn.launches for k, fn in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    forwards = len(test_names) // 2
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=forwards)
+    if test_launches != want or tester.epoch != 1:
+        raise AssertionError(f"ResNet test task launches {test_launches}, "
+                             f"expected {want}; epoch {tester.epoch}")
+    with open(os.path.join(work, "test", "test_1.pkl"), "rb") as f:
+        results = pickle.load(f)
+    if len(results) != len(test_names) or not all(
+            np.isfinite(p).all() and np.isfinite(s).all()
+            for (p, s, _), _ in results):
+        raise AssertionError("ResNet test task: bad results")
+    after = os.path.join(work, "test", "submit_1", "after_nms")
+    n_out = read_rows(os.path.join(after, n) for n in os.listdir(after))
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl: {len(test_names)} tiles "
+        f"at batch 2 in {stats['inference_s']:.3f} s = "
+        f"{len(test_names) / stats['inference_s']:.2f} tiles/s of inference; "
+        f"merge {stats['merge_s']:.3f} s; detections {stats['detections']} "
+        f"in, {n_out} after NMS; whole task {t_test:.1f} s [{card}]")
+    log(f"  launches in the test task: {test_launches}")
+
+    # K1 and K3 on what this path hands them
+    if len(fwd) != 1 or len(step) != 1:
+        raise AssertionError("ResNet path: the RoI extractor calls differ")
+    out = []
+    for what, (fs, rois) in (("K1, one test forward", fwd[0]),
+                             ("K3, one training step", step[0])):
+        g = torch.Generator(device=rois.device).manual_seed(29)
+        if what.startswith("K1"):
+            got = ra.roi_align_rotated_pyramid_cuda(fs, rois)
+            compare(f"{what}: {rois.shape[0]} rois, C=256, f32", got,
+                    ra.roi_align_rotated_pyramid_reference(fs, rois),
+                    "float32")
+            t_k = cuda_ms(lambda: ra.roi_align_rotated_pyramid_cuda(
+                fs, rois), 10)
+            t_p = cuda_ms(lambda: ra.roi_align_rotated_pyramid_reference(
+                fs, rois), 3)
+            b = bound(nbytes(*fs, rois, got), 0.0, 32.0 * got.numel())
+        else:
+            grad = torch.randn(rois.shape[0], 7, 7, fs[0].shape[-1],
+                               generator=g, device=rois.device)
+            compare(f"{what}: {rois.shape[0]} rois, C=256, f32",
+                    ra.roi_align_rotated_pyramid_bwd_cuda(fs, rois, grad),
+                    ra.roi_align_rotated_pyramid_bwd_reference(fs, rois,
+                                                               grad),
+                    "float32", K3_TOL)
+            t_k = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
+                fs, rois, grad), 10)
+            t_p = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_reference(
+                fs, rois, grad), 3)
+            b = bound(nbytes(grad, rois, *fs), 0.0, 32.0 * grad.numel())
+        log(f"    {what}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]} [{card}]")
+        out.append((t_k, t_p, b))
+    return train_launches, test_launches, out[0], out[1]
+
+
+def phase_eqlv2(torch, tmp, card):
+    """``run_net --task train`` on
+    ``orcnn_r101_fpn_ms_flip_rotate_bc_le90_eqlv2.py`` at full width for 2
+    steps at batch 2 (the config's 8, cut), then a new ``Runner``
+    resuming its checkpoint: the EQLv2 state moved and came back."""
+    import pickle
+
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.runner import Runner
+    from rs_detection_tpu_torch.tools import run_net
+
+    names = [f"E{i}.png" for i in range(4)]
+    t = make_targets(4, TILE, MAX_GT, torch.Generator().manual_seed(30))
+    ds = write_labelled(os.path.join(tmp, "eqlv2_train"), names, TILE, 30,
+                        t["rboxes"].numpy(), t["labels"].numpy())
+    base = os.path.join(ROOT, "projects", "oriented_rcnn", "configs",
+                        "orcnn_r101_fpn_ms_flip_rotate_bc_le90_eqlv2.py")
+    work = os.path.join(tmp, "eqlv2_work")
+    cfg = write_config(
+        os.path.join(tmp, "orcnn_r101_eqlv2_chip.py"), _base_=base,
+        allow_random_init=True, max_epoch=1, log_interval=1,
+        checkpoint_interval=1, work_dir=work,
+        dataset=dict(train=dict(dataset_dir=ds, batch_size=2), val=None,
+                     test=None))
+    log("  cut: batch 8 -> 2 (the dense RPN assignment over 436,480 anchors "
+        "and the dataset's 512 ground-truth slots takes ~7 GB per [B, A, "
+        "512] f32 tensor at batch 8, beside ResNet-101's activations); "
+        "everything else as the config writes it")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = run_net.main(["--config-file", cfg, "--task", "train"])
+    t_train = time.perf_counter() - t0
+    head = runner.model.bbox_head
+    if type(head).__name__ != "OrientedEQLv2Head" or runner.iter != 2:
+        raise AssertionError(f"EQLv2: {type(head).__name__}, "
+                             f"{runner.iter} steps")
+    state = {k: getattr(head.efl, k).detach().cpu().clone()
+             for k in ("pos_grad", "neg_grad")}
+    fresh = head.cls_loss_fn.init_state()
+    moved = all(not torch.equal(state[k], getattr(fresh, k))
+                and bool(torch.isfinite(state[k]).all()) for k in state)
+    hist = runner.history
+    if not moved or not all(math.isfinite(v) for r in hist
+                            for k, v in r.items() if "loss" in k):
+        raise AssertionError(f"EQLv2: state moved {moved}, records {hist}")
+    with open(os.path.join(work, "checkpoints", "ckpt_1.pkl"), "rb") as f:
+        saved = pickle.load(f)["model"]
+    second_ms = 1e3 * runner.train_stats["step_s"][-1]
+    del runner, head
+    torch.cuda.empty_cache()
+    resumed = Runner()  # the same config: resumes work_dir's ckpt_1.pkl
+    back = resumed.model.bbox_head.efl
+    same = resumed.epoch == 1 and all(
+        torch.equal(getattr(back, k).cpu(), v)
+        and (saved[f"bbox_head.efl.{k}"] == v.numpy()).all()
+        for k, v in state.items())
+    log(f"  run_net --task train, ResNet-101 Oriented R-CNN with "
+        f"OrientedEQLv2Head (f32, 10 classes, 5-ratio RPN), 2 steps of "
+        f"batch 2 in {t_train:.1f} s whole task, the second "
+        f"{second_ms:.1f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: EQLv2 "
+        f"pos_grad sum {state['pos_grad'].sum().item():.4f}, neg_grad sum "
+        f"{state['neg_grad'].sum().item():.4f} (from "
+        f"{fresh.pos_grad.sum().item():.4f} each); saved and resumed "
+        f"bit for bit -> {'ok' if same else 'FAIL'} [{card}]")
+    if not same:
+        raise AssertionError("EQLv2: the state did not survive the round "
+                             "trip")
+
+
+def phase_overfit(torch, dev, tmp, card):
+    """The torch form of the JAX overfit test on the card: 200 epochs of
+    the tiny ResNet config on rendered tiles, per-class APs float and
+    int8, merged scene detections (``tests/test_torch_overfit_map.py``)."""
+    import test_torch_overfit_map as overfit
+
+    root = os.path.join(tmp, "overfit")
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)  # submit_zips/ is cwd-relative
+    t0 = time.perf_counter()
+    try:
+        out = overfit.check_overfit(root, dev, int8=True)
+    finally:
+        os.chdir(cwd)
+    log(f"  overfit, Resnet18 Oriented R-CNN (tests/test_runner.py:"
+        f"_tiny_cfg, SGD lr 0.001), 400 steps on 4 rendered 128^2 tiles in "
+        f"{time.perf_counter() - t0:.1f} s: APs float "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["aps"].items())
+        + "; int8 serving " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out["aps_int8"].items())
+        + f" (gates: >= 0.3, int8 within 0.05); merged scene detections on "
+        f"{out['matched'][0]} of {out['matched'][1]} ground truths (gate "
+        f"40%) [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -1874,6 +2275,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
+    # phases 25 and 28 share the CPU tests' configs and rendered tiles
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
     from rs_detection_tpu_torch.ops import _build
@@ -1977,6 +2380,18 @@ def main():
             "run_net --task val")
         train_task_launches, val_task_launches = phase_train_task(
             torch, tmp, dict(serving, **training), card, phase10_ms)
+        log("[25] tiny ResNet config: predict and 2 SGD steps, CUDA vs CPU")
+        phase_resnet_tiny(torch, dev)
+        log("[26] run_net --task train and --task test on "
+            "orcnn_r50_fpn_1x_dota.py at full width")
+        r50_train, r50_test, k1_r50, k3_r50 = phase_resnet_train_task(
+            torch, tmp, dict(serving, **training), card)
+        log("[27] EQLv2 at full width: orcnn_r101_fpn_ms_flip_rotate_bc_le90_"
+            "eqlv2.py, 2 steps, save, resume")
+        phase_eqlv2(torch, tmp, card)
+        log("[28] the overfit test on the card: per-class APs, float and "
+            "int8")
+        phase_overfit(torch, dev, tmp, card)
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -2002,13 +2417,23 @@ def main():
               train_task_launches=train_task_launches[
                   "roi_align_rotated_pyramid"],
               val_task_launches=val_task_launches[
-                  "roi_align_rotated_pyramid"]),
+                  "roi_align_rotated_pyramid"],
+              resnet_train_task_launches=r50_train[
+                  "roi_align_rotated_pyramid"],
+              resnet_test_task_launches=r50_test[
+                  "roi_align_rotated_pyramid"],
+              resnet_ms=k1_r50[0], resnet_plain_ms=k1_r50[1],
+              resnet_bound_ms=k1_r50[2][0]),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,
               step_like_ms=k3_step_ms,
               train_task_launches=train_task_launches[
-                  "roi_align_rotated_pyramid_bwd"]),
+                  "roi_align_rotated_pyramid_bwd"],
+              resnet_train_task_launches=r50_train[
+                  "roi_align_rotated_pyramid_bwd"],
+              resnet_ms=k3_r50[0], resnet_plain_ms=k3_r50[1],
+              resnet_bound_ms=k3_r50[2][0]),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
               train_launches["dw_wgrad"], k6, k6[4],
               train_task_launches=train_task_launches["dw_wgrad"]),

@@ -20,7 +20,7 @@ from ..ops.box_ops import rotated_box_to_bbox_np
 from ..utils.registry import DATASETS
 from .collate import collate_batch
 from .io import load_rgb
-from .transforms import Compose
+from .transforms import Compose, np_random, own_draws
 
 
 @DATASETS.register_module()
@@ -67,7 +67,7 @@ class CustomDataset:
             info = self.img_infos[idx]
             if len(info["ann"]["bboxes"]) > 0:
                 break
-            idx = int(np.random.randint(self.total_len))
+            idx = int(np_random().randint(self.total_len))
         ann = info["ann"]
         img_path = os.path.join(self.images_dir, info["filename"])
         image = load_rgb(img_path)
@@ -96,8 +96,12 @@ class CustomDataset:
         shuffled by ``np.random.RandomState(seed)``; the last short batch
         kept unless ``drop_last``. With ``num_workers > 0`` the samples of
         a batch are read on a thread pool (PIL decode and the numpy
-        transforms release the GIL), which draws the augmentations in no
-        fixed order."""
+        transforms release the GIL): this thread draws one seed per sample
+        from ``np.random``, in order, and each sample draws its
+        augmentations from generators of that seed (``own_draws``), so a
+        seeded epoch gives the same batches whatever the threads' order.
+        With no workers the samples draw from the global generators, in
+        the JAX package's order."""
         order = np.arange(self.total_len)
         if self.shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -109,13 +113,18 @@ class CustomDataset:
             if len(idxs) == 0:
                 break
             if pool is not None:
-                items = list(pool.map(lambda i: self[int(i)], idxs))
+                seeds = np.random.randint(2**31, size=len(idxs))
+                items = list(pool.map(self._own_draws_item, idxs, seeds))
             else:
                 items = [self[int(i)] for i in idxs]
             samples = [(np.asarray(img, np.float32), tgt)
                        for img, tgt in items]
             images, targets = collate_batch(samples, self.max_gt)
             yield images, targets, [tgt for _, tgt in items]
+
+    def _own_draws_item(self, idx, seed):
+        with own_draws(int(seed)):
+            return self[int(idx)]
 
     def _worker_pool(self):
         """One pool per dataset, made at first use and kept across

@@ -5,13 +5,18 @@ and ``RandmGrayScale`` in ``rs_detection_tpu/data/transforms.py``): PIL +
 numpy, before batching. ``Normalize`` emits float32 HWC arrays, so
 batches are NHWC. The augmentations draw from Python's ``random`` and
 from ``np.random`` in the JAX package's order, so one seed gives the
-same augmentation in both. The SSD / YOLO transforms (``MinIoURandomCrop``,
-``Expand``, ``PhotoMetricDistortion``, ``Resize_keep_ratio``) wait for
-those families (ROADMAP.md, Queue 1, item 11)."""
+same augmentation in both; inside ``own_draws(seed)`` the thread that
+runs them draws from a generator pair of its own instead (the threaded
+loader's samples, ``data/custom.py``). The SSD / YOLO transforms
+(``MinIoURandomCrop``, ``Expand``, ``PhotoMetricDistortion``,
+``Resize_keep_ratio``) wait for those families (ROADMAP.md, Queue 1,
+item 11)."""
 
 from __future__ import annotations
 
+import contextlib
 import random
+import threading
 
 import numpy as np
 from PIL import Image
@@ -19,6 +24,32 @@ from PIL import Image
 from ..ops.box_ops import (norm_angle, poly_to_rotated_box_np,
                            rotated_box_to_poly_np)
 from ..utils.registry import TRANSFORMS, build_from_cfg
+
+_DRAWS = threading.local()
+
+
+def py_random():
+    """The ``random``-like source this thread's augmentations draw from."""
+    return getattr(_DRAWS, "py", random)
+
+
+def np_random():
+    """The ``np.random``-like source this thread's augmentations draw
+    from."""
+    return getattr(_DRAWS, "np", np.random)
+
+
+@contextlib.contextmanager
+def own_draws(seed: int):
+    """Inside, this thread draws from ``random.Random(seed)`` and
+    ``np.random.RandomState(seed)`` instead of the global generators, so
+    what a sample draws does not depend on the other threads."""
+    _DRAWS.py, _DRAWS.np = random.Random(seed), np.random.RandomState(seed)
+    try:
+        yield
+    finally:
+        del _DRAWS.py, _DRAWS.np
+
 
 _BOX_KEYS = ["bboxes", "hboxes", "rboxes", "polys",
              "hboxes_ignore", "polys_ignore", "rboxes_ignore"]
@@ -55,7 +86,7 @@ class Resize:
 
     def get_size(self, image_size):
         w, h = image_size
-        size = random.choice(self.min_size)
+        size = py_random().choice(self.min_size)
         if not self.keep_ratio:
             return (self.min_size[0], self.max_size), self.min_size[0] / h
         if w <= h:
@@ -176,9 +207,9 @@ class Normalize:
 
 @TRANSFORMS.register_module()
 class RandomFlip:
-    """Flip with probability ``prob`` (one ``random.random()`` draw per
-    call): the image, and the hboxes (``bboxes``, ``hboxes``,
-    ``hboxes_ignore``) as x -> w - x."""
+    """Flip with probability ``prob`` (one ``random()`` draw per call):
+    the image, and the hboxes (``bboxes``, ``hboxes``, ``hboxes_ignore``)
+    as x -> w - x."""
 
     def __init__(self, prob=0.5, direction="horizontal"):
         if direction not in ("horizontal", "vertical", "diagonal"):
@@ -213,7 +244,7 @@ class RandomFlip:
         return f
 
     def __call__(self, image, target=None):
-        if random.random() < self.prob:
+        if py_random().random() < self.prob:
             image = self._flip_image(image)
             if target is not None:
                 self._flip_boxes(target, image.size)
@@ -258,7 +289,7 @@ class RotatedRandomFlip(RandomFlip):
 @TRANSFORMS.register_module()
 class RandomRotateAug:
     """With ``random_rotate_on``, k x 90-degree anticlockwise rotations,
-    k = int(100 * random.random()) // 25; hboxes map directly, rotated
+    k = int(100 * random()) // 25; hboxes map directly, rotated
     boxes through their polygons."""
 
     def __init__(self, angle_version="le135", random_rotate_on=False):
@@ -290,7 +321,7 @@ class RandomRotateAug:
 
     def __call__(self, image, target=None):
         if self.random_rotate_on:
-            k = int(random.random() * 100) // 25
+            k = int(py_random().random() * 100) // 25
             for _ in range(k):
                 if target is not None:
                     self._rotate_boxes_90(target, image.size)
@@ -310,10 +341,10 @@ class RandmNoise:
         self.max_noise = max_noise
 
     def __call__(self, image, target=None):
-        if random.random() < self.prob:
+        if py_random().random() < self.prob:
             arr = np.asarray(image, np.float32)
-            arr = arr + np.random.uniform(-self.max_noise, self.max_noise,
-                                          arr.shape)
+            arr = arr + np_random().uniform(-self.max_noise,
+                                            self.max_noise, arr.shape)
             image = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
         return image, target
 
@@ -326,6 +357,6 @@ class RandmGrayScale:
         self.prob = prob
 
     def __call__(self, image, target=None):
-        if random.random() < self.prob:
+        if py_random().random() < self.prob:
             image = image.convert("L").convert("RGB")
         return image, target

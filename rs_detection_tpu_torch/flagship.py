@@ -71,7 +71,8 @@ def init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
                 std = math.sqrt(2.0 / (k * m.out_channels // m.groups))
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=g)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=g)
                 nn.init.zeros_(m.bias)

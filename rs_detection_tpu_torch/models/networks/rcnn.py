@@ -14,8 +14,10 @@ from torch import nn
 
 from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
                                build_from_cfg)
-from ..backbones import van  # noqa: F401  (registers VAN, van_b0..van_b3)
+from .. import backbones  # noqa: F401  (registers VAN and ResNet forms)
+from ..backbones.resnet import ResNet
 from ..necks.fpn import FPN
+from ..roi_heads import oriented_head_variants  # noqa: F401  (registers)
 from ..roi_heads.oriented_head import OrientedHead
 from ..roi_heads.oriented_rpn_head import OrientedRPNHead
 from .compat import normalize_cfg
@@ -32,9 +34,7 @@ def _build(cfg, registry, default):
 
 
 def _resnet50():
-    raise NotImplementedError("OrientedRCNN: a config without a backbone "
-                              "means ResNet-50, which is not ported yet "
-                              "(ROADMAP.md, item 10)")
+    return ResNet(depth=50)
 
 
 def _dtype(name):
@@ -51,8 +51,8 @@ def _dtype(name):
 class OrientedRCNN(nn.Module):
     """The competition model. ``backbone``, ``neck``, ``rpn`` and
     ``bbox_head`` are modules or their config sections (``type=`` dicts,
-    built through the registries; the JAX package's defaults when None,
-    but a missing backbone, ResNet-50 there, raises).
+    built through the registries; the JAX package's defaults when None:
+    ResNet-50, FPN, ``OrientedRPNHead``, ``OrientedHead``).
     ``compute_dtype`` (a torch dtype or its name, e.g. "bfloat16"): the
     dtype the images are cast to, and so the activations'; the
     parameters' dtype when None. The legacy mmdet-v1 sections

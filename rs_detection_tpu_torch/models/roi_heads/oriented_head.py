@@ -77,6 +77,11 @@ class OrientedHead(nn.Module):
             cin = fc_out_channels
         self.fc_cls = nn.Linear(cin, num_classes + 1)
         self.fc_reg = nn.Linear(cin, self.REG_DIM)
+        self.setup_loss()
+
+    def setup_loss(self):
+        """What a classification-loss variant adds to the head (the JAX
+        variants' ``setup``); nothing here."""
 
     def forward_rois(self, feats, rois):
         """rois [R, 6] -> (cls_score [R, C+1], bbox_pred [R, 5]), f32.
@@ -136,6 +141,19 @@ class OrientedHead(nn.Module):
         convention), "labels" [B, G] (1-based), "gt_mask" [B, G]. CE
         averages over the slots with a positive weight, SmoothL1 (beta
         1) over all B * S slots, as the reference."""
+        sampled, cls_score, bbox_pred = self.forward_sampled(
+            feats, proposals, prop_valid, targets, generator)
+        label_weights = sampled["label_weights"].reshape(-1)
+        loss_cls = softmax_cross_entropy(
+            cls_score, sampled["labels"].reshape(-1), label_weights,
+            avg_factor=(label_weights > 0).sum())
+        return dict(loss_cls=loss_cls,
+                    orcnn_bbox_loss=self.bbox_loss(sampled, bbox_pred))
+
+    def forward_sampled(self, feats, proposals, prop_valid, targets,
+                        generator):
+        """(sampled, cls_score, bbox_pred): ``sample_rois``' slots and the
+        head's outputs on them, [B * S, C + 1] and [B * S, 5]."""
         rboxes = targets["rboxes"].float()
         gt_obb = torch.cat([rboxes[..., :4], -rboxes[..., 4:]], dim=-1)
         gt_labels0 = (targets["labels"].long() - 1).clamp(min=0)
@@ -147,15 +165,14 @@ class OrientedHead(nn.Module):
         rois = torch.cat([batch_idx[:, None],
                           sampled["rois"].reshape(b * s, 5)], 1)
         cls_score, bbox_pred = self.forward_rois(feats, rois)
-        label_weights = sampled["label_weights"].reshape(-1)
-        loss_cls = softmax_cross_entropy(
-            cls_score, sampled["labels"].reshape(-1), label_weights,
-            avg_factor=(label_weights > 0).sum())
-        loss_bbox = smooth_l1_loss(
+        return sampled, cls_score, bbox_pred
+
+    def bbox_loss(self, sampled, bbox_pred):
+        """SmoothL1 (beta 1) over all B * S slots, as the reference."""
+        return smooth_l1_loss(
             bbox_pred, sampled["bbox_targets"].reshape(-1, self.REG_DIM),
             sampled["bbox_weights"].reshape(-1, self.REG_DIM), beta=1.0,
-            avg_factor=float(b * s))
-        return dict(loss_cls=loss_cls, orcnn_bbox_loss=loss_bbox)
+            avg_factor=float(sampled["labels"].numel()))
 
     def predict(self, feats, proposals, prop_valid, scale_factor):
         """Returns dict: polys [B, P, 8], scores [B, P, C] (softmax,

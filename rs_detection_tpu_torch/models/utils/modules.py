@@ -51,9 +51,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     (momentum 0.9 there, which is torch's 0.1). In training it normalizes
     with the batch statistics and moves the running ones toward the
     batch mean and the *biased* batch variance E[x^2] - E[x]^2, both in
-    f32, as flax does: torch's own update uses the unbiased variance,
-    and the running variances would differ after one step. In eval it
-    normalizes with the running statistics.
+    f32 (f64 for an f64 input), as flax does: torch's own update uses the
+    unbiased variance, and the running variances would differ after one
+    step. In eval it normalizes with the running statistics.
 
     ``update_stats`` is cleared by ``frozen_stats`` while
     ``torch.utils.checkpoint`` runs a block's forward again for its
@@ -72,9 +72,10 @@ class BatchNorm2d(nn.BatchNorm2d):
             with torch.no_grad():
                 dims = (0, 2, 3)
                 count = x.numel() // x.shape[1]
-                mean = x.mean(dim=dims, dtype=torch.float32)
+                acc = torch.promote_types(x.dtype, torch.float32)
+                mean = x.mean(dim=dims, dtype=acc)
                 mean2 = torch.linalg.vector_norm(
-                    x, 2, dim=dims, dtype=torch.float32).square() / count
+                    x, 2, dim=dims, dtype=acc).square() / count
                 var = (mean2 - mean.square()).clamp(min=0.0)
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

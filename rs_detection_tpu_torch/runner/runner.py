@@ -15,7 +15,7 @@ config, and runs on the card (or on the CPU when the caller asks for it):
 * ``save`` / ``load``: the port's checkpoint pickle
   (``utils/checkpoint.py``), and resume (auto, or ``resume_path``) from
   it or from the JAX runner's, with the epoch, the iteration and the
-  AdamW state.
+  optimizer's state (AdamW's moments or SGD's momentum).
 
 The learning rate of a step is the schedule at the optimizer's own step
 count and that count in epochs, as the JAX runner's optax schedule reads
@@ -49,6 +49,7 @@ from ..utils.checkpoint import (FORMAT, load_model_arrays,
                                 load_optimizer_arrays, model_arrays,
                                 optimizer_arrays, read_checkpoint)
 from ..utils.general import build_file, check_interval, search_ckpt
+from ..utils.jax_weights import loss_state_names
 from ..utils.logger import RunLogger
 from ..utils.registry import (DATASETS, MODELS, OPTIMS, SCHEDULERS,
                               build_from_cfg)
@@ -169,8 +170,8 @@ class Runner:
     def _build_optimizers(self):
         """The optimizer and schedule, and the SWA pair when the config
         sets ``optimizer_swa`` (its learning rate defaults to the main
-        one's). The JAX runner's default optimizer, SGD, is not ported
-        and raises."""
+        one's). A config without an optimizer trains with SGD at rate
+        0.01, the JAX runner's default."""
         cfg = self.cfg
         if cfg.parameter_groups_generator is not None:
             raise NotImplementedError(
@@ -508,5 +509,8 @@ class Runner:
                 self._adopt_swa()
             if opt_state is not None:
                 load_optimizer_arrays(self.optimizer, self.model, opt_state)
-        load_model_arrays(self.model, arrays)
+        # a JAX tree may lack the heads' loss states: they keep theirs
+        load_model_arrays(self.model, arrays, optional=() if
+                          meta.get("format") == FORMAT else
+                          loss_state_names(self.model))
         self.logger.print_log({"msg": f"loaded {path}"})

@@ -4,12 +4,13 @@ A checkpoint is a pickle of the JAX runner's top-level keys, written
 without jax: ``meta`` (epoch, iteration, ``swa_active``, the config, and
 ``format`` = ``FORMAT``), ``model`` ({state_dict name: f32 numpy array}
 in torch layout, BatchNorm counters left out), ``opt_state``
-({"iterations", "state": {parameter name: {"step", "exp_avg",
-"exp_avg_sq"}}}, the port's AdamW, or None) and ``ema`` (None).
+({"iterations", "state": {parameter name: the optimizer's state of it,
+``STATE_KEYS`` of its class: "step", "exp_avg", "exp_avg_sq" for AdamW,
+"momentum_buffer" for SGD}}, or None) and ``ema`` (None).
 ``read_checkpoint`` gives every pickle the runner loads the same form:
-this one, the JAX runner's (flax trees of jax arrays; the moments of its
-optax AdamW through ``jax_weights.jax_adamw_state``), and a bare flax
-variables tree.
+this one, the JAX runner's (flax trees of jax arrays; the state of its
+optax AdamW or SGD through ``jax_weights.jax_optimizer_state``), and a
+bare flax variables tree.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .jax_weights import jax_adamw_state, jax_to_state_dict, \
-    load_jax_checkpoint
+from .jax_weights import (jax_optimizer_state, jax_to_state_dict,
+                          load_jax_checkpoint)
 
 FORMAT = "rs_detection_tpu_torch"
 
@@ -33,12 +34,14 @@ def model_arrays(module: nn.Module) -> Dict[str, np.ndarray]:
             if not k.endswith("num_batches_tracked")}
 
 
-def load_model_arrays(module: nn.Module, arrays: Mapping) -> nn.Module:
+def load_model_arrays(module: nn.Module, arrays: Mapping,
+                      optional=()) -> nn.Module:
     """Copy ``arrays`` (``model_arrays``' form) into ``module`` in place,
-    keeping each tensor's dtype and device; a missing, extra or
-    misshapen name raises."""
+    keeping each tensor's dtype and device; a missing (unless in
+    ``optional``), extra or misshapen name raises."""
     state = {k: v for k, v in module.state_dict().items()
-             if not k.endswith("num_batches_tracked")}
+             if not k.endswith("num_batches_tracked")
+             and (k in arrays or k not in optional)}
     missing = sorted(set(state) - set(arrays))
     unexpected = sorted(set(arrays) - set(state))
     if missing or unexpected:
@@ -57,38 +60,45 @@ def load_model_arrays(module: nn.Module, arrays: Mapping) -> nn.Module:
 
 def optimizer_arrays(optimizer: torch.optim.Optimizer,
                      module: nn.Module) -> Dict:
-    """The AdamW state of ``module``'s parameters by name, as numpy."""
+    """The optimizer's state of ``module``'s parameters by name (its
+    ``STATE_KEYS``), as numpy arrays (``step`` as a float)."""
     state = {}
     for name, p in module.named_parameters():
         s = optimizer.state.get(p)
         if s:
-            state[name] = dict(
-                step=float(s["step"]),
-                exp_avg=s["exp_avg"].detach().cpu().numpy(),
-                exp_avg_sq=s["exp_avg_sq"].detach().cpu().numpy())
+            state[name] = {k: float(s[k]) if k == "step" else
+                           s[k].detach().cpu().numpy()
+                           for k in optimizer.STATE_KEYS}
     return dict(iterations=optimizer.iterations, state=state)
 
 
 def load_optimizer_arrays(optimizer: torch.optim.Optimizer,
                           module: nn.Module, opt_state: Mapping) -> None:
-    """Install ``opt_state`` (``optimizer_arrays``' form) into the AdamW
-    of ``module``'s parameters, before its first step; names it does not
-    have raise."""
+    """Install ``opt_state`` (``optimizer_arrays``' form) into the
+    optimizer of ``module``'s parameters, before its first step; unknown
+    names, misshapen arrays and another optimizer's state raise."""
     params = dict(module.named_parameters())
     unknown = sorted(set(opt_state["state"]) - set(params))
     if unknown:
         raise ValueError(f"optimizer state for unknown parameters {unknown}")
+    keys = set(optimizer.STATE_KEYS)
     for name, s in opt_state["state"].items():
         p = params[name]
-        if tuple(np.shape(s["exp_avg"])) != tuple(p.shape):
-            raise ValueError(f"optimizer state of {name} has shape "
-                             f"{np.shape(s['exp_avg'])}, not {tuple(p.shape)}")
-        optimizer.state[p] = dict(
-            step=torch.tensor(float(s["step"]), dtype=torch.float32),
-            exp_avg=torch.tensor(np.asarray(s["exp_avg"]), device=p.device,
-                                 dtype=p.dtype),
-            exp_avg_sq=torch.tensor(np.asarray(s["exp_avg_sq"]),
-                                    device=p.device, dtype=p.dtype))
+        if set(s) != keys:
+            raise ValueError(f"optimizer state of {name} holds {sorted(s)}; "
+                             f"{type(optimizer).__name__} keeps "
+                             f"{sorted(keys)}")
+        loaded = {}
+        for k, v in s.items():
+            if k == "step":
+                loaded[k] = torch.tensor(float(v), dtype=torch.float32)
+                continue
+            if tuple(np.shape(v)) != tuple(p.shape):
+                raise ValueError(f"optimizer state {k} of {name} has shape "
+                                 f"{np.shape(v)}, not {tuple(p.shape)}")
+            loaded[k] = torch.tensor(np.asarray(v), device=p.device,
+                                     dtype=p.dtype)
+        optimizer.state[p] = loaded
     optimizer.iterations = int(opt_state["iterations"])
 
 
@@ -107,5 +117,5 @@ def read_checkpoint(path: str) -> Tuple[Dict, Dict[str, np.ndarray],
     opt = data.get("opt_state")
     ema = data.get("ema")
     return (meta, jax_to_state_dict(data["model"]),
-            None if opt is None else jax_adamw_state(opt),
+            None if opt is None else jax_optimizer_state(opt),
             None if ema is None else jax_to_state_dict({"params": ema}))

@@ -12,22 +12,31 @@ names, so the mapping is mechanical:
   becomes OIHW (a depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``),
   an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``;
 * every other leaf (``bias``, ``layer_scale_*``) keeps its name;
+* the ``loss_state`` collection (the running statistics of the EFL and
+  EQLv2 heads, NamedTuples in a live tree, dicts by field in a saved one)
+  maps by the same rule: ``_bbox_head/efl/pos_grad`` is the head's buffer
+  ``bbox_head.efl.pos_grad``;
 * the detector's ``_backbone``, ``_neck``, ``_rpn`` and ``_bbox_head``
   (the names flax gives the submodules a config builds in ``setup``)
   are the port's ``backbone``, ``neck``, ``rpn`` and ``bbox_head``, the
   names of submodules given to it as modules.
 
 Any name or shape that does not match, in either direction, raises:
-nothing is silently left at its init.
+nothing is silently left at its init. The one exception is a tree with
+no ``loss_state`` collection at all, which the JAX package's own trees
+always are (its EFL and EQLv2 heads would make one in ``loss``, which
+flax refuses to run): the port's loss states keep their initial values.
 
 ``load_jax_checkpoint`` reads the pickle the JAX runner's ``save``
 writes without importing jax: its arrays are jax arrays, which pickle
 as a numpy array plus a call to rebuild the device array; that call is
-replaced by one that keeps the numpy array. ``jax_adamw_state`` carries
-that checkpoint's ``opt_state`` (an optax AdamW chain) over to the
-port's AdamW: ``count`` -> ``step`` and ``iterations``, ``mu`` ->
-``exp_avg``, ``nu`` -> ``exp_avg_sq``, each leaf in the torch layout of
-its parameter.
+replaced by one that keeps the numpy array. ``jax_optimizer_state``
+carries that checkpoint's ``opt_state`` over to the port's optimizer:
+an optax AdamW chain through ``jax_adamw_state`` (``count`` -> ``step``
+and ``iterations``, ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``), an
+optax SGD chain through ``jax_sgd_state`` (``trace`` -> the momentum
+buffers, the schedule's ``count`` -> ``iterations``), each leaf in the
+torch layout of its parameter.
 """
 
 from __future__ import annotations
@@ -45,10 +54,19 @@ _BUILT = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn",
           "_bbox_head": "bbox_head"}
 
 
+def _node(v):
+    """A subtree as a mapping (a NamedTuple by its fields), else None."""
+    if isinstance(v, Mapping):
+        return v
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return v._asdict()
+    return None
+
+
 def _flatten(tree: Mapping, prefix=()):
     for k, v in tree.items():
-        if isinstance(v, Mapping):
-            yield from _flatten(v, prefix + (k,))
+        if _node(v) is not None:
+            yield from _flatten(_node(v), prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -66,7 +84,7 @@ def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
 def jax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     """Flax variables -> {torch state_dict name: array in torch layout}."""
     out = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "loss_state"):
         for path, leaf in _flatten(variables.get(collection, {})):
             parts = [p for p in path[:-1] if p != "BatchNorm_0"]
             if parts:
@@ -78,12 +96,25 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def loss_state_names(module: nn.Module):
+    """The state_dict names of ``module``'s buffers that hold a JAX
+    ``loss_state`` variable (``LossState`` of the head variants)."""
+    return {f"{n}.{b}" if n else b for n, m in module.named_modules()
+            if getattr(m, "JAX_COLLECTION", None) == "loss_state"
+            for b, _ in m.named_buffers(recurse=False)}
+
+
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Copy flax ``variables`` into ``module`` in place (keeping each
-    tensor's dtype and device); returns ``module``."""
+    tensor's dtype and device); returns ``module``. A tree without a
+    ``loss_state`` collection leaves the module's loss states as they
+    are."""
     arrays = jax_to_state_dict(variables)
     state = {k: v for k, v in module.state_dict().items()
              if not k.endswith("num_batches_tracked")}
+    if "loss_state" not in variables:
+        state = {k: v for k, v in state.items()
+                 if k not in loss_state_names(module)}
     missing = sorted(set(state) - set(arrays))
     unexpected = sorted(set(arrays) - set(state))
     if missing or unexpected:
@@ -125,13 +156,45 @@ def load_jax_checkpoint(path: str):
         return _JaxCheckpointUnpickler(f).load()
 
 
-def _adam_states(tree):
-    """The ``{"count", "mu", "nu"}`` nodes of a serialized optax state."""
+def _states(tree, keys):
+    """The nodes of a serialized optax state that hold all of ``keys``."""
     if not isinstance(tree, Mapping):
         return []
-    if {"count", "mu", "nu"} <= set(tree):
+    if set(keys) <= set(tree):
         return [tree]
-    return [s for v in tree.values() for s in _adam_states(v)]
+    return [s for v in tree.values() for s in _states(v, keys)]
+
+
+def _adam_states(tree):
+    return _states(tree, ("count", "mu", "nu"))
+
+
+def jax_optimizer_state(opt_state: Mapping) -> Dict:
+    """A JAX runner checkpoint's ``opt_state`` -> the port's optimizer
+    state: AdamW (``jax_adamw_state``) or SGD (``jax_sgd_state``)."""
+    if _adam_states(opt_state):
+        return jax_adamw_state(opt_state)
+    if _states(opt_state, ("trace",)):
+        return jax_sgd_state(opt_state)
+    raise ValueError("the checkpoint's opt_state is neither an AdamW nor an "
+                     "SGD chain; no other optimizer carries over")
+
+
+def jax_sgd_state(opt_state: Mapping) -> Dict:
+    """A JAX runner checkpoint's ``opt_state`` (``flax.serialization``
+    state dict of the optax chain ``[clip_by_global_norm ->]
+    add_decayed_weights -> sgd`` with a scheduled rate) -> the port's SGD
+    state: {"iterations": the schedule's count, "state": {parameter name:
+    {"momentum_buffer"}}}. The optax trace is the momentum buffer."""
+    traces = _states(opt_state, ("trace",))
+    counts = [s for s in _states(opt_state, ("count",)) if len(s) == 1]
+    if len(traces) != 1 or len(counts) != 1:
+        raise ValueError(f"the checkpoint's opt_state holds {len(traces)} "
+                         f"traces and {len(counts)} schedule counts; only an "
+                         f"SGD chain with a scheduled rate carries over")
+    trace = jax_to_state_dict({"params": traces[0]["trace"]})
+    return dict(iterations=int(np.asarray(counts[0]["count"])),
+                state={k: dict(momentum_buffer=v) for k, v in trace.items()})
 
 
 def jax_adamw_state(opt_state: Mapping) -> Dict:

@@ -97,3 +97,4 @@ TRANSFORMS = Registry("transforms")
 OPTIMS = Registry("optims")
 SCHEDULERS = Registry("schedulers")
 HOOKS = Registry("hooks")
+LOSSES = Registry("losses")

@@ -131,14 +131,13 @@ def _tiny_cfg(**changes):
     ({"rpn.num_classes": 2}, NotImplementedError),
     ({"rpn.reg_dim": 5}, NotImplementedError),
     ({"rpn_head": {"type": "RPNHead"}}, NotImplementedError),
-    ({"backbone": None}, NotImplementedError),
     ({"compute_dtype": "int32"}, ValueError),
     ({"rpn.anchor_generator.octave_base_scale": 4}, TypeError),
     ({"bbox_head.bbox_roi_extractor.impl": "pallas"}, TypeError),
     ({"rpn.sampler.neg_pos_ub": 3}, NotImplementedError),
 ], ids=["reg_per_class", "fpn_extra_convs", "fpn_relu_extra",
-        "rpn_classes", "rpn_reg_dim", "legacy_section", "resnet_default",
-        "int_dtype", "anchor_octaves", "extractor_impl", "neg_pos_ub"])
+        "rpn_classes", "rpn_reg_dim", "legacy_section", "int_dtype",
+        "anchor_octaves", "extractor_impl", "neg_pos_ub"])
 def test_unsupported_config_values_raise(changes, error):
     """A value the JAX package honours and the port cannot is refused,
     never dropped."""

@@ -237,7 +237,8 @@ def test_pretrained_request_is_loud(served, tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "sgd": (dict(optimizer=None), None, KeyError, "SGD"),
+    "sgd": (dict(optimizer=dict(type="GradMutilpySGD", lr=0.01)), None,
+            KeyError, "GradMutilpySGD"),
     "ema": (dict(model=dict(flagship_cfg(tiny=True), ema=True)), None,
             NotImplementedError, "ROADMAP"),
     "parameter_groups": (dict(parameter_groups_generator=dict(
@@ -253,9 +254,10 @@ UNPORTED = {
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_tasks_and_formats_raise(served, tmp_path, monkeypatch,
                                           case):
-    """What the port does not do raises: SGD (ROADMAP item 8), per-step
-    EMA (item 11), parameter groups, orbax checkpoints (JAX-only), and
-    training without a train dataset."""
+    """What the port does not do raises: SGD with gradient multipliers
+    (``GradMutilpySGD``, ROADMAP item 8), per-step EMA (item 11),
+    parameter groups, orbax checkpoints (JAX-only), and training without
+    a train dataset."""
     extra, call, error, match = UNPORTED[case]
     with pytest.raises(error, match=match):
         pr = _port_runner(tmp_path, monkeypatch, served["images"], **extra)

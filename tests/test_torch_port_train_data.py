@@ -9,6 +9,7 @@ and ``DOTADataset.evaluate`` / ``parse_result``. CPU, numpy only."""
 import os
 import pickle
 import random
+import time
 
 import numpy as np
 import pytest
@@ -275,6 +276,44 @@ def test_filter_and_drop_last_and_prefetch(tmp_path):
     _assert_same_batches(list(pooled.prefetch()), list(ds.batches()))
     pooled.close()
     pooled.close()
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_loader_threads_draw_the_same_augmentations(tmp_path, monkeypatch,
+                                                    seed):
+    """With 3 loader threads, each decode held up a random while (so the
+    threads finish in another order each time), two epochs from one
+    seed give the same batches through flips, rotations and the redraw
+    of an empty tile: each sample draws from generators seeded for it
+    (``transforms.own_draws``), not from the shared global ones."""
+    from rs_detection_tpu_torch.data import custom
+
+    root = make_labelled(str(tmp_path), n=8, empty=(3,))
+    kw = dict(dataset_dir=root, batch_size=4, shuffle=True, max_gt=4,
+              filter_empty_gt=False, num_workers=3, transforms=[
+                  dict(type="RotatedResize", min_size=64, max_size=64),
+                  dict(type="RotatedRandomFlip", prob=0.5),
+                  dict(type="RandomRotateAug", random_rotate_on=True),
+                  dict(type="Pad", size_divisor=32), NORM])
+    delay = random.Random()
+    load = custom.load_rgb
+
+    def slow_load(path):
+        time.sleep(delay.uniform(0.0, 0.02))
+        return load(path)
+
+    monkeypatch.setattr(custom, "load_rgb", slow_load)
+    ds = CustomDataset(**kw)
+    epochs = []
+    for _ in range(2):
+        _seed(seed)
+        epochs.append(list(ds.prefetch(seed)))
+    _seed(seed + 1)
+    other = list(ds.batches(seed))
+    ds.close()
+    _assert_same_batches(epochs[0], epochs[1])
+    assert any(not np.array_equal(a[0], b[0])
+               for a, b in zip(epochs[0], other))
 
 
 def test_prefetch_raises_what_the_thread_raised(tmp_path):

@@ -286,6 +286,34 @@ def test_resume_equals_unbroken(trained, tmp_path):
         np.testing.assert_array_equal(v, ref[k], err_msg=k)
 
 
+def test_resume_equals_unbroken_with_loader_threads(trained, tmp_path):
+    """The same with 3 loader threads, which run the flips and rotations
+    of a batch's samples at once (2 epochs): two unbroken runs from one
+    seed draw the same augmentations (equal losses, every step) and
+    train the same parameters, and 1 epoch, a resume and 1 more equal
+    them, bit for bit."""
+    ds = tiny_train_config(trained["ds"], "")["dataset"]
+    ds["train"]["num_workers"] = 3
+
+    def run(name, max_epoch=2):
+        return port_run(tmp_path / name, trained["ds"], trained["weights"],
+                        max_epoch=max_epoch, dataset=ds)
+
+    a, b = run("a"), run("b")
+    run("c", max_epoch=1)
+    resumed = run("c")
+    assert [r["lr"] for r in resumed.history] == WANT_LRS[1:2]
+    losses = [{k: v for k, v in r.items() if "loss" in k} for r in a.history]
+    assert losses == [{k: v for k, v in r.items() if "loss" in k}
+                      for r in b.history]
+    assert losses[1:] == [{k: v for k, v in r.items() if "loss" in k}
+                          for r in resumed.history]
+    ref = _params(a)
+    for other in (b, resumed):
+        for k, v in _params(other).items():
+            np.testing.assert_array_equal(v, ref[k], err_msg=k)
+
+
 def test_resume_inside_swa_adopts_its_optimizer(trained, tmp_path):
     """A checkpoint of the SWA phase resumes into the SWA optimizer with
     its state (not a fresh one) and trains on as the unbroken run."""
