@@ -147,13 +147,45 @@ Phases, each of which raises (exit code 1) on failure:
  28. the overfit test on the card (``tests/test_torch_overfit_map.py``):
      200 epochs of the tiny ResNet config on 4 rendered tiles, per-class
      APs at least 0.3, float and int8 (within 0.05), merged detections
-     on the scene's ground truth
+     on the scene's ground truth; the trained runner is kept for phase 31
+ 29. dataset preparation: 2 rendered FAIR scenes of 2872^2 (8-bit RGB
+     TIFF, labelXml of 40 rotated objects with FAIR1M-2.0 class names)
+     and 1 test scene through ``rs_detection_tpu_torch.tools.preprocess``
+     (its ``main``, in this process) on
+     ``configs/preprocess/fair1m_1_5_ms.py`` (FAIR -> DOTA, 1024 / 200
+     tiles at rates 0.5 / 1.0 / 1.5, the FAIR1M mapping, ``labels.pkl``),
+     the resize on the card and then with ``--cpu``: the same tile names,
+     byte-equal labelTxt files, equal ``labels.pkl``, pixels equal at
+     rate 1.0 and within 1 LSB elsewhere (the share that differs
+     printed); 2 steps of ``run_net --task train`` on the tiny config
+     read the card's ``labels.pkl`` (finite losses); prints the seconds a
+     scene on the card and on the CPU and where they go
+ 30. raw-scene serving at full width: ``run_net --task test`` on
+     ``configs/orcnn_van3_fair1m_1_5.py`` (VAN-b3, bf16, seeded random
+     weights) with ``dataset.test`` a ``SceneDataset`` over phase 29's 2
+     scenes at rates 0.5 / 1.0 / 1.5, batch 8, no flip: 90 tiles in 12
+     forwards, K2 38 and K1 1 launches a forward, the pickle and the
+     FAIR1M-1.5 CSV; every tile against the CPU port's tile of the same
+     name (f32, 1e-4); prints scene tiles/s beside phase 22's tile-file
+     tiles/s, the merge and the peak memory; then the same scenes
+     screened by a random-init ``TileScreen`` at ``budget=4``: 24 tiles
+     in 3 forwards, ``screen_stats``
+ 31. the screened scene with phase 28's detector
+     (``tests/test_torch_scene.py:check_screened_scene``, the torch form
+     of ``tests/test_map_pipeline.py:
+     test_screened_scene_serving_end_to_end_map``): a ``TileScreen``
+     trained by ``train_screen.train`` on the sparse 384^2 scene's 9
+     tiles separates them; ``thresh=0.5`` keeps exactly the 4 occupied
+     tiles, gives them the dense run's detections and reproduces the
+     dense merged detections above the background tiles' scores;
+     ``budget=1`` loses ground-truth matches
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one; K1's and K3's time on the step-like rois, K1's on a serving
 request's, K5's in a CUDA graph; K1's and K2's launches in phase 22's
 test task, K1's, K3's and K6's in phase 24's train task, K1's and K2's in
-its val task; K1's and K3's launches in phase 26's tasks and their
+its val task and in phase 30's scene task, ``scene_task_launches``;
+K1's and K3's launches in phase 26's tasks and their
 times, plain times and bounds at its shapes, ``resnet_*``), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
@@ -168,6 +200,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STAGES = [  # (H = W, C, Ch, blocks) of VAN-b3 at 1024^2 tiles
@@ -224,6 +257,10 @@ INT8_REQUESTS_FUSED = 3  # timed requests of the fused int8 serving path
 # split of a 1848^2 scene (name__rate__x___y, as the devkits' split writes)
 SCENE_OFFSETS = [(0, 0), (824, 0), (0, 824), (824, 824)]
 FLIPS = 4  # flip-TTA: none, H, V, HV
+# phases 29-30: rendered FAIR scenes, the FAIR1M-1.5 recipe's rates
+SCENE_SIDE = 2872
+SCENE_OBJECTS = 40
+SCENE_RATES = [0.5, 1.0, 1.5]
 DW_SHAPES = [(3, 1, h, ch, n, True) for h, _, ch, n in STAGES] \
     + [(5, 1, h, c, n, True) for h, c, _, n in STAGES] \
     + [(7, 3, h, c, n, False) for h, c, _, n in STAGES]
@@ -1384,6 +1421,62 @@ def write_tiles(tiles_dir, names, size, seed):
             np.uint8)).save(os.path.join(tiles_dir, name))
 
 
+def render_fair_split(split_dir, names, size, n_objects, seed, xml=True):
+    """Seeded raw scenes in the FAIR1M layout: ``images/<name>.tif``
+    (8-bit RGB TIFF) and, with ``xml``, ``labelXml/<name>.xml`` with
+    ``n_objects`` rotated rectangles a scene, drawn on it as
+    ``tests/test_map_pipeline.py:render_dataset`` draws them, under
+    FAIR1M-2.0 fine class names. Also used by the CPU tests."""
+    import numpy as np
+    from PIL import Image
+
+    from rs_detection_tpu_torch.config.constant import FAIR_CLASSES
+
+    os.makedirs(os.path.join(split_dir, "images"), exist_ok=True)
+    if xml:
+        os.makedirs(os.path.join(split_dir, "labelXml"), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for name in names:
+        img = np.full((size, size, 3), 60, np.uint8)
+        img += (rng.rand(size, size, 3) * 20).astype(np.uint8)
+        objects = []
+        for _ in range(n_objects):
+            cx, cy = rng.uniform(0.05 * size, 0.95 * size, 2)
+            w, h = rng.uniform(0.02, 0.1) * size, rng.uniform(0.01, 0.03) * size
+            th = rng.uniform(-1.2, 1.2)
+            c, s = math.cos(th), math.sin(th)
+            r = math.hypot(w, h) / 2 + 1
+            x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, size)
+            y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, size)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            u = (xx - cx) * c + (yy - cy) * s
+            v = -(xx - cx) * s + (yy - cy) * c
+            img[y0:y1, x0:x1][(np.abs(u) < w / 2) & (np.abs(v) < h / 2)] = \
+                rng.randint(120, 256, 3)
+            pts = [(cx + a * c - b * s, cy + a * s + b * c) for a, b in
+                   ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2),
+                    (-w / 2, h / 2))]
+            objects.append((FAIR_CLASSES[rng.randint(len(FAIR_CLASSES))],
+                            pts + pts[:1]))
+        Image.fromarray(img).save(os.path.join(split_dir, "images",
+                                               name + ".tif"))
+        if not xml:
+            continue
+        with open(os.path.join(split_dir, "labelXml", name + ".xml"),
+                  "w") as f:
+            f.write(f"<annotation><source><filename>{name}.tif</filename>"
+                    f"</source><objects>")
+            for cls, pts in objects:
+                f.write("<object><coordinate>pixel</coordinate><type>"
+                        "rectangle</type><possibleresult><name>"
+                        f"{cls}</name><probability>1</probability>"
+                        "</possibleresult><points>"
+                        + "".join(f"<point>{x:.6f},{y:.6f}</point>"
+                                  for x, y in pts)
+                        + "</points></object>")
+            f.write("</objects></annotation>\n")
+
+
 def write_config(path, **entries):
     """A ``.py`` config file of ``name = value`` lines."""
     with open(path, "w") as f:
@@ -1477,7 +1570,8 @@ def phase_runner_tiny(torch, dev, tmp):
 
 def phase_run_net(torch, tmp, kernels, card):
     """``run_net --task test`` at full width, the wrappers' launches
-    counted over the whole task; returns them."""
+    counted over the whole task; returns them and the tiles/s of
+    inference."""
     import pickle
 
     import numpy as np
@@ -1545,7 +1639,7 @@ def phase_run_net(torch, tmp, kernels, card):
         f"{n_csv} CSV rows); whole task {wall:.1f} s [{card}]")
     log(f"  launches in the test task: {launches}")
     phase_run_net_breakdown(runner, work, tmp, card)
-    return launches
+    return launches, forwards / stats["inference_s"]
 
 
 def phase_run_net_breakdown(runner, work, tmp, card):
@@ -2241,8 +2335,14 @@ def phase_eqlv2(torch, tmp, card):
 def phase_overfit(torch, dev, tmp, card):
     """The torch form of the JAX overfit test on the card: 200 epochs of
     the tiny ResNet config on rendered tiles, per-class APs float and
-    int8, merged scene detections (``tests/test_torch_overfit_map.py``)."""
+    int8, merged scene detections (``tests/test_torch_overfit_map.py``).
+    Returns the trained runner, its rendered dataset and a copy of its
+    config (phase 31 serves a scene with it)."""
+    import copy
+
     import test_torch_overfit_map as overfit
+
+    from rs_detection_tpu_torch.config import get_cfg
 
     root = os.path.join(tmp, "overfit")
     os.makedirs(root)
@@ -2250,7 +2350,8 @@ def phase_overfit(torch, dev, tmp, card):
     os.chdir(root)  # submit_zips/ is cwd-relative
     t0 = time.perf_counter()
     try:
-        out = overfit.check_overfit(root, dev, int8=True)
+        runner, ds_dir = overfit.trained_runner(root, dev)
+        out = overfit.check_trained(runner, ds_dir, int8=True)
     finally:
         os.chdir(cwd)
     log(f"  overfit, Resnet18 Oriented R-CNN (tests/test_runner.py:"
@@ -2262,7 +2363,307 @@ def phase_overfit(torch, dev, tmp, card):
         + f" (gates: >= 0.3, int8 within 0.05); merged scene detections on "
         f"{out['matched'][0]} of {out['matched'][1]} ground truths (gate "
         f"40%) [{card}]")
-    return out
+    return runner, ds_dir, copy.deepcopy(get_cfg().dump())
+
+
+def compare_tile_dirs(a, b):
+    """Tiles of two splits of the same scenes: the same image and label
+    names, byte-equal labelTxt files, pixels equal at rate 1.0 and within
+    1 LSB elsewhere; returns (tiles, differing pixels, pixels) of the
+    resized tiles."""
+    import numpy as np
+    from PIL import Image
+
+    names = sorted(os.listdir(os.path.join(a, "images")))
+    if not names or names != sorted(os.listdir(os.path.join(b, "images"))):
+        raise AssertionError(f"tile names differ: {a} vs {b}")
+    la = os.path.join(a, "labelTxt")
+    if os.path.isdir(la):
+        labels = sorted(os.listdir(la))
+        if labels != sorted(os.listdir(os.path.join(b, "labelTxt"))):
+            raise AssertionError(f"label names differ: {a} vs {b}")
+        for n in labels:
+            with open(os.path.join(la, n), "rb") as f, \
+                    open(os.path.join(b, "labelTxt", n), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"labelTxt {n} differs")
+    def diff(n):
+        with Image.open(os.path.join(a, "images", n)) as x, \
+                Image.open(os.path.join(b, "images", n)) as y:
+            d = np.abs(np.asarray(x, np.int16) - np.asarray(y, np.int16))
+        return int(d.max()), int((d > 0).sum()), d.size
+
+    differ = total = 0
+    with ThreadPoolExecutor(8) as pool:  # Pillow decodes off the lock
+        for n, (worst, k, size) in zip(names, pool.map(diff, names)):
+            limit = 0 if "__1.0__" in n else 1
+            if worst > limit:
+                raise AssertionError(f"tile {n}: pixels differ by {worst}")
+            if limit:
+                differ, total = differ + k, total + size
+    return len(names), differ, total
+
+
+def phase_preprocess(torch, tmp, card):
+    """Dataset preparation: ``tools/preprocess.py``'s main on
+    ``configs/preprocess/fair1m_1_5_ms.py`` over rendered FAIR scenes, on
+    the card and with ``--cpu``; the two outputs agree; 2 training steps
+    of the tiny config read the labels it made. Returns the directory of
+    the trainval scenes."""
+    import contextlib
+    import io
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import (PIXEL_MEAN, PIXEL_STD,
+                                                 flagship_cfg)
+    from rs_detection_tpu_torch.tools import preprocess, run_net
+
+    src = os.path.join(tmp, "prep", "src")
+    t0 = time.perf_counter()
+    render_fair_split(os.path.join(src, "trainval"), ["1", "2"], SCENE_SIDE,
+                      SCENE_OBJECTS, seed=29)
+    # the config's test task needs a split; one scene without labels (cut
+    # from two to keep the phase short)
+    render_fair_split(os.path.join(src, "test"), ["3"], SCENE_SIDE, 0,
+                      seed=30, xml=False)
+    log(f"  rendered 2 trainval scenes of {SCENE_SIDE}^2 (8-bit RGB TIFF, "
+        f"{SCENE_OBJECTS} rotated objects each, FAIR1M-2.0 class names in "
+        f"labelXml) and 1 test scene in {time.perf_counter() - t0:.1f} s")
+    cfg = os.path.join(ROOT, "configs", "preprocess", "fair1m_1_5_ms.py")
+    runs = {}
+    for name, extra in (("card", []), ("cpu", ["--cpu"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            outs = preprocess.main([
+                "--config-file", cfg, "--set", f"source_dataset_path={src}",
+                f"target_dataset_path={os.path.join(tmp, 'prep', name)}"]
+                + extra)
+        wall = time.perf_counter() - t0
+        stats = [json.loads(line[len("img_split "):])
+                 for line in buf.getvalue().splitlines()
+                 if line.startswith("img_split ")]
+        want = "cuda" if name == "card" else "cpu"
+        if len(stats) != 2 or any(not st["device"].startswith(want)
+                                  for st in stats):
+            raise AssertionError(f"preprocess ({name}): splits {stats}")
+        runs[name] = outs, wall, stats
+    n_tiles = differ = total = 0
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        n, d, t = compare_tile_dirs(a, b)
+        n_tiles, differ, total = n_tiles + n, differ + d, total + t
+    pkls = []
+    for outs, _, _ in runs.values():
+        with open(os.path.join(outs[0], "labels.pkl"), "rb") as f:
+            pkls.append(pickle.load(f))
+    n_boxes = sum(len(i["ann"]["bboxes"]) for i in pkls[0])
+    same = len(pkls[0]) == len(pkls[1]) > 0 and all(
+        a.keys() == b.keys() and all(
+            np.array_equal(a["ann"][k], b["ann"][k]) for k in a["ann"])
+        and {k: v for k, v in a.items() if k != "ann"}
+        == {k: v for k, v in b.items() if k != "ann"}
+        for a, b in zip(*pkls))
+    if not same or not n_boxes:
+        raise AssertionError("preprocess: labels.pkl of the card and the "
+                             "CPU differ")
+    log(f"  preprocess, card vs CPU: {n_tiles} tiles of {TILE}^2 (rates "
+        f"{SCENE_RATES}), the same names, byte-equal labelTxt, equal "
+        f"labels.pkl ({len(pkls[0])} tiles, {n_boxes} boxes); pixels equal "
+        f"at rate 1.0, within 1 LSB elsewhere, {differ} of {total} "
+        f"({differ / max(total, 1):.3e}) differ")
+    for name, (outs, wall, stats) in runs.items():
+        scenes = sum(st["scenes"] for st in stats) // len(SCENE_RATES)
+        stage = {k: sum(st[k] for st in stats) for k in
+                 ("decode", "resize", "wait", "cut", "labels", "encode")}
+        rest = wall - stage["decode"] - stage["resize"] - stage["wait"]
+        log(f"  preprocess on the {name}: {wall:.2f} s for {scenes} scenes = "
+            f"{wall / scenes:.2f} s a scene; in the parent: decode "
+            f"{stage['decode']:.2f} s, resize (with copies) "
+            f"{stage['resize']:.2f} s, waiting for the 8 window threads "
+            f"{stage['wait']:.2f} s (their summed cut {stage['cut']:.2f}, "
+            f"labels {stage['labels']:.2f}, PNG encode {stage['encode']:.2f} "
+            f"s), TIFF -> PNG, labels.pkl and the rest {rest:.2f} s "
+            f"[{card}]")
+
+    norm = dict(type="Normalize", mean=list(PIXEL_MEAN), std=list(PIXEL_STD),
+                to_bgr=False)
+    work = os.path.join(tmp, "prep", "train_work")
+    train_cfg = write_config(
+        os.path.join(tmp, "prep", "tiny_train.py"), name="prep_train",
+        seed=29, work_dir=work, model=flagship_cfg(tiny=True),
+        dataset=dict(train=dict(
+            type="FAIR1M_1_5_Dataset", dataset_dir=runs["card"][0][0],
+            batch_size=2, max_gt=64, shuffle=True, transforms=[
+                dict(type="RotatedResize", min_size=512, max_size=512),
+                dict(type="Pad", size_divisor=32), norm])),
+        optimizer=dict(type="AdamW", lr=1e-4, weight_decay=0.05),
+        max_epoch=1, max_iter=2, log_interval=1)
+    runner = run_net.main(["--config-file", train_cfg, "--task", "train"])
+    losses = [{k: v for k, v in r.items() if "loss" in k}
+              for r in runner.history]
+    if len(losses) != 2 or not all(
+            v and all(math.isfinite(x) for x in v.values()) for v in losses):
+        raise AssertionError(f"training on the prepared tiles: {losses}")
+    log(f"  run_net --task train, tiny config on the card's labels.pkl: 2 "
+        f"steps, losses " + "; ".join(
+            ", ".join(f"{k} {v:.4f}" for k, v in step.items())
+            for step in losses))
+    return os.path.join(src, "trainval", "images")
+
+
+def phase_scene_task(torch, dev, tmp, scenes, kernels, card, tile_file_tps):
+    """Raw-scene serving at full width: ``run_net --task test`` on
+    ``configs/orcnn_van3_fair1m_1_5.py`` with ``dataset.test`` a
+    ``SceneDataset`` over phase 29's two scenes, then the same scenes
+    screened by a random-init ``TileScreen`` at ``budget=4``. Returns the
+    dense task's launches."""
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.data.device_tiler import tile_positions
+    from rs_detection_tpu_torch.data.scene import SceneDataset
+    from rs_detection_tpu_torch.tools import run_net
+
+    kw = dict(images_dir=scenes, subsize=TILE, gap=200, rates=SCENE_RATES,
+              batch_size=BATCH)
+    per_variant = [len(tile_positions(round(SCENE_SIDE * r), TILE,
+                                      TILE - 200)) ** 2 for r in SCENE_RATES]
+    tiles = 2 * sum(per_variant)
+    forwards = -(-tiles // BATCH)
+    if tiles != 90:
+        raise AssertionError(f"scene tiles {tiles}, expected 90")
+    work = os.path.join(tmp, "scene", "work")
+    os.makedirs(work)
+    cfg = write_config(
+        os.path.join(tmp, "scene", "orcnn_van3_fair1m_1_5_scene.py"),
+        _base_=os.path.join(ROOT, "configs", "orcnn_van3_fair1m_1_5.py"),
+        model=dict(compute_dtype="bfloat16"),
+        dataset=dict(test=dict(_cover_=True, type="SceneDataset",
+                               dataset_type="FAIR1M_1_5", **kw),
+                     train=None, val=None),
+        flip_test=False, allow_random_init=True,
+        merge_cfg=dict(dataset_type="FAIR1M_1_5"), work_dir=work)
+    n_blocks = sum(st[3] for st in STAGES)
+    cwd = os.getcwd()
+    os.chdir(os.path.join(tmp, "scene"))
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = run_net.main(["--config-file", cfg, "--task", "test"])
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = dict(runner.test_stats)
+        want = dict.fromkeys(kernels, 0)
+        want.update(van_mlp=n_blocks * forwards,
+                    roi_align_rotated_pyramid=forwards)
+        if launches != want or stats["tiles"] != tiles:
+            raise AssertionError(f"scene task: {stats['tiles']} tiles, "
+                                 f"launches {launches}, expected {want}")
+        with open(os.path.join(work, "test", "test_0.pkl"), "rb") as f:
+            results = pickle.load(f)
+        n_in = 0
+        for (polys, scores, labels), meta in results:
+            if not (np.isfinite(polys).all() and np.isfinite(scores).all()
+                    and polys.shape == (len(scores), 8)
+                    and ((labels >= 1) & (labels <= 10)).all()):
+                raise AssertionError(f"scene task: bad detections, {meta}")
+            n_in += len(scores)
+        csv = os.path.join(tmp, "scene", "submit_zips",
+                           "orcnn_van3_fair1m_1_5_scene.csv")
+        n_csv = read_rows([csv])
+        if len(results) != tiles or not 0 < n_csv < n_in:
+            raise AssertionError(f"scene task: {len(results)} results, "
+                                 f"{n_in} detections, {n_csv} CSV rows")
+        log(f"  run_net --task test over 2 raw scenes of {SCENE_SIDE}^2 "
+            f"(SceneDataset, rates {SCENE_RATES}: {per_variant} tiles a "
+            f"scene-variant), VAN-b3 bf16: {tiles} tiles in {forwards} "
+            f"forwards of {BATCH} in {stats['inference_s']:.3f} s = "
+            f"{tiles / stats['inference_s']:.2f} scene tiles/s (decode, H2D, "
+            f"resize, tile, normalize on the card, predict) beside phase "
+            f"22's {tile_file_tps:.2f} tile-file tiles/s at batch 1; merge "
+            f"{stats['merge_s']:.3f} s; detections {n_in}, {n_csv} CSV "
+            f"rows; peak {peak:.2f} GiB; whole task {wall:.1f} s; K2 "
+            f"{launches['van_mlp'] // forwards} and K1 "
+            f"{launches['roi_align_rotated_pyramid'] // forwards} launches "
+            f"a forward [{card}]")
+
+        # each served tile against the CPU port's tile of the same name
+        err, n = 0.0, 0
+        for (gi, _, gm), (ri, _, rm) in zip(
+                SceneDataset(device=dev, **kw).batches(),
+                SceneDataset(device="cpu", **kw).batches()):
+            if [m and m["filename"] for m in gm] != \
+                    [m and m["filename"] for m in rm]:
+                raise AssertionError("scene tiles: names differ card / CPU")
+            err = max(err, (gi.cpu() - ri).abs().max().item())
+            n += sum(1 for m in gm if m)
+        log(f"  scene tiles on the card vs the CPU port's, by name: {n} "
+            f"tiles, max_abs_err {err:.3e} (f32, tolerance 1e-4)")
+        if n != tiles or not err <= 1e-4:
+            raise AssertionError(f"scene tiles card vs CPU: {n}, {err}")
+
+        runner.test_dataset = SceneDataset(
+            device=dev, screen=dict(budget=4, allow_random_init=True), **kw)
+        for fn in kernels.values():
+            fn.launches = 0
+        # cut: the screened run skips the merge (7 s of host NMS over the
+        # random weights' detections; the dense run above merged)
+        runner.cfg.merge_cfg = None
+        runner.test(flip_test=False)
+        screened = {k: fn.launches for k, fn in kernels.items()}
+        sstats = runner.test_dataset.screen_stats
+        kept = 4 * 2 * len(SCENE_RATES)
+        want = dict.fromkeys(kernels, 0)
+        want.update(van_mlp=n_blocks * -(-kept // BATCH),
+                    roi_align_rotated_pyramid=-(-kept // BATCH))
+        if sstats != dict(total=tiles, kept=kept) or screened != want \
+                or runner.test_stats["tiles"] != kept:
+            raise AssertionError(f"screened scene task: {sstats}, "
+                                 f"{runner.test_stats}, {screened}")
+        log(f"  the same scenes screened by a random-init TileScreen at "
+            f"budget=4: screen_stats {sstats}, {kept} tiles in "
+            f"{-(-kept // BATCH)} forwards, inference "
+            f"{runner.test_stats['inference_s']:.3f} s (screen included); "
+            f"no merge (cut) [{card}]")
+    finally:
+        os.chdir(cwd)
+    return launches
+
+
+def phase_screened_scene(torch, dev, tmp, card, runner, ds_dir, saved_cfg):
+    """The torch form of the JAX screened-scene mAP test on the card,
+    with phase 28's trained detector (``tests/test_torch_scene.py:
+    check_screened_scene``)."""
+    import test_torch_scene as scene_tests
+
+    from rs_detection_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()  # the runner reads the global config: phase 28's again
+    cfg.clear()
+    cfg.update(saved_cfg)
+    root = os.path.join(tmp, "screened")
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)
+    t0 = time.perf_counter()
+    try:
+        out = scene_tests.check_screened_scene(runner, ds_dir, root, dev)
+    finally:
+        os.chdir(cwd)
+    log(f"  screened scene (SP001, 3 x 3 tiles of 128^2, 4 occupied) in "
+        f"{time.perf_counter() - t0:.1f} s: screen logits "
+        f"{out['screen_logits']}; ground truths matched of {out['total']}: "
+        f"dense {out['dense']}, thresh 0.5 {out['thresh']} "
+        f"({out['thresh_stats']}, the occupied tiles' detections as the "
+        f"dense run's, the dense merged detections above {out['floor']} "
+        f"reproduced), budget 1 {out['budget1']} ({out['budget1_stats']}) "
+        f"[{card}]")
 
 
 def main():
@@ -2275,7 +2676,7 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25 and 28 share the CPU tests' configs and rendered tiles
+    # phases 25, 28 and 31 share the CPU tests' configs and rendered tiles
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -2372,7 +2773,8 @@ def main():
         log("[21] tiny config through the runner: CUDA vs CPU")
         phase_runner_tiny(torch, dev, tmp)
         log("[22] run_net --task test at full width")
-        test_launches = phase_run_net(torch, tmp, serving, card)
+        test_launches, tile_file_tps = phase_run_net(torch, tmp, serving,
+                                                     card)
         log("[23] tiny config through the runner's training: CUDA vs CPU, "
             "resume")
         phase_runner_train_tiny(torch, dev, tmp)
@@ -2391,7 +2793,17 @@ def main():
         phase_eqlv2(torch, tmp, card)
         log("[28] the overfit test on the card: per-class APs, float and "
             "int8")
-        phase_overfit(torch, dev, tmp, card)
+        trained = phase_overfit(torch, dev, tmp, card)
+        log("[29] dataset preparation: tools/preprocess.py on the card and "
+            "on the CPU, then 2 training steps on its labels")
+        scenes = phase_preprocess(torch, tmp, card)
+        log("[30] raw-scene serving at full width: run_net --task test over "
+            "a SceneDataset, dense and screened")
+        scene_launches = phase_scene_task(torch, dev, tmp, scenes, serving,
+                                          card, tile_file_tps)
+        log("[31] the screened scene: train_screen, dense / thresh / budget "
+            "serving with phase 28's detector")
+        phase_screened_scene(torch, dev, tmp, card, *trained)
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -2408,7 +2820,8 @@ def main():
         entry("van_mlp", "van_mlp_wgmma.cu", jops + "pallas_van_mlp.py:68",
               launches["van_mlp"], k2,
               test_task_launches=test_launches["van_mlp"],
-              val_task_launches=val_task_launches["van_mlp"]),
+              val_task_launches=val_task_launches["van_mlp"],
+              scene_task_launches=scene_launches["van_mlp"]),
         entry("roi_align_rotated_pyramid", "roi_align_rotated_fwd.cu",
               jops + "pallas_roi_align.py:116",
               launches["roi_align_rotated_pyramid"], k1,
@@ -2423,7 +2836,9 @@ def main():
               resnet_test_task_launches=r50_test[
                   "roi_align_rotated_pyramid"],
               resnet_ms=k1_r50[0], resnet_plain_ms=k1_r50[1],
-              resnet_bound_ms=k1_r50[2][0]),
+              resnet_bound_ms=k1_r50[2][0],
+              scene_task_launches=scene_launches[
+                  "roi_align_rotated_pyramid"]),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,

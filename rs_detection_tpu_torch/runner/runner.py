@@ -39,6 +39,7 @@ import torch
 from ..config import get_cfg, save_cfg
 from ..data import dota as _dota  # noqa: F401  (registers the datasets)
 from ..data import image as _image  # noqa: F401  (registers ImageDataset)
+from ..data.scene import SceneDataset
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
@@ -105,6 +106,11 @@ class Runner:
         self.train_dataset = build_from_cfg(datasets.get("train"), DATASETS)
         self.val_dataset = build_from_cfg(datasets.get("val"), DATASETS)
         self.test_dataset = build_from_cfg(datasets.get("test"), DATASETS)
+        # a raw-scene dataset tiles on the runner's device unless its
+        # config names one
+        if isinstance(self.test_dataset, SceneDataset) and \
+                self.test_dataset.device is None:
+            self.test_dataset.device = self.device
         self.steps_per_epoch = 1 if self.train_dataset is None else max(
             1, len(self.train_dataset) // self.train_dataset.batch_size)
         self.epoch = 0
@@ -351,17 +357,18 @@ class Runner:
 
     # ------------------------------------------------------------------
 
-    def predict(self, images: np.ndarray, targets: Dict) -> Dict:
+    def predict(self, images, targets: Dict) -> Dict:
         """Dense detections of one collated batch (normalized NHWC
-        ``images``, ``targets["scale_factor"]``) as numpy: polys
-        [B, P, 8], scores [B, P, C], valid [B, P]."""
+        ``images``, numpy or a tensor already on the device, and
+        ``targets["scale_factor"]``) as numpy: polys [B, P, 8], scores
+        [B, P, C], valid [B, P]."""
         self._ensure_state()
         return self._forward(images, targets)
 
-    def _forward(self, images: np.ndarray, targets: Dict) -> Dict:
+    def _forward(self, images, targets: Dict) -> Dict:
         out = self.model.predict(
-            torch.from_numpy(images).to(self.device),
-            torch.from_numpy(targets["scale_factor"]).to(self.device))
+            torch.as_tensor(images, device=self.device),
+            torch.as_tensor(targets["scale_factor"], device=self.device))
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     @staticmethod
@@ -449,8 +456,8 @@ class Runner:
             raise ValueError("the config has no dataset.test")
         self._ensure_state()
         images, targets, _ = next(iter(self.test_dataset.batches()))
-        x = torch.from_numpy(images).to(self.device)
-        sf = torch.from_numpy(targets["scale_factor"]).to(self.device)
+        x = torch.as_tensor(images, device=self.device)
+        sf = torch.as_tensor(targets["scale_factor"], device=self.device)
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else lambda: None)
         for _ in range(warmup):

@@ -30,8 +30,11 @@ flax refuses to run): the port's loss states keep their initial values.
 ``load_jax_checkpoint`` reads the pickle the JAX runner's ``save``
 writes without importing jax: its arrays are jax arrays, which pickle
 as a numpy array plus a call to rebuild the device array; that call is
-replaced by one that keeps the numpy array. ``jax_optimizer_state``
-carries that checkpoint's ``opt_state`` over to the port's optimizer:
+replaced by one that keeps the numpy array. ``module_to_jax_params``
+goes the other way for the flax-named layers of ``TileScreen``, so a
+screen checkpoint of the port loads in the JAX package.
+``jax_optimizer_state`` carries that checkpoint's ``opt_state`` over to
+the port's optimizer:
 an optax AdamW chain through ``jax_adamw_state`` (``count`` -> ``step``
 and ``iterations``, ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``), an
 optax SGD chain through ``jax_sgd_state`` (``trace`` -> the momentum
@@ -128,6 +131,33 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
         for k, v in state.items():
             v.copy_(torch.from_numpy(np.array(arrays[k], dtype=np.float32)))
     return module
+
+
+def module_to_jax_params(module: nn.Module) -> Dict:
+    """The inverse of ``load_jax_variables`` for a module of flax-named
+    ``Conv2d`` and ``GroupNorm`` layers (``TileScreen``): its parameters
+    as a flax ``params`` tree of numpy f32 arrays (a conv's ``weight`` ->
+    ``kernel`` in HWIO, a norm's -> ``scale``). Any other layer with
+    parameters raises."""
+    tree: Dict = {}
+    for name, m in module.named_modules():
+        params = dict(m.named_parameters(recurse=False))
+        if not params:
+            continue
+        if not isinstance(m, (nn.Conv2d, nn.GroupNorm)):
+            raise ValueError(f"{name}: no flax form for {type(m).__name__}")
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        for leaf, p in params.items():
+            arr = p.detach().float().cpu().numpy()
+            if leaf != "weight":
+                node[leaf] = arr
+            elif isinstance(m, nn.GroupNorm):
+                node["scale"] = arr
+            else:
+                node["kernel"] = arr.transpose(2, 3, 1, 0)
+    return tree
 
 
 def _numpy_of_jax_array(fun, args, arr_state, aval_state):

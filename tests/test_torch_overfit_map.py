@@ -132,10 +132,9 @@ def trained_runner(root, device):
     return runner, ds_dir
 
 
-def merged_matches(runner, ds_dir):
-    """(matched, total): the scene's ground truths (tile boxes plus tile
-    offsets) with a merged detection of their class within 24 px and a
-    score of at least 0.1."""
+def merged_dets(runner, scene="S0001"):
+    """The merged after-NMS detections of ``scene`` for the two rendered
+    classes: {class id: [(score, cx, cy), ...]}."""
     merged = os.path.join(runner.work_dir,
                           f"test/submit_{runner.epoch}/after_nms")
     dets = {}
@@ -145,11 +144,18 @@ def merged_matches(runner, ds_dir):
             continue
         for line in open(path):
             f = line.split()
-            if f[0] != "S0001":
+            if f[0] != scene:
                 continue
             poly = np.asarray([float(v) for v in f[2:10]])
             dets.setdefault(cls_id, []).append(
                 (float(f[1]), poly[0::2].mean(), poly[1::2].mean()))
+    return dets
+
+
+def match_count(dets, ds_dir, min_score=0.1):
+    """(matched, total): the scene's ground truths (tile boxes plus tile
+    offsets) with a detection of ``dets`` of their class within 24 px and
+    a score of at least ``min_score``."""
     with open(os.path.join(ds_dir, "labels.pkl"), "rb") as fh:
         infos = pickle.load(fh)
     matched = total = 0
@@ -159,17 +165,21 @@ def merged_matches(runner, ds_dir):
             total += 1
             gx, gy = box[0] + ox, box[1] + oy
             matched += any(abs(cx - gx) < 24 and abs(cy - gy) < 24
-                           and s >= 0.1
+                           and s >= min_score
                            for s, cx, cy in dets.get(int(lab), []))
     return matched, total
 
 
-def check_overfit(root, device, int8=False):
-    """Train, then hold ``Runner.val``'s APs (and with ``int8`` the int8
-    serving APs) and the merged scene detections to the JAX tests' gates;
-    returns {"aps", "aps_int8" (with ``int8``), "matched": (matched,
-    total)}."""
-    runner, ds_dir = trained_runner(root, device)
+def merged_matches(runner, ds_dir):
+    """``match_count`` of the merged detections of scene S0001."""
+    return match_count(merged_dets(runner), ds_dir)
+
+
+def check_trained(runner, ds_dir, int8=False):
+    """Hold a trained runner's ``Runner.val`` APs (and with ``int8`` the
+    int8 serving APs) and its merged scene detections to the JAX tests'
+    gates; returns {"aps", "aps_int8" (with ``int8``), "matched":
+    (matched, total)}."""
     out = dict(aps=class_aps(runner.val()))
     assert all(v >= 0.3 for v in out["aps"].values()), out
     if int8:
@@ -185,6 +195,12 @@ def check_overfit(root, device, int8=False):
     # ground truths once the merge puts the tile offsets back
     assert matched >= total * 0.4, out
     return out
+
+
+def check_overfit(root, device, int8=False):
+    """Train (``trained_runner``), then ``check_trained``."""
+    runner, ds_dir = trained_runner(root, device)
+    return check_trained(runner, ds_dir, int8)
 
 
 @pytest.fixture

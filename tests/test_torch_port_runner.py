@@ -369,3 +369,76 @@ def test_runner_and_run_net_import_no_jax(served, tmp_path):
         "ckpt_1.pkl", "swa_1-1.pkl"]
     assert (tmp_path / "train_work" / "detections" / "val_1" /
             "val.pkl").exists()
+
+
+@pytest.fixture(scope="module")
+def served_scene(served):
+    """The JAX runner of ``served`` (its weights and compiled eval step)
+    and a port runner resumed from its checkpoint serve one raw scene of
+    170 x 229 through ``SceneDataset`` (rates 0.5 and 1.0, 128^2 tiles at
+    a gap of 32, batch 1, flip-TTA): 7 tiles, 28 forwards each."""
+    from rs_detection_tpu.data.scene import SceneDataset as JSceneDataset
+
+    root = served["root"] / "scene"
+    scenes = root / "scenes"
+    scenes.mkdir(parents=True)
+    Image.fromarray(np.random.RandomState(13).randint(
+        0, 256, (170, 229, 3)).astype(np.uint8)).save(scenes / "7.png")
+    kw = dict(images_dir=str(scenes), subsize=128, gap=32,
+              rates=[0.5, 1.0], batch_size=1)
+    jr = served["jr"]
+    saved = jr.work_dir, jr.test_dataset
+    cwd = os.getcwd()
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jdata_merge, "mergebypoly",
+                   partial(jresult_merge.mergebypoly, num_process=1))
+        (root / "jax").mkdir()
+        os.chdir(root / "jax")
+        jr.work_dir = str(root / "jax" / "work")
+        jr.test_dataset = JSceneDataset(**kw)
+        jr.test(flip_test=True)
+        port_work = root / "port" / "work"
+        (port_work / "checkpoints").mkdir(parents=True)
+        shutil.copy(served["ckpt"], port_work / "checkpoints" / "ckpt_0.pkl")
+        os.chdir(root / "port")
+        _use(get_cfg, tiny_config(str(scenes), str(port_work), dataset=dict(
+            test=dict(type="SceneDataset", dataset_type="FAIR1M_1_5", **kw))))
+        pr = Runner(device="cpu")
+        pr.test(flip_test=True)
+    finally:
+        jr.work_dir, jr.test_dataset = saved
+        os.chdir(cwd)
+        mp.undo()
+    return dict(root=root, pr=pr,
+                jax_pkl=root / "jax" / "work" / "test" / "test_0.pkl",
+                port_pkl=port_work / "test" / "test_0.pkl")
+
+
+def test_scene_task_pickle_matches_jax(served_scene):
+    """The scene test task: the same 28 tile metas in the same order (the
+    merge's names ``7__0.5__0___0.png`` ...); detections agree within
+    ``chip_smoke.py`` phase 21's tolerances (scores 1e-5, polygons 1e-2
+    px) wherever a score is clear of the 0.05 threshold by more; both
+    merges write FAIR1M-1.5 CSVs of as many rows."""
+    with open(served_scene["jax_pkl"], "rb") as f:
+        ref = pickle.load(f)
+    with open(served_scene["port_pkl"], "rb") as f:
+        got = pickle.load(f)
+    assert len(got) == len(ref) == 4 * 7
+    assert {m["filename"] for _, m in got} >= {"7__0.5__0___0.png",
+                                                "7__1.0__101___42.png"}
+    kept = 0
+    for ((gp, gs, gl), gm), ((rp, rs, rl), rm) in zip(got, ref):
+        assert gm == rm
+        gk, rk = np.abs(gs - 0.05) > 1e-5, np.abs(rs - 0.05) > 1e-5
+        np.testing.assert_array_equal(gl[gk], rl[rk])
+        np.testing.assert_allclose(gs[gk], rs[rk], atol=1e-5)
+        np.testing.assert_allclose(gp[gk], rp[rk], atol=1e-2)
+        kept += int(gk.sum())
+    assert kept > 100
+    assert served_scene["pr"].test_stats["tiles"] == 4 * 7
+    rows = [(served_scene["root"] / side / "submit_zips" /
+             "tiny_runner.csv").read_text().count("\n")
+            for side in ("port", "jax")]
+    assert rows[0] == rows[1] > 0
