@@ -179,6 +179,31 @@ Phases, each of which raises (exit code 1) on failure:
      tiles, gives them the dense run's detections and reproduces the
      dense merged detections above the background tiles' scores;
      ``budget=1`` loses ground-truth matches
+ 32. the tiny RoI-Transformer, KFIoU RoI-Transformer and FasterRCNN-OBB
+     (``tests/test_networks_smoke.py:94-125``'s ResNet-18 models with the
+     zoo's freezing): ``predict`` and two SGD steps on CUDA (K1 / K3 in
+     stage 2) against the CPU, f32, both sides sampling the first
+     candidates by index, at phase 5's and phase 9's tolerances; two K1
+     launches on the stage-2 rois bit for bit
+ 33. the RoI-Transformer at full width: ``run_net --task train`` on
+     ``projects/roi_transformer/configs/faster_rcnn_RoITrans_r50_fpn_1x_dota.py``
+     (JDet's legacy-schema RoI Transformer: ResNet-50, FPN-256, 2000
+     proposals, 512 rois a stage, f32, batch 2) over 8 seeded 1024^2
+     tiles with 42 boxes each (4 steps), then ``--task test`` with the
+     DOTA merge over 4 scene tiles; checks losses (stage-1 and stage-2
+     bbox losses above 0), results and K1 1 / K3 1 launches a step, K1 1
+     a test forward; prints ms/step, peak memory, tiles/s, the merge's
+     seconds; K1 on one test forward's 4,000 stage-2 rois (against its
+     plain version, bit for bit twice) and K3 on one step's 1,024 against
+     their plain versions and bounds, and the plain horizontal RoIAlign's
+     time and memory on the 4,000 stage-1 rois beside K1's
+ 34. FasterRCNN-OBB at full width: ``projects/faster_rcnn/configs/
+     faster_rcnn_obb_r50_fpn_1x_dota.py``, 2 train steps and 2 test tiles;
+     K1 and K3 never launch; prints ms/step and peak memory
+Each phase prints its seconds and the card's peak memory since its
+start; a phase that raises prints ``phase N failed: <type>: <message>``
+and its traceback to stderr, and the script stops with exit code 1. The
+whole run's seconds come on a line before the JSON lines.
 Then prints one JSON line of per-kernel results (time, plain time, the
 card's bound for the same work, the library call's time where PyTorch
 has one; K1's and K3's time on the step-like rois, K1's on a serving
@@ -186,7 +211,8 @@ request's, K5's in a CUDA graph; K1's and K2's launches in phase 22's
 test task, K1's, K3's and K6's in phase 24's train task, K1's and K2's in
 its val task and in phase 30's scene task, ``scene_task_launches``;
 K1's and K3's launches in phase 26's tasks and their
-times, plain times and bounds at its shapes, ``resnet_*``), the
+times, plain times and bounds at its shapes, ``resnet_*``, and the same
+for phase 33's RoI-Transformer tasks, ``roitrans_*``), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -213,6 +239,7 @@ TRAIN_STEPS = 5
 MAX_GT = 42
 TRAIN_TASK_TILES = 24  # phase 24: 3 steps of batch 8 an epoch, 2 epochs
 RESNET_TILES = 12  # phase 26: 6 steps of batch 2
+ROITRANS_TILES = 8  # phase 33: 4 steps of batch 2
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -342,6 +369,37 @@ def add_bounds(parts):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def run_phase(torch, n, title, fn):
+    """Phase ``n``: its title, then ``fn()``, then its seconds and the
+    card's peak memory in it (each phase starts from freed memory and a
+    reset peak; a phase that resets the peak itself shows the peak
+    since then). A raise prints ``phase N failed: <type>: <message>`` and
+    the traceback to stderr and goes on up: the script stops with exit
+    code 1, nothing carries on."""
+    import gc
+    import traceback
+
+    log(f"[{n}] {title}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except BaseException as e:
+        line = f"phase {n} failed: {type(e).__name__}: " + \
+            " ".join(str(e).split())
+        log(line)
+        print(line, file=sys.stderr, flush=True)
+        traceback.print_exc(file=sys.stderr)
+        sys.stderr.flush()
+        raise
+    log(f"  phase {n}: {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (since the "
+        f"phase's last reset of the peak)")
+    return out
 
 
 def compare(name, kernel, plain, dtype_name, rel_tol=REL_TOL):
@@ -2666,6 +2724,340 @@ def phase_screened_scene(torch, dev, tmp, card, runner, ds_dir, saved_cfg):
         f"[{card}]")
 
 
+def phase_roitrans_tiny(torch, dev):
+    """The tiny RoI-Transformer, KFIoU RoI-Transformer and FasterRCNN-OBB
+    (``tests/test_networks_smoke.py:94-125``'s models: ResNet-18 with the
+    zoo's freezing as phase 25's, 32-wide FPN with ``on_input`` extra
+    convs, hbb RPN, cascade head): ``predict``
+    and two SGD steps on CUDA (K1 / K3 in stage 2) against the CPU (plain
+    versions), f32, from one seed. No sampler takes every candidate of a
+    cascade's stage 2 (``num`` + G candidates for ``num`` slots), so both
+    sides sample the first candidates by index
+    (``tests/test_torch_roitrans_cuda.py:first_k_sample``). Then two K1
+    launches on the stage-2 rois of the CUDA predict, bit for bit and
+    against the plain version."""
+    from test_torch_roitrans_cuda import (TINY_KINDS, first_k_sample,
+                                          run_tiny, tiny_inputs, tiny_model)
+
+    from rs_detection_tpu_torch.flagship import init_weights, normalize
+    from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    tiles, targets = tiny_inputs()
+    sample = RandomSampler.sample
+    RandomSampler.sample = first_k_sample
+    try:
+        for kind in sorted(TINY_KINDS):
+            _, p_cpu, l_cpu = run_tiny(kind, "cpu", tiles, targets)
+            _, p_gpu, l_gpu = run_tiny(kind, dev, tiles, targets)
+            if not torch.equal(p_cpu["valid"], p_gpu["valid"].cpu()):
+                raise AssertionError(f"tiny {kind} predict: valid masks "
+                                     f"differ")
+            errs = {key: (p_gpu[key].cpu() - p_cpu[key]).abs().max().item()
+                    for key in ("polys", "scores")}
+            worst, where = max(
+                (abs(g_[k] - c[k]) / max(abs(c[k]), 1e-6), f"{k}, step {i}")
+                for i, (g_, c) in enumerate(zip(l_gpu, l_cpu), 1)
+                for k in c if "loss" in k)
+            log(f"  tiny {kind}, CUDA vs CPU: predict polys max_abs_err "
+                f"{errs['polys']:.3e} (atol 1e-2), scores "
+                f"{errs['scores']:.3e} (atol 1e-5), phase 5's; 2 SGD steps, "
+                f"losses worst relative error {worst:.2e} ({where}; "
+                f"tolerance 1e-4, phase 9's); losses {l_gpu[-1]}")
+            if not (errs["polys"] <= 1e-2 and errs["scores"] <= 1e-5
+                    and worst <= 1e-4):
+                raise AssertionError(f"tiny {kind}: CUDA and CPU differ")
+            if not all(math.isfinite(v) for v in l_gpu[-1].values()):
+                raise AssertionError(f"tiny {kind}: losses {l_gpu[-1]}")
+    finally:
+        RandomSampler.sample = sample
+    model = build_from_cfg(tiny_model("roitrans"), MODELS)
+    init_weights(model, torch.Generator().manual_seed(3))
+    model.to(dev).eval()
+    x = normalize(tiles.to(dev))
+    seen = captured_roi_calls(torch, lambda: model.predict(x))
+    if len(seen) != 1:
+        raise AssertionError(f"tiny RoI-Transformer: {len(seen)} rotated "
+                             f"RoI extractor calls in a predict")
+    fs, rois = seen[0]
+    a = ra.roi_align_rotated_pyramid_cuda(fs, rois)
+    b = ra.roi_align_rotated_pyramid_cuda(fs, rois)
+    compare(f"K1 on {rois.shape[0]} stage-2 rois of the tiny cascade, C=32, "
+            f"f32", a, ra.roi_align_rotated_pyramid_reference(fs, rois),
+            "float32")
+    if not torch.equal(a, b):
+        raise AssertionError("K1 on stage-2 rois: two launches differ")
+    log("  K1 on the stage-2 rois: two launches equal bit for bit")
+
+
+class _CaptureExtractor:
+    """Stands in for a head's horizontal extractor and keeps the
+    (features, rois) of each call."""
+
+    def __init__(self, ext):
+        self.ext = ext
+        self.seen = []
+
+    def __call__(self, feats, rois):
+        self.seen.append(([f.detach().clone() for f in feats],
+                          rois.detach().clone()))
+        return self.ext(feats, rois)
+
+
+def roitrans_task(torch, tmp, kernels, config, n_train, n_test, tag):
+    """``run_net --task train`` over ``n_train`` seeded 1024^2 tiles with
+    42 boxes each at the config's batch 2, then ``--task test`` with the
+    DOTA merge over ``n_test`` scene tiles, from a checkpoint of the
+    first, the wrappers' launches counted over each task. Returns (runner,
+    tester, train launches, test launches, train seconds, test seconds,
+    train peak bytes, the seeded targets, work dir)."""
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.tools import run_net
+
+    names = [f"{tag}{i:02d}.png" for i in range(n_train)]
+    t = make_targets(n_train, TILE, MAX_GT,
+                     torch.Generator().manual_seed(33))
+    ds = write_labelled(os.path.join(tmp, f"{tag}_train"), names, TILE, 33,
+                        t["rboxes"].numpy(), t["labels"].numpy())
+    tiles = os.path.join(tmp, f"{tag}_test")
+    write_tiles(tiles, [f"S0__1.0__{x}___{y}.png"
+                        for x, y in SCENE_OFFSETS[:n_test]], TILE, 34)
+    work = os.path.join(tmp, f"{tag}_work")
+    base = os.path.join(ROOT, "projects", *config)
+    cfg = write_config(
+        os.path.join(tmp, f"{tag}_chip.py"), _base_=base,
+        allow_random_init=True, max_epoch=1, log_interval=1,
+        checkpoint_interval=1, work_dir=work,
+        dataset=dict(train=dict(dataset_dir=ds), val=None,
+                     test=dict(images_dir=tiles)),
+        merge_cfg=dict(dataset_type="DOTA"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = run_net.main(["--config-file", cfg, "--task", "train"])
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = {k: fn.launches for k, fn in kernels.items()}
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tester = run_net.main(["--config-file", cfg, "--task", "test"])
+        t_test = time.perf_counter() - t0
+        test_launches = {k: fn.launches for k, fn in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    return (runner, tester, train_launches, test_launches, t_train, t_test,
+            peak, t, work)
+
+
+def check_task_losses(runner, steps, bbox_keys, what):
+    hist = runner.history
+    if len(hist) != steps or type(runner.optimizer).__name__ != "SGD":
+        raise AssertionError(f"{what}: {len(hist)} records, "
+                             f"{type(runner.optimizer).__name__}")
+    for rec in hist:
+        losses = {k: v for k, v in rec.items() if "loss" in k}
+        if not (all(math.isfinite(v) for v in losses.values())
+                and all(losses[k] > 0 for k in bbox_keys)):
+            raise AssertionError(f"{what}: losses {rec}")
+    step_ms = sorted(1e3 * x for x in runner.train_stats["step_s"][1:])
+    log("  losses, first and last step: " + ", ".join(
+        f"{k} {hist[0][k]:.4f} -> {hist[-1][k]:.4f}" for k in hist[0]
+        if "loss" in k))
+    return step_ms
+
+
+def check_test_results(np, tester, work, n_tiles, what):
+    import pickle
+
+    with open(os.path.join(work, "test", "test_1.pkl"), "rb") as f:
+        results = pickle.load(f)
+    if tester.epoch != 1 or len(results) != n_tiles or not all(
+            np.isfinite(p).all() and np.isfinite(s).all()
+            for (p, s, _), _ in results):
+        raise AssertionError(f"{what}: bad results")
+    after = os.path.join(work, "test", "submit_1", "after_nms")
+    return read_rows(os.path.join(after, n) for n in os.listdir(after))
+
+
+def phase_roitrans_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``projects/roi_transformer/configs/faster_rcnn_RoITrans_r50_fpn_1x_dota.py``
+    at full width (ResNet-50, FPN-256, 2000 proposals, 512 rois per
+    stage, f32 as written, batch 2; 8 tiles = 4 steps, then 4 test tiles
+    at the config's test batch with the merge); K1 and K3 on this path's stage-2 rois against their
+    plain versions and bounds, the plain horizontal RoIAlign on its
+    stage-1 rois beside K1. Returns (train launches, test launches, K1
+    (ms, plain ms, bound), K3 (ms, plain ms, bound))."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import normalize
+    from rs_detection_tpu_torch.ops import roi_align as ra
+
+    steps, n_test = ROITRANS_TILES // 2, 4
+    config = ("roi_transformer", "configs",
+              "faster_rcnn_RoITrans_r50_fpn_1x_dota.py")
+    (runner, tester, train_launches, test_launches, t_train, t_test, peak,
+     t, work) = roitrans_task(torch, tmp, kernels, config, ROITRANS_TILES,
+                              n_test, "rt")
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=steps,
+                roi_align_rotated_pyramid_bwd=steps)
+    if train_launches != want:
+        raise AssertionError(f"RoI-Transformer train task launches "
+                             f"{train_launches}, expected {want}")
+    step_ms = check_task_losses(
+        runner, steps, ("loss_rpn_bbox", "rbbox_reg_loss_1",
+                        "rbbox_reg_loss_2"), "RoI-Transformer train task")
+    dtypes = {p.dtype for p in runner.model.parameters()}
+    if dtypes != {torch.float32} or runner.model.compute_dtype:
+        raise AssertionError(f"RoI-Transformer train task: dtypes {dtypes}")
+    log(f"  run_net --task train, ResNet-50 RoI-Transformer from "
+        f"projects/roi_transformer/configs/faster_rcnn_RoITrans_r50_fpn_1x_"
+        f"dota.py (f32, as written; legacy schema: FasterrcnnHead RPN, 2000 "
+        f"proposals, two SharedFCBBoxHeadRbbox stages of 512 rois, 15 "
+        f"classes, frozen stem and layer1; cut: {ROITRANS_TILES} seeded "
+        f"tiles of {TILE}^2 with {MAX_GT} boxes, {steps} steps of batch 2, "
+        f"random weights): {t_train:.1f} s whole task; ms/step through the "
+        f"runner, median of steps 2-{steps}: {step_ms[len(step_ms) // 2]:.1f}"
+        f" (min {step_ms[0]:.1f}, max {step_ms[-1]:.1f}); loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    log(f"  launches in the train task: {train_launches}")
+
+    batch = tester.test_dataset.batch_size
+    forwards = -(-n_test // batch)
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=forwards)
+    if test_launches != want:
+        raise AssertionError(f"RoI-Transformer test task launches "
+                             f"{test_launches}, expected {want}")
+    n_out = check_test_results(np, tester, work, n_test,
+                               "RoI-Transformer test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl: {n_test} tiles at batch "
+        f"{batch} (the config's) in {stats['inference_s']:.3f} s = "
+        f"{n_test / stats['inference_s']:.2f} tiles/s of inference; merge "
+        f"{stats['merge_s']:.3f} s; detections {stats['detections']} in, "
+        f"{n_out} after NMS; whole task {t_test:.1f} s [{card}]")
+    log(f"  launches in the test task: {test_launches}")
+
+    # this path's rois: stage 1's hbbs and stage 2's rotated boxes
+    model = runner.model
+    del runner, tester
+    x = normalize(torch.randint(
+        0, 256, (2, TILE, TILE, 3), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(35)).to("cuda"))
+    tgt = {k: v[:2].to("cuda") for k, v in t.items()}
+    hcap = _CaptureExtractor(model.bbox_head.h_extractor)
+    model.bbox_head.h_extractor = hcap
+    fwd = captured_roi_calls(torch, lambda: model.eval().predict(x))
+    model.bbox_head.h_extractor = hcap.ext
+    with torch.no_grad():
+        step = captured_roi_calls(torch, lambda: model.train().loss(
+            x, tgt, torch.Generator(device="cuda").manual_seed(0)))
+        # the hbb RPN's proposals: a host sync per NMS sweep
+        model.eval()
+        outs = model.rpn(model.extract_feats(x))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.rpn.get_proposals(*outs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    log(f"    hbb RPN get_proposals, batch 2 (5 levels, nms_pre 2000, cap "
+        f"4096, Jacobi NMS): {1e3 * sorted(times)[1]:.1f} ms host, median "
+        f"of 3 [{card}]")
+    del model, outs
+    torch.cuda.empty_cache()
+    if len(fwd) != 1 or len(step) != 1 or len(hcap.seen) != 1:
+        raise AssertionError("RoI-Transformer path: the RoI extractor calls "
+                             "differ")
+    out = []
+    for what, (fs, rois) in (("K1, one test forward's stage 2", fwd[0]),
+                             ("K3, one training step's stage 2", step[0])):
+        if what.startswith("K1"):
+            got = ra.roi_align_rotated_pyramid_cuda(fs, rois)
+            compare(f"{what}: {rois.shape[0]} rotated rois, C=256, f32", got,
+                    ra.roi_align_rotated_pyramid_reference(fs, rois),
+                    "float32")
+            if not torch.equal(got, ra.roi_align_rotated_pyramid_cuda(
+                    fs, rois)):
+                raise AssertionError("K1 on stage-2 rois: two launches "
+                                     "differ")
+            t_k = cuda_ms(lambda: ra.roi_align_rotated_pyramid_cuda(
+                fs, rois), 10)
+            t_p = cuda_ms(lambda: ra.roi_align_rotated_pyramid_reference(
+                fs, rois), 3)
+            b = bound(nbytes(*fs, rois, got), 0.0, 32.0 * got.numel())
+        else:
+            grad = torch.randn(rois.shape[0], 7, 7, fs[0].shape[-1],
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(36),
+                               device="cuda")
+            compare(f"{what}: {rois.shape[0]} rotated rois, C=256, f32",
+                    ra.roi_align_rotated_pyramid_bwd_cuda(fs, rois, grad),
+                    ra.roi_align_rotated_pyramid_bwd_reference(fs, rois,
+                                                               grad),
+                    "float32", K3_TOL)
+            t_k = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_cuda(
+                fs, rois, grad), 10)
+            t_p = cuda_ms(lambda: ra.roi_align_rotated_pyramid_bwd_reference(
+                fs, rois, grad), 3)
+            b = bound(nbytes(grad, rois, *fs), 0.0, 32.0 * grad.numel())
+        log(f"    {what}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{b[0]:.3f} ms by {b[1]} [{card}]")
+        out.append((t_k, t_p, b))
+    fs, rois = hcap.seen[0]
+    ext = hcap.ext
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ext(fs, rois)
+    torch.cuda.synchronize()
+    h_peak = torch.cuda.max_memory_allocated() - base
+    t_h = cuda_ms(lambda: ext(fs, rois), 3)
+    log(f"    plain horizontal RoIAlign (stage 1, each roi at its level, "
+        f"{1024} rois a chunk): {rois.shape[0]} hbb rois, C=256, f32, "
+        f"{t_h:.3f} ms, {h_peak / 2**30:.2f} GiB above its inputs; K1 on "
+        f"the same number of rotated rois {out[0][0]:.3f} ms [{card}]")
+    return train_launches, test_launches, out[0], out[1]
+
+
+def phase_faster_rcnn_obb(torch, tmp, kernels, card):
+    """``run_net --task train`` (2 steps of batch 2) and ``--task test``
+    (2 tiles) on ``projects/faster_rcnn/configs/
+    faster_rcnn_obb_r50_fpn_1x_dota.py`` at full width: its one stage
+    pools on the horizontal RoIAlign, so no kernel launches."""
+    import numpy as np
+
+    config = ("faster_rcnn", "configs", "faster_rcnn_obb_r50_fpn_1x_dota.py")
+    (runner, tester, train_launches, test_launches, t_train, t_test, peak,
+     _, work) = roitrans_task(torch, tmp, kernels, config, 4, 2, "fo")
+    want = dict.fromkeys(kernels, 0)
+    if train_launches != want or test_launches != want:
+        raise AssertionError(f"FasterRCNN-OBB launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(runner, 2, ("loss_rpn_bbox",
+                                            "rbbox_reg_loss_1"),
+                                "FasterRCNN-OBB train task")
+    n_out = check_test_results(np, tester, work, 2, "FasterRCNN-OBB test "
+                               "task")
+    stats = tester.test_stats
+    log(f"  FasterRCNN-OBB (ResNet-50, f32, one shared-FC stage on the "
+        f"horizontal RoIAlign): 2 steps of batch 2 in {t_train:.1f} s whole "
+        f"task, ms/step of step 2 {step_ms[-1]:.1f}, peak memory "
+        f"{peak / 2**30:.2f} GiB; test 2 tiles in "
+        f"{stats['inference_s']:.3f} s of inference, {n_out} detections "
+        f"after NMS; launches {train_launches} / {test_launches} [{card}]")
+
+
 def main():
     import torch
 
@@ -2676,7 +3068,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28 and 31 share the CPU tests' configs and rendered tiles
+    # phases 25, 28, 31 and 32 share the CPU tests' configs and rendered
+    # tiles
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -2690,16 +3083,23 @@ def main():
     from rs_detection_tpu_torch.parallel import train_step as train_mod
 
     dev = torch.device("cuda", 0)
-    card = card_line()
-    log(f"[1] device: {torch.cuda.get_device_name(0)} ({card}), torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
 
-    t0 = time.perf_counter()
-    _build.kernel_library()
-    log(f"[2] build: {time.perf_counter() - t0:.2f} s -> "
-        f"{os.path.relpath(_build.library_path(), ROOT)}")
+    def phase_1():
+        log(f"  {torch.cuda.get_device_name(0)} ({card}), torch "
+            f"{torch.__version__}, CUDA {torch.version.cuda}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def phase_2():
+        t0 = time.perf_counter()
+        _build.kernel_library()
+        log(f"  build: {time.perf_counter() - t0:.2f} s -> "
+            f"{os.path.relpath(_build.library_path(), ROOT)}")
+
+    card = card_line()
+    run_phase(torch, 1, "device", phase_1)
+    run_phase(torch, 2, "build", phase_2)
 
     serving = {"van_mlp": vm.van_mlp_cuda,
                "van_mlp_residual": vm.van_mlp_residual_cuda,
@@ -2708,102 +3108,127 @@ def main():
                "van_attn": va.van_attn_cuda,
                "depthwise_conv2d": dw.depthwise_conv2d_cuda,
                "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda}
-    log("[3] K2 fused VAN MLP vs plain")
-    k2 = phase_k2(torch, vm.van_mlp_cuda, vm.van_mlp_reference, dev)
-    log("[4] K1 rotated pyramid RoIAlign vs plain and its first design")
-    k1, k1_step_ms, k1_serving_ms = phase_k1(torch, ra, build_flagship,
-                                             normalize, dev)
-    log("[5] tiny config predict: CUDA (kernels) vs CPU (plain), f32")
-    phase_slice(torch, build_flagship, normalize, dev)
-    log("[6] serving path")
-    modes = {}
-    launches, *modes["non-fused"] = phase_main(
-        torch, build_flagship, normalize, serving, dev, card)
-    log("[7] K3 RoIAlign backward vs plain, bit for bit across launches, "
-        "K1/K3 adjointness")
-    k3, k3_step_ms = phase_k3(torch, ra, dev)
-    log("[8] K6 depthwise weight gradient vs plain")
-    k6 = phase_k6(torch, dwc, dev)
-    log("[9] tiny config training step: CUDA (kernels) vs CPU (plain), f32")
-    phase_train_tiny(torch, build_flagship, make_targets, train_mod, dev)
-    log("[10] training path")
     training = {"van_mlp": vm.van_mlp_cuda,
                 "roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
                 "roi_align_rotated_pyramid_bwd":
                     ra.roi_align_rotated_pyramid_bwd_cuda,
                 "dw_wgrad": dwc.dw_wgrad_cuda}
-    train_launches, phase10_ms = phase_train(
-        torch, build_flagship, make_targets, normalize, train_mod, training,
-        dev, card)
-    log("[11] K5 depthwise forward (and K7's layout) vs plain")
-    k5, k7 = phase_k5(torch, dw, dev)
-    k7_launches = phase_k7_path(torch, dw, dev)
-    log("[12] K2r residual form of the VAN MLP kernel vs plain")
-    k2r = phase_k2(torch, vm.van_mlp_residual_cuda,
-                   vm.van_mlp_residual_reference, dev, name="K2r")
-    log("[13] K4 fused VAN attention half-block vs plain")
-    k4 = phase_k4(torch, va, dev)
-    log("[14] tiny config fused predict: CUDA vs CPU, fused vs non-fused")
-    phase_slice(torch, build_flagship, normalize, dev, fused=True)
-    log("[15] fused serving path")
-    fused_launches, *modes["fused"] = phase_main(
-        torch, build_flagship, normalize, serving, dev, card, fused=True)
-    log("[16] K2q int8 form of the VAN MLP kernel, and its residual form, "
-        "vs plain")
-    k2q = phase_k2q(torch, vm, dev, residual=False)
-    k2qr = phase_k2q(torch, vm, dev, residual=True)
-    phase_k2q_pack(torch, vm, quant, _build.kernel_library(), dev)
-    log("[17] integer products of the int8 mode: CUDA vs CPU, bit for bit")
-    phase_int_products(torch, quant, dev)
-    log("[18] tiny config int8 predict: CUDA vs CPU, int8 vs float")
-    phase_slice_int8(torch, build_flagship, normalize, dev, fused=False)
-    phase_slice_int8(torch, build_flagship, normalize, dev, fused=True)
-    log("[19] int8 serving path")
-    int8_launches, *modes["int8 non-fused"] = phase_main(
-        torch, build_flagship, normalize, serving, dev, card, int8=True)
-    log("[20] fused int8 serving path")
-    int8_fused_launches, *modes["int8 fused"] = phase_main(
-        torch, build_flagship, normalize, serving, dev, card, fused=True,
-        int8=True, n_requests=INT8_REQUESTS_FUSED)
+    k2 = run_phase(torch, 3, "K2 fused VAN MLP vs plain", lambda: phase_k2(
+        torch, vm.van_mlp_cuda, vm.van_mlp_reference, dev))
+    k1, k1_step_ms, k1_serving_ms = run_phase(
+        torch, 4, "K1 rotated pyramid RoIAlign vs plain and its first design",
+        lambda: phase_k1(torch, ra, build_flagship, normalize, dev))
+    run_phase(torch, 5, "tiny config predict: CUDA (kernels) vs CPU (plain), "
+              "f32", lambda: phase_slice(torch, build_flagship, normalize,
+                                         dev))
+    modes = {}
+    launches, *modes["non-fused"] = run_phase(
+        torch, 6, "serving path", lambda: phase_main(
+            torch, build_flagship, normalize, serving, dev, card))
+    k3, k3_step_ms = run_phase(
+        torch, 7, "K3 RoIAlign backward vs plain, bit for bit across "
+        "launches, K1/K3 adjointness", lambda: phase_k3(torch, ra, dev))
+    k6 = run_phase(torch, 8, "K6 depthwise weight gradient vs plain",
+                   lambda: phase_k6(torch, dwc, dev))
+    run_phase(torch, 9, "tiny config training step: CUDA (kernels) vs CPU "
+              "(plain), f32", lambda: phase_train_tiny(
+                  torch, build_flagship, make_targets, train_mod, dev))
+    train_launches, phase10_ms = run_phase(
+        torch, 10, "training path", lambda: phase_train(
+            torch, build_flagship, make_targets, normalize, train_mod,
+            training, dev, card))
+    (k5, k7), k7_launches = run_phase(
+        torch, 11, "K5 depthwise forward (and K7's layout) vs plain",
+        lambda: (phase_k5(torch, dw, dev), phase_k7_path(torch, dw, dev)))
+    k2r = run_phase(torch, 12, "K2r residual form of the VAN MLP kernel vs "
+                    "plain", lambda: phase_k2(
+                        torch, vm.van_mlp_residual_cuda,
+                        vm.van_mlp_residual_reference, dev, name="K2r"))
+    k4 = run_phase(torch, 13, "K4 fused VAN attention half-block vs plain",
+                   lambda: phase_k4(torch, va, dev))
+    run_phase(torch, 14, "tiny config fused predict: CUDA vs CPU, fused vs "
+              "non-fused", lambda: phase_slice(torch, build_flagship,
+                                               normalize, dev, fused=True))
+    fused_launches, *modes["fused"] = run_phase(
+        torch, 15, "fused serving path", lambda: phase_main(
+            torch, build_flagship, normalize, serving, dev, card, fused=True))
+
+    def phase_16():
+        out = (phase_k2q(torch, vm, dev, residual=False),
+               phase_k2q(torch, vm, dev, residual=True))
+        phase_k2q_pack(torch, vm, quant, _build.kernel_library(), dev)
+        return out
+
+    k2q, k2qr = run_phase(torch, 16, "K2q int8 form of the VAN MLP kernel, "
+                          "and its residual form, vs plain", phase_16)
+    run_phase(torch, 17, "integer products of the int8 mode: CUDA vs CPU, "
+              "bit for bit", lambda: phase_int_products(torch, quant, dev))
+    run_phase(torch, 18, "tiny config int8 predict: CUDA vs CPU, int8 vs "
+              "float", lambda: [phase_slice_int8(
+                  torch, build_flagship, normalize, dev, fused=f)
+                  for f in (False, True)])
+    int8_launches, *modes["int8 non-fused"] = run_phase(
+        torch, 19, "int8 serving path", lambda: phase_main(
+            torch, build_flagship, normalize, serving, dev, card, int8=True))
+    int8_fused_launches, *modes["int8 fused"] = run_phase(
+        torch, 20, "fused int8 serving path", lambda: phase_main(
+            torch, build_flagship, normalize, serving, dev, card, fused=True,
+            int8=True, n_requests=INT8_REQUESTS_FUSED))
     log("  serving, same run: " + "; ".join(
         f"{mode} {t:.2f} tiles/s, request median {med:.1f} ms, peak "
         f"{peak:.2f} GiB" for mode, (t, peak, med) in modes.items())
         + f" [{card}]")
+    both = dict(serving, **training)
     with tempfile.TemporaryDirectory() as tmp:
-        log("[21] tiny config through the runner: CUDA vs CPU")
-        phase_runner_tiny(torch, dev, tmp)
-        log("[22] run_net --task test at full width")
-        test_launches, tile_file_tps = phase_run_net(torch, tmp, serving,
-                                                     card)
-        log("[23] tiny config through the runner's training: CUDA vs CPU, "
-            "resume")
-        phase_runner_train_tiny(torch, dev, tmp)
-        log("[24] run_net --task train at full width, get_swa_model, "
-            "run_net --task val")
-        train_task_launches, val_task_launches = phase_train_task(
-            torch, tmp, dict(serving, **training), card, phase10_ms)
-        log("[25] tiny ResNet config: predict and 2 SGD steps, CUDA vs CPU")
-        phase_resnet_tiny(torch, dev)
-        log("[26] run_net --task train and --task test on "
-            "orcnn_r50_fpn_1x_dota.py at full width")
-        r50_train, r50_test, k1_r50, k3_r50 = phase_resnet_train_task(
-            torch, tmp, dict(serving, **training), card)
-        log("[27] EQLv2 at full width: orcnn_r101_fpn_ms_flip_rotate_bc_le90_"
-            "eqlv2.py, 2 steps, save, resume")
-        phase_eqlv2(torch, tmp, card)
-        log("[28] the overfit test on the card: per-class APs, float and "
-            "int8")
-        trained = phase_overfit(torch, dev, tmp, card)
-        log("[29] dataset preparation: tools/preprocess.py on the card and "
-            "on the CPU, then 2 training steps on its labels")
-        scenes = phase_preprocess(torch, tmp, card)
-        log("[30] raw-scene serving at full width: run_net --task test over "
-            "a SceneDataset, dense and screened")
-        scene_launches = phase_scene_task(torch, dev, tmp, scenes, serving,
-                                          card, tile_file_tps)
-        log("[31] the screened scene: train_screen, dense / thresh / budget "
-            "serving with phase 28's detector")
-        phase_screened_scene(torch, dev, tmp, card, *trained)
+        run_phase(torch, 21, "tiny config through the runner: CUDA vs CPU",
+                  lambda: phase_runner_tiny(torch, dev, tmp))
+        test_launches, tile_file_tps = run_phase(
+            torch, 22, "run_net --task test at full width",
+            lambda: phase_run_net(torch, tmp, serving, card))
+        run_phase(torch, 23, "tiny config through the runner's training: "
+                  "CUDA vs CPU, resume",
+                  lambda: phase_runner_train_tiny(torch, dev, tmp))
+        train_task_launches, val_task_launches = run_phase(
+            torch, 24, "run_net --task train at full width, get_swa_model, "
+            "run_net --task val", lambda: phase_train_task(
+                torch, tmp, both, card, phase10_ms))
+        run_phase(torch, 25, "tiny ResNet config: predict and 2 SGD steps, "
+                  "CUDA vs CPU", lambda: phase_resnet_tiny(torch, dev))
+        r50_train, r50_test, k1_r50, k3_r50 = run_phase(
+            torch, 26, "run_net --task train and --task test on "
+            "orcnn_r50_fpn_1x_dota.py at full width",
+            lambda: phase_resnet_train_task(torch, tmp, both, card))
+        run_phase(torch, 27, "EQLv2 at full width: orcnn_r101_fpn_ms_flip_"
+                  "rotate_bc_le90_eqlv2.py, 2 steps, save, resume",
+                  lambda: phase_eqlv2(torch, tmp, card))
+        trained = run_phase(torch, 28, "the overfit test on the card: "
+                            "per-class APs, float and int8",
+                            lambda: phase_overfit(torch, dev, tmp, card))
+        scenes = run_phase(torch, 29, "dataset preparation: tools/"
+                           "preprocess.py on the card and on the CPU, then 2 "
+                           "training steps on its labels",
+                           lambda: phase_preprocess(torch, tmp, card))
+        scene_launches = run_phase(
+            torch, 30, "raw-scene serving at full width: run_net --task "
+            "test over a SceneDataset, dense and screened",
+            lambda: phase_scene_task(torch, dev, tmp, scenes, serving, card,
+                                     tile_file_tps))
+        run_phase(torch, 31, "the screened scene: train_screen, dense / "
+                  "thresh / budget serving with phase 28's detector",
+                  lambda: phase_screened_scene(torch, dev, tmp, card,
+                                               *trained))
+        trained = None
+        run_phase(torch, 32, "tiny RoI-Transformer, KFIoU RoI-Transformer "
+                  "and FasterRCNN-OBB: predict and 2 SGD steps, CUDA vs CPU",
+                  lambda: phase_roitrans_tiny(torch, dev))
+        rt_train, rt_test, k1_rt, k3_rt = run_phase(
+            torch, 33, "run_net --task train and --task test on "
+            "faster_rcnn_RoITrans_r50_fpn_1x_dota.py at full width",
+            lambda: phase_roitrans_task(torch, tmp, both, card))
+        run_phase(torch, 34, "faster_rcnn_obb_r50_fpn_1x_dota.py at full "
+                  "width: 2 steps, 2 test tiles",
+                  lambda: phase_faster_rcnn_obb(torch, tmp, both, card))
+    log(f"all 34 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -2838,7 +3263,13 @@ def main():
               resnet_ms=k1_r50[0], resnet_plain_ms=k1_r50[1],
               resnet_bound_ms=k1_r50[2][0],
               scene_task_launches=scene_launches[
-                  "roi_align_rotated_pyramid"]),
+                  "roi_align_rotated_pyramid"],
+              roitrans_train_task_launches=rt_train[
+                  "roi_align_rotated_pyramid"],
+              roitrans_test_task_launches=rt_test[
+                  "roi_align_rotated_pyramid"],
+              roitrans_ms=k1_rt[0], roitrans_plain_ms=k1_rt[1],
+              roitrans_bound_ms=k1_rt[2][0]),
         entry("roi_align_rotated_pyramid_bwd", "roi_align_rotated_bwd.cu",
               jops + "pallas_roi_align.py:721",
               train_launches["roi_align_rotated_pyramid_bwd"], k3,
@@ -2848,7 +3279,13 @@ def main():
               resnet_train_task_launches=r50_train[
                   "roi_align_rotated_pyramid_bwd"],
               resnet_ms=k3_r50[0], resnet_plain_ms=k3_r50[1],
-              resnet_bound_ms=k3_r50[2][0]),
+              resnet_bound_ms=k3_r50[2][0],
+              roitrans_train_task_launches=rt_train[
+                  "roi_align_rotated_pyramid_bwd"],
+              roitrans_test_task_launches=rt_test[
+                  "roi_align_rotated_pyramid_bwd"],
+              roitrans_ms=k3_rt[0], roitrans_plain_ms=k3_rt[1],
+              roitrans_bound_ms=k3_rt[2][0]),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
               train_launches["dw_wgrad"], k6, k6[4],
               train_task_launches=train_task_launches["dw_wgrad"]),

@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .models.networks.rcnn import OrientedRCNN
+from .models.networks.rcnn import RCNN, OrientedRCNN
+from .ops import box_ops as B
 from .utils.registry import MODELS, build_from_cfg
 
 # on-device input normalization of the competition config (to_bgr=False)
@@ -59,7 +60,7 @@ def normalize(images_u8):
     return (images_u8.float() - m) / s
 
 
-def init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
+def init_weights(model: RCNN, g: torch.Generator) -> None:
     """Seeded random init in the spirit of the flax initializers:
     He-normal (fan_out, truncated) convs, N(0, 0.01) RPN convs, Xavier
     shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases.
@@ -78,8 +79,11 @@ def init_weights(model: OrientedRCNN, g: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         for conv in (model.rpn.rpn_conv, model.rpn.rpn_cls, model.rpn.rpn_reg):
             conv.weight.normal_(0.0, 0.01, generator=g)
-        model.bbox_head.fc_cls.weight.normal_(0.0, 0.01, generator=g)
-        model.bbox_head.fc_reg.weight.normal_(0.0, 0.001, generator=g)
+        # every stage's cls / reg FCs, in the order the head holds them
+        std = {"fc_cls": 0.01, "fc_reg": 0.001}
+        for name, m in model.bbox_head.named_modules():
+            if name.split(".")[-1] in std:
+                m.weight.normal_(0.0, std[name.split(".")[-1]], generator=g)
 
 
 def flagship_cfg(tiny: bool = False) -> dict:
@@ -151,7 +155,8 @@ def make_targets(b: int, img: int, max_gt: int,
     ``__graft_entry__.py:_dummy_targets`` scaled to ``img`` (so both
     regression losses have positives), then ``max_gt - 2`` boxes with
     centres in the tile, sides 12-400 px (log-uniform, capped at the
-    tile) and any angle; 1-based labels of the 10 classes."""
+    tile) and any angle; 1-based labels of the 10 classes; "hboxes",
+    the hbb of each box, for the hbb-RPN networks."""
     dev = generator.device
     n = max_gt - 2
 
@@ -172,6 +177,6 @@ def make_targets(b: int, img: int, max_gt: int,
         torch.tensor([1, 2], device=dev).expand(b, 2),
         torch.randint(1, NUM_CLASSES + 1, (b, n), generator=generator,
                       device=dev)], 1)
-    return dict(rboxes=rboxes, labels=labels,
+    return dict(rboxes=rboxes, hboxes=B.obb2hbb(rboxes), labels=labels,
                 gt_mask=torch.ones(b, max_gt, dtype=torch.bool, device=dev),
                 img_hw=torch.full((b, 2), float(img), device=dev))

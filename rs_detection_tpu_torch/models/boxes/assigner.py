@@ -95,3 +95,13 @@ class MaxIoUAssigner:
             self.overlaps(bboxes, gt_bboxes), gt_mask, self.pos_iou_thr,
             self.neg_iou_thr, self.min_pos_iou, self.match_low_quality,
             self.gt_max_assign_all, anchor_mask=anchor_mask)
+
+
+@BOXES.register_module()
+class MaxIoUAssignerRbbox(MaxIoUAssigner):
+    """Rotated IoU whatever ``iou_calculator`` says (the JAX class's
+    ``iou_kind`` is "rotated" and only a rotated calculator sets it)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rotated = True

@@ -1,7 +1,10 @@
-"""Box delta coders of Oriented R-CNN (counterpart of
-``MidpointOffsetCoder`` and ``OrientedDeltaXYWHTCoder`` in
+"""Box delta coders (counterpart of ``MidpointOffsetCoder``,
+``OrientedDeltaXYWHTCoder``, ``DeltaXYWHBBoxCoder``,
+``GVDeltaXYWHBBoxCoder`` and ``DeltaXYWHABBoxCoder`` in
 ``rs_detection_tpu/models/boxes/coder.py``): the encoders make the
-training targets, the decoders the proposals and detections."""
+training targets, the decoders the proposals and detections. The
+midpoint-offset coders of Gliding Vertex are not ported yet (ROADMAP.md,
+Queue 1, item 10b)."""
 
 from __future__ import annotations
 
@@ -163,3 +166,65 @@ class OrientedDeltaXYWHTCoder:
     def decode(self, bboxes, pred_bboxes, wh_ratio_clip: float = 16 / 1000):
         return oriented_delta_decode(bboxes, pred_bboxes, self.means,
                                      self.stds, wh_ratio_clip)
+
+
+@BOXES.register_module()
+class DeltaXYWHBBoxCoder:
+    """hbb delta coder with the legacy +1 on widths and heights;
+    ``clip_border`` clips decoded corners to ``max_shape``."""
+
+    def __init__(self, target_means=(0.,) * 4, target_stds=(1.,) * 4,
+                 clip_border: bool = True):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+        self.clip_border = clip_border
+
+    def encode(self, bboxes, gt_bboxes):
+        return B.bbox2delta(bboxes, gt_bboxes, self.means, self.stds)
+
+    def decode(self, bboxes, pred_bboxes, max_shape=None,
+               wh_ratio_clip: float = 16 / 1000):
+        return B.delta2bbox(bboxes, pred_bboxes, self.means, self.stds,
+                            max_shape if self.clip_border else None,
+                            wh_ratio_clip)
+
+
+@BOXES.register_module()
+class GVDeltaXYWHBBoxCoder(DeltaXYWHBBoxCoder):
+    """hbb delta coder without the legacy +1 (the hbb RPN's)."""
+
+    def encode(self, bboxes, gt_bboxes):
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        gx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        gy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        gw = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+        gh = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+        deltas = torch.stack(
+            [(gx - px) / pw, (gy - py) / ph,
+             torch.log(gw.clamp(min=1e-6) / pw),
+             torch.log(gh.clamp(min=1e-6) / ph)], dim=-1)
+        return _normalize(deltas, self.means, self.stds)
+
+
+@BOXES.register_module()
+class DeltaXYWHABBoxCoder:
+    """Rotated-box delta coder in the proposal's rotated frame (both
+    stages of the RoI-Transformer cascade). ``max_shape`` is accepted and
+    ignored, as in the JAX coder."""
+
+    def __init__(self, target_means=(0.,) * 5, target_stds=(1.,) * 5,
+                 clip_border: bool = True):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+        self.clip_border = clip_border
+
+    def encode(self, bboxes, gt_bboxes):
+        return B.bbox2delta_rotated(bboxes, gt_bboxes, self.means, self.stds)
+
+    def decode(self, bboxes, pred_bboxes, max_shape=None,
+               wh_ratio_clip: float = 16 / 1000):
+        return B.delta2bbox_rotated(bboxes, pred_bboxes, self.means,
+                                    self.stds, wh_ratio_clip)

@@ -59,3 +59,8 @@ class RandomSampler:
         take = (rank < num_expected_neg) & (vals > -1.0)
         neg = torch.zeros_like(neg_cand).scatter(-1, idx, take)
         return pos, neg
+
+
+@BOXES.register_module()
+class RandomSamplerRotated(RandomSampler):
+    """The same sampling: it never looks at the boxes."""

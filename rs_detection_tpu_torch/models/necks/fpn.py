@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch.nn.functional as F
 from torch import nn
 
 from ...utils.registry import NECKS
@@ -41,11 +42,13 @@ class FPN(nn.Module):
                  int8: bool = False):
         super().__init__()
         self.int8 = int8
-        if add_extra_convs or relu_before_extra_convs:
-            raise NotImplementedError(
-                "FPN add_extra_convs / relu_before_extra_convs are not ported "
-                "yet (ROADMAP.md, Queue 1: remaining FPN modes); only the "
-                "max-pool extra levels are")
+        if add_extra_convs is True:
+            add_extra_convs = "on_input"
+        if add_extra_convs not in (False, None, "on_input", "on_lateral",
+                                   "on_output"):
+            raise ValueError(f"FPN: add_extra_convs={add_extra_convs!r}")
+        self.add_extra_convs = add_extra_convs or None
+        self.relu_before_extra_convs = relu_before_extra_convs
         self.in_channels = tuple(in_channels)
         self.num_outs = num_outs
         self.start_level = start_level
@@ -56,6 +59,13 @@ class FPN(nn.Module):
             self.add_module(f"lateral_{i}", nn.Conv2d(cin, out_channels, 1))
             self.add_module(f"fpn_conv_{i}", nn.Conv2d(
                 out_channels, out_channels, 3, padding=1))
+        if self.add_extra_convs:
+            cin = used[-1] if self.add_extra_convs == "on_input" \
+                else out_channels
+            for j in range(num_outs - len(used)):
+                self.add_module(f"extra_conv_{j}", nn.Conv2d(
+                    cin, out_channels, 3, stride=2, padding=1))
+                cin = out_channels
 
     def forward(self, inputs):
         """inputs: NHWC maps (one per in_channels) -> tuple of NHWC."""
@@ -72,6 +82,18 @@ class FPN(nn.Module):
                                                         lat[i - 1].shape[2:])
         outs = [maybe_int8_conv2d(getattr(self, f"fpn_conv_{i}"), x, int8)
                 for i, x in enumerate(lat)]
-        for _ in range(self.num_outs - len(outs)):
-            outs.append(outs[-1][:, :, ::2, ::2])
+        extra = self.num_outs - len(outs)
+        if self.add_extra_convs is None:
+            for _ in range(extra):
+                outs.append(outs[-1][:, :, ::2, ::2])
+        elif extra > 0:
+            src = {"on_input": lambda: used[-1].permute(0, 3, 1, 2),
+                   "on_lateral": lambda: lat[-1],
+                   "on_output": lambda: outs[-1]}[self.add_extra_convs]()
+            for j in range(extra):
+                if j > 0 and self.relu_before_extra_convs:
+                    src = F.relu(src)
+                src = maybe_int8_conv2d(getattr(self, f"extra_conv_{j}"),
+                                        src, int8)
+                outs.append(src)
         return tuple(o.permute(0, 2, 3, 1) for o in outs)

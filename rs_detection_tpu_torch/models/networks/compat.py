@@ -8,6 +8,17 @@ no constructor takes (``end_bbox_type``, ``reg_decoded_bbox``, ...).
 arguments and drops the rest, exactly as the JAX package does against
 its dataclass fields. The port has no dataclasses: a class's config
 fields are the arguments of its ``__init__``.
+
+The mmdet-v1 composed schema of ``projects/roi_transformer`` and
+``projects/faster_rcnn`` (``rpn_head`` + ``bbox_roi_extractor`` +
+``bbox_head`` + ``rbbox_*`` + ``train_cfg`` / ``test_cfg``) folds onto
+``RPNHead`` and ``RoITransformerHead`` through ``adapt_rpn_cfg`` and
+``adapt_cascade_head``, as in the JAX package: mmdet-v1 ``num_classes``
+counts the background, flat ``anchor_*`` keys become the
+``anchor_generator`` dict, per-stage ``target_stds`` become
+``stage1_stds`` / ``stage2_stds``. Only a KFIoU stage-2 loss is mapped;
+a GWD or KLD section is dropped and the stage trains smooth L1, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +34,72 @@ def _plain(node):
     if isinstance(node, (list, tuple)):
         return [_plain(v) for v in node]
     return node
+
+
+def adapt_rpn_cfg(cfg):
+    """A legacy ``rpn_head`` section (``FasterrcnnHead`` / ``RPNHead`` with
+    flat anchor keys) as an ``RPNHead`` section; any other passes
+    through."""
+    if cfg is None or not isinstance(cfg, Mapping):
+        return cfg
+    cfg = _plain(cfg)
+    legacy = ("anchor_scales" in cfg or "loss_cls" in cfg
+              or cfg.get("type") == "FasterrcnnHead")
+    if not legacy:
+        return cfg
+    out = dict(type="RPNHead", in_channels=cfg.get("in_channels", 256),
+               feat_channels=cfg.get("feat_channels", 256))
+    if "anchor_scales" in cfg:
+        out["anchor_generator"] = dict(
+            scales=cfg["anchor_scales"],
+            ratios=cfg.get("anchor_ratios", [0.5, 1.0, 2.0]),
+            strides=cfg.get("anchor_strides", [4, 8, 16, 32, 64]))
+    elif "anchor_generator" in cfg:
+        out["anchor_generator"] = {k: v for k, v in
+                                   cfg["anchor_generator"].items()
+                                   if k != "type"}
+    if "target_means" in cfg:
+        out["target_means"] = list(cfg["target_means"])[:4]
+    if "target_stds" in cfg:
+        out["target_stds"] = list(cfg["target_stds"])[:4]
+    lb = cfg.get("loss_bbox") or {}
+    if "beta" in lb:
+        out["smooth_l1_beta"] = lb["beta"]
+    return out
+
+
+def adapt_cascade_head(bbox_head, rbbox_head=None, bbox_roi_extractor=None,
+                       rbbox_roi_extractor=None, train_cfg=None):
+    """The mmdet-v1 cascade sections as one ``RoITransformerHead``
+    section: two stages with ``rbbox_head``, FasterRCNN-OBB's one
+    without it."""
+    bbox_head = _plain(bbox_head) or {}
+    rbbox_head = _plain(rbbox_head)
+    stage2 = rbbox_head if rbbox_head is not None else bbox_head
+    out = dict(type="RoITransformerHead",
+               num_classes=int(stage2.get("num_classes", 16)) - 1,
+               in_channels=bbox_head.get("in_channels", 256),
+               num_stages=2 if rbbox_head is not None else 1)
+    if "KFIoU" in str(stage2.get("type", "")) \
+            or (stage2.get("loss_bbox") or {}).get("loss_type") == "kfiou":
+        out["reg_loss"] = "kfiou"
+    if bbox_head.get("target_stds") is not None:
+        out["stage1_stds"] = list(bbox_head["target_stds"])
+    if stage2.get("target_stds") is not None:
+        out["stage2_stds"] = list(stage2["target_stds"])
+    ext = _plain(bbox_roi_extractor) or _plain(rbbox_roi_extractor)
+    if ext and ext.get("featmap_strides") is not None:
+        out["featmap_strides"] = list(ext["featmap_strides"])
+    rcnn = (_plain(train_cfg) or {}).get("rcnn")
+    if isinstance(rcnn, list) and rcnn:
+        rcnn = rcnn[0]
+    if isinstance(rcnn, Mapping):
+        smp = rcnn.get("sampler") or {}
+        if "num" in smp:
+            out["sampler_num"] = smp["num"]
+        if "pos_fraction" in smp:
+            out["pos_fraction"] = smp["pos_fraction"]
+    return out
 
 
 def config_fields(cls) -> Tuple[str, ...]:

@@ -2,7 +2,8 @@
 ``rs_detection_tpu/models/networks/rcnn.py``): backbone -> neck -> RPN
 -> bbox head. ``loss`` is the training forward (the merged loss dict of
 the RPN and the head), ``predict`` the inference one (dense per-image
-detections)."""
+detections). ``RCNN`` is the base of ``OrientedRCNN`` here and of the
+hbb-RPN networks of ``roi_transformer.py``."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..necks.fpn import FPN
 from ..roi_heads import oriented_head_variants  # noqa: F401  (registers)
 from ..roi_heads.oriented_head import OrientedHead
 from ..roi_heads.oriented_rpn_head import OrientedRPNHead
-from .compat import normalize_cfg
+from .compat import adapt_rpn_cfg, normalize_cfg
 
 
 def _build(cfg, registry, default):
@@ -42,22 +43,25 @@ def _dtype(name):
         return name
     dtype = getattr(torch, str(name), None)
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise ValueError(f"OrientedRCNN: compute_dtype {name!r} is not a "
-                         f"floating dtype")
+        raise ValueError(f"RCNN: compute_dtype {name!r} is not a floating "
+                         f"dtype")
     return dtype
 
 
-@MODELS.register_module()
-class OrientedRCNN(nn.Module):
-    """The competition model. ``backbone``, ``neck``, ``rpn`` and
-    ``bbox_head`` are modules or their config sections (``type=`` dicts,
-    built through the registries; the JAX package's defaults when None:
-    ResNet-50, FPN, ``OrientedRPNHead``, ``OrientedHead``).
-    ``compute_dtype`` (a torch dtype or its name, e.g. "bfloat16"): the
-    dtype the images are cast to, and so the activations'; the
-    parameters' dtype when None. The legacy mmdet-v1 sections
-    (``rpn_head``, ``rbbox_head``, ...) are not ported and raise;
-    ``pretrained`` is read by the runner."""
+class RCNN(nn.Module):
+    """The two-stage detector of the JAX ``RCNN``. ``backbone``, ``neck``,
+    ``rpn`` and ``bbox_head`` are modules or their config sections
+    (``type=`` dicts, built through the registries; ``default_rpn`` /
+    ``default_head`` when None). ``compute_dtype`` (a torch dtype or its
+    name, e.g. "bfloat16"): the dtype the images are cast to, and so the
+    activations'; the parameters' dtype when None. ``pretrained`` is read
+    by the runner. The mmdet-v1 sections (``rpn_head``, ``rbbox_head``,
+    ...) are taken by the networks whose ``LEGACY`` names them and raise
+    elsewhere; ``rpn_head`` stands for ``rpn`` when that is None."""
+
+    LEGACY = ()
+    default_rpn = OrientedRPNHead
+    default_head = OrientedHead
 
     def __init__(self, backbone=None, neck=None, rpn=None, bbox_head=None,
                  compute_dtype=None, rpn_head=None, bbox_roi_extractor=None,
@@ -68,16 +72,25 @@ class OrientedRCNN(nn.Module):
                       rbbox_roi_extractor=rbbox_roi_extractor,
                       rbbox_head=rbbox_head, shared_head=shared_head,
                       train_cfg=train_cfg, test_cfg=test_cfg)
-        given = sorted(k for k, v in legacy.items() if v is not None)
-        if given:
+        unread = sorted(k for k, v in legacy.items()
+                        if v is not None and k not in self.LEGACY)
+        if unread:
             raise NotImplementedError(
-                f"OrientedRCNN: the legacy config sections {given} are not "
-                f"ported yet (ROADMAP.md, item 10)")
+                f"{type(self).__name__}: the legacy config sections {unread} "
+                f"are not ported for this network; RoITransformer and "
+                f"FasterRCNNOBB take all but shared_head (ROADMAP.md, "
+                f"Queue 1, item 10c)")
         self.backbone = _build(backbone, BACKBONES, _resnet50)
         self.neck = _build(neck, NECKS, FPN)
-        self.rpn = _build(rpn, HEADS, OrientedRPNHead)
-        self.bbox_head = _build(bbox_head, HEADS, OrientedHead)
+        self.rpn = _build(rpn if rpn is not None else adapt_rpn_cfg(rpn_head),
+                          HEADS, self.default_rpn)
+        self.bbox_head = self.build_head(bbox_head, legacy)
         self.compute_dtype = _dtype(compute_dtype)
+
+    def build_head(self, bbox_head, legacy):
+        """The second stage from ``bbox_head`` (and the legacy sections a
+        subclass reads)."""
+        return _build(bbox_head, HEADS, self.default_head)
 
     def extract_feats(self, images):
         """images NHWC, cast to the compute dtype -> FPN levels, NHWC."""
@@ -87,7 +100,8 @@ class OrientedRCNN(nn.Module):
     def loss(self, images, targets, generator) -> Dict[str, torch.Tensor]:
         """Training losses of normalized NHWC ``images`` (call in train
         mode). ``targets``: dict of dense tensors "rboxes" [B, G, 5],
-        "gt_mask" [B, G], "labels" [B, G] (1-based), "img_hw" [B, 2].
+        "gt_mask" [B, G], "labels" [B, G] (1-based), "img_hw" [B, 2], and
+        for the hbb-RPN networks "hboxes" [B, G, 4].
         ``generator`` (on the images' device) drives both samplers. The
         proposals come from the detached RPN outputs, so the head's loss
         reaches the backbone only through the RoI features."""
@@ -111,3 +125,9 @@ class OrientedRCNN(nn.Module):
         if scale_factor is None:
             scale_factor = torch.ones(images.shape[0], device=images.device)
         return self.bbox_head.predict(feats, proposals, p_valid, scale_factor)
+
+
+@MODELS.register_module()
+class OrientedRCNN(RCNN):
+    """The competition model: ``OrientedRPNHead`` and ``OrientedHead`` by
+    default; it takes no legacy section."""

@@ -1,6 +1,6 @@
 """Rotated-box algebra on torch tensors (the subset of
-``rs_detection_tpu/ops/box_ops.py`` that Oriented R-CNN inference uses),
-and the numpy conversions of the host-side data pipeline.
+``rs_detection_tpu/ops/box_ops.py`` that Oriented R-CNN and the hbb-RPN
+families use), and the numpy conversions of the host-side data pipeline.
 
 obb = (cx, cy, w, h, theta), theta in radians, OBBDetection convention
 (``obb2poly`` rotates by R = [[cos, sin], [-sin, cos]]); hbb = (x0, y0,
@@ -54,6 +54,129 @@ def obb2hbb(obboxes):
     return torch.stack([cx - xb, cy - yb, cx + xb, cy + yb], dim=-1)
 
 
+def hbb2obb(hbboxes):
+    """hbb -> obb with w >= h: a taller box turns by -pi/2."""
+    x = (hbboxes[..., 0] + hbboxes[..., 2]) * 0.5
+    y = (hbboxes[..., 1] + hbboxes[..., 3]) * 0.5
+    w = hbboxes[..., 2] - hbboxes[..., 0]
+    h = hbboxes[..., 3] - hbboxes[..., 1]
+    wide = w >= h
+    zeros = torch.zeros_like(x)
+    return torch.stack([x, y, torch.where(wide, w, h),
+                        torch.where(wide, h, w),
+                        torch.where(wide, zeros, zeros - HALF_PI)], dim=-1)
+
+
+def rotated_box_to_poly(rrects):
+    """(cx, cy, w, h, theta) -> quadrilateral in the JDet convention: the
+    corners (-w/2, -h/2), (w/2, -h/2), (w/2, h/2), (-w/2, h/2) rotated by
+    R = [[cos, -sin], [sin, cos]], in that order (the JAX function with
+    ``best_begin=False``, which is how the cascade head calls it)."""
+    cx, cy, w, h, theta = rrects.unbind(-1)
+    c, s = torch.cos(theta), torch.sin(theta)
+    dx, dy = w / 2.0, h / 2.0
+    lx = torch.stack([-dx, dx, dx, -dx], dim=-1)
+    ly = torch.stack([-dy, -dy, dy, dy], dim=-1)
+    px = c[..., None] * lx - s[..., None] * ly + cx[..., None]
+    py = s[..., None] * lx + c[..., None] * ly + cy[..., None]
+    return torch.stack([px, py], dim=-1).reshape(*rrects.shape[:-1], 8)
+
+
+def _safe_log(x):
+    return torch.log(torch.clamp(x, min=1e-6))
+
+
+def _stats(deltas, means, stds, dim: int):
+    """means / stds tiled over the K boxes of [..., dim * K] deltas."""
+    k = deltas.shape[-1] // dim
+    kw = dict(dtype=deltas.dtype, device=deltas.device)
+    return (torch.tensor(means, **kw).repeat(k),
+            torch.tensor(stds, **kw).repeat(k))
+
+
+def bbox2delta(proposals, gt, means=None, stds=None):
+    """hbb encode with the legacy +1 on widths and heights."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0] + 1.0
+    ph = proposals[..., 3] - proposals[..., 1] + 1.0
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1.0
+    gh = gt[..., 3] - gt[..., 1] + 1.0
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          _safe_log(gw / pw), _safe_log(gh / ph)], dim=-1)
+    if means is not None and stds is not None:
+        m, s = _stats(deltas, means, stds, 4)
+        deltas = (deltas - m) / s
+    return deltas
+
+
+def delta2bbox(rois, deltas, means=None, stds=None, max_shape=None,
+               wh_ratio_clip: float = 16 / 1000):
+    """hbb decode; ``deltas`` [..., 4 * K] against rois [..., 4]; dw / dh
+    clipped to |log(wh_ratio_clip)|, corners to ``max_shape`` (h, w)
+    when given."""
+    if means is not None and stds is not None:
+        m, s = _stats(deltas, means, stds, 4)
+        deltas = deltas * s + m
+    dx, dy = deltas[..., 0::4], deltas[..., 1::4]
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = torch.clamp(deltas[..., 2::4], -max_ratio, max_ratio)
+    dh = torch.clamp(deltas[..., 3::4], -max_ratio, max_ratio)
+    px = ((rois[..., 0] + rois[..., 2]) * 0.5)[..., None]
+    py = ((rois[..., 1] + rois[..., 3]) * 0.5)[..., None]
+    pw = (rois[..., 2] - rois[..., 0])[..., None]
+    ph = (rois[..., 3] - rois[..., 1])[..., None]
+    gw = pw * torch.exp(dw)
+    gh = ph * torch.exp(dh)
+    gx = px + pw * dx
+    gy = py + ph * dy
+    x1, y1 = gx - gw * 0.5, gy - gh * 0.5
+    x2, y2 = gx + gw * 0.5, gy + gh * 0.5
+    if max_shape is not None:
+        x1 = torch.clamp(x1, 0, max_shape[1] - 1)
+        y1 = torch.clamp(y1, 0, max_shape[0] - 1)
+        x2 = torch.clamp(x2, 0, max_shape[1] - 1)
+        y2 = torch.clamp(y2, 0, max_shape[0] - 1)
+    return torch.stack([x1, y1, x2, y2], dim=-1).reshape(deltas.shape)
+
+
+def bbox2delta_rotated(proposals, gt, means=(0.0,) * 5, stds=(1.0,) * 5):
+    """obb encode in the proposal's rotated frame; the angle offset
+    normalized to [-pi/4, 3pi/4) and over pi."""
+    pw, ph, pa = proposals[..., 2], proposals[..., 3], proposals[..., 4]
+    gw, gh, ga = gt[..., 2], gt[..., 3], gt[..., 4]
+    cosa, sina = torch.cos(pa), torch.sin(pa)
+    ox = gt[..., 0] - proposals[..., 0]
+    oy = gt[..., 1] - proposals[..., 1]
+    deltas = torch.stack([(cosa * ox + sina * oy) / pw,
+                          (-sina * ox + cosa * oy) / ph,
+                          _safe_log(gw / pw), _safe_log(gh / ph),
+                          norm_angle(ga - pa) / PI], dim=-1)
+    m, s = _stats(deltas, means, stds, 5)
+    return (deltas - m) / s
+
+
+def delta2bbox_rotated(rois, deltas, means=(0.0,) * 5, stds=(1.0,) * 5,
+                       wh_ratio_clip: float = 16 / 1000):
+    """obb decode; ``deltas`` [..., 5 * K] against rois [..., 5]. The JAX
+    function takes ``max_shape`` and ignores it: no clipping here."""
+    m, s = _stats(deltas, means, stds, 5)
+    d = deltas * s + m
+    dx, dy = d[..., 0::5], d[..., 1::5]
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = torch.clamp(d[..., 2::5], -max_ratio, max_ratio)
+    dh = torch.clamp(d[..., 3::5], -max_ratio, max_ratio)
+    rx, ry, rw, rh, ra = (rois[..., i][..., None] for i in range(5))
+    gx = dx * rw * torch.cos(ra) - dy * rh * torch.sin(ra) + rx
+    gy = dx * rw * torch.sin(ra) + dy * rh * torch.cos(ra) + ry
+    gw = rw * torch.exp(dw)
+    gh = rh * torch.exp(dh)
+    ga = norm_angle(PI * d[..., 4::5] + ra)
+    return torch.stack([gx, gy, gw, gh, ga], dim=-1).reshape(deltas.shape)
+
+
 def rectpoly2obb(polys):
     """Rectangular polygon -> obb: theta from the first edge (y
     negated), extents in that frame (bbox_transforms.py:578-608)."""
@@ -78,7 +201,9 @@ def rectpoly2obb(polys):
 # ---------------------------------------------------------------------------
 
 def norm_angle(angle, angle_version: str = "le135"):
-    """Normalize angles: le90 -> [-pi/2, pi/2); le135 -> [-pi/4, 3pi/4)."""
+    """Normalize angles: le90 -> [-pi/2, pi/2); le135 -> [-pi/4, 3pi/4)
+    (numpy arrays or torch tensors: ``%`` is the floored modulo in
+    both)."""
     lo = -HALF_PI if angle_version == "le90" else -PI / 4.0
     return (angle - lo) % PI + lo
 

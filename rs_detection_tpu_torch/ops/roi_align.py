@@ -25,6 +25,11 @@ Neither path gives the rois a gradient: they reach the op detached
 (proposals come from detached RPN outputs, ground truths carry none), as
 in the JAX package.
 
+The horizontal ``roi_align`` (counterpart of ``rs_detection_tpu/ops/
+roi_align.py:roi_align``, plain XLA gathers there, not a TPU kernel) is
+plain PyTorch on every device, taken ``_CHUNK`` rois at a time; autograd
+differentiates it.
+
 Layouts as in the JAX package: features per level NHWC
 ``[N, H_l, W_l, C]``; rois ``[R, 6]`` = (batch_idx, cx, cy, w, h, theta)
 with w/h already inflated by the caller; output ``[R, P, P, C]``.
@@ -174,6 +179,89 @@ def roi_align_rotated_pyramid_reference(feats: Sequence[torch.Tensor], rois,
             out[sel] = _pool_level(feat, rois[sel], float(stride), p,
                                    s).to(out.dtype)
     return out
+
+
+def _axis_corners(t, size: int):
+    """The bilinear corners of sample coordinates ``t`` along one axis of
+    ``size`` pixels, with the border rules of ``_pool_level``: (low, high,
+    weight of low, weight of high, out of range)."""
+    oob = (t < -1.0) | (t > size)
+    t = torch.clamp(t, min=0.0)
+    low = t.long()
+    edge = low >= size - 1
+    low = torch.where(edge, size - 1, low)
+    high = torch.where(edge, size - 1, low + 1)
+    t = torch.where(edge, low.float(), t)
+    lt = t - low.float()
+    return low, high, 1.0 - lt, lt, oob
+
+
+def _roi_align_chunk(feat, rois, scale: float, p: int, s: int):
+    n, h, w, c = feat.shape
+    r = rois.shape[0]
+    dev = rois.device
+    b = torch.clamp(rois[:, 0].long(), 0, n - 1)
+    x1 = rois[:, 1] * scale
+    y1 = rois[:, 2] * scale
+    rw = torch.clamp(rois[:, 3] * scale - x1, min=1.0)
+    rh = torch.clamp(rois[:, 4] * scale - y1, min=1.0)
+    grid = (torch.arange(p, dtype=torch.float32, device=dev)[:, None]
+            + (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+            ).reshape(-1) / p
+    # x depends on the sample's column only, y on its row only
+    x_lo, x_hi, hx, lx, oob_x = _axis_corners(
+        x1[:, None] + grid[None, :] * rw[:, None], w)      # [r, G]
+    y_lo, y_hi, hy, ly, oob_y = _axis_corners(
+        y1[:, None] + grid[None, :] * rh[:, None], h)
+    flat = feat.reshape(n * h * w, c)
+    row = (b * h)[:, None, None]
+
+    def g(yi, xi):                                        # [r, G, G, C]
+        return flat[(row + yi[:, :, None]) * w + xi[:, None, :]].float()
+
+    def wt(a, b_):
+        return (a[:, :, None] * b_[:, None, :])[..., None]
+
+    out = (wt(hy, hx) * g(y_lo, x_lo) + wt(hy, lx) * g(y_lo, x_hi)
+           + wt(ly, hx) * g(y_hi, x_lo) + wt(ly, lx) * g(y_hi, x_hi))
+    oob = oob_y[:, :, None] | oob_x[:, None, :]
+    out = torch.where(oob[..., None], 0.0, out)
+    return out.reshape(r, p, s, p, s, c).mean(dim=(2, 4))
+
+
+def roi_align(features, rois, output_size: int = 7,
+              spatial_scale: float = 1.0, sampling_ratio: int = 2):
+    """Horizontal RoIAlign (torchvision style, no half-pixel offset) of
+    ``rois`` [R, 5] = (batch_idx, x1, y1, x2, y2) on one NHWC level:
+    ``sampling_ratio``^2 samples per bin from the roi's corner over
+    ``max(x2 * s - x1 * s, 1)`` x ``max(y2 * s - y1 * s, 1)``, bilinear
+    with the border semantics of the rotated version. Returns [R, P, P,
+    C] in the features' dtype (f32 sums), ``_CHUNK`` rois at a time."""
+    if sampling_ratio <= 0:
+        raise ValueError("roi_align: sampling_ratio must be positive")
+    rois = rois.float()
+    parts = [_roi_align_chunk(features, rois[i:i + _CHUNK],
+                              float(spatial_scale), output_size,
+                              sampling_ratio)
+             for i in range(0, rois.shape[0], _CHUNK)]
+    if not parts:
+        return features.new_zeros(0, output_size, output_size,
+                                  features.shape[-1])
+    return torch.cat(parts).to(features.dtype)
+
+
+class ROIAlign:
+    """Module-style wrapper of ``roi_align`` (the JAX class)."""
+
+    def __init__(self, output_size, spatial_scale, sampling_ratio=2):
+        self.output_size = (output_size if isinstance(output_size, int)
+                            else output_size[0])
+        self.spatial_scale = spatial_scale
+        self.sampling_ratio = max(int(sampling_ratio), 1)
+
+    def __call__(self, features, rois):
+        return roi_align(features, rois, self.output_size,
+                         self.spatial_scale, self.sampling_ratio)
 
 
 def _merged_bins(o, wt, w: int):

@@ -43,6 +43,7 @@ from ..data.scene import SceneDataset
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
+from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)
 from ..optims import optimizer as _optim  # noqa: F401  (OPTIMS)
 from ..parallel.train_step import train_step

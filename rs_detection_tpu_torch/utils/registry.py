@@ -86,6 +86,18 @@ def build_from_cfg(cfg: Any, registry: Registry, **default_args) -> Any:
     return cfg
 
 
+def register_unported(registry: Registry, names, what: str, item: str):
+    """Register ``names`` in ``registry`` as builders that raise, naming
+    the ROADMAP item that ports them: a config that needs one fails with
+    that item, not with an unknown name."""
+    for name in names:
+        def build(*_, _name=name, **__):
+            raise NotImplementedError(
+                f"{what} {_name!r} is not ported yet (ROADMAP.md, Queue 1, "
+                f"item {item})")
+        registry.register_module(name=name, module=build)
+
+
 MODELS = Registry("models")
 BACKBONES = Registry("backbones")
 NECKS = Registry("necks")

@@ -126,8 +126,7 @@ def _tiny_cfg(**changes):
 
 @pytest.mark.parametrize("changes,error", [
     ({"bbox_head.reg_class_agnostic": False}, NotImplementedError),
-    ({"neck.add_extra_convs": "on_input"}, NotImplementedError),
-    ({"neck.relu_before_extra_convs": True}, NotImplementedError),
+    ({"neck.add_extra_convs": "on_bogus"}, ValueError),
     ({"rpn.num_classes": 2}, NotImplementedError),
     ({"rpn.reg_dim": 5}, NotImplementedError),
     ({"rpn_head": {"type": "RPNHead"}}, NotImplementedError),
@@ -135,12 +134,12 @@ def _tiny_cfg(**changes):
     ({"rpn.anchor_generator.octave_base_scale": 4}, TypeError),
     ({"bbox_head.bbox_roi_extractor.impl": "pallas"}, TypeError),
     ({"rpn.sampler.neg_pos_ub": 3}, NotImplementedError),
-], ids=["reg_per_class", "fpn_extra_convs", "fpn_relu_extra",
-        "rpn_classes", "rpn_reg_dim", "legacy_section", "int_dtype",
-        "anchor_octaves", "extractor_impl", "neg_pos_ub"])
+], ids=["reg_per_class", "fpn_extra_convs", "rpn_classes", "rpn_reg_dim",
+        "legacy_section", "int_dtype", "anchor_octaves", "extractor_impl",
+        "neg_pos_ub"])
 def test_unsupported_config_values_raise(changes, error):
     """A value the JAX package honours and the port cannot is refused,
-    never dropped."""
+    never dropped (and an extra-conv mode neither knows is refused)."""
     with pytest.raises(error):
         _meta_model(_tiny_cfg(**changes))
 

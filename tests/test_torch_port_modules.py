@@ -108,8 +108,6 @@ def test_fpn_matches():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(r),
                                    rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FPN(dims, 24, add_extra_convs="on_input")
 
 
 @pytest.mark.parametrize("nms_pre,nms_post,cap", [(64, 48, 160), (8, 48, 160)],
