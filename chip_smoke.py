@@ -200,6 +200,25 @@ Phases, each of which raises (exit code 1) on failure:
  34. FasterRCNN-OBB at full width: ``projects/faster_rcnn/configs/
      faster_rcnn_obb_r50_fpn_1x_dota.py``, 2 train steps and 2 test tiles;
      K1 and K3 never launch; prints ms/step and peak memory
+ 35. the tiny S2ANet (``tests/test_s2anet.py:16-27``'s ResNet-18 model
+     with the zoo's freezing): ``predict`` and two SGD steps on CUDA
+     against the CPU, f32, at phase 5's and 9's tolerances; the
+     deformable conv's forward and gradients, the ARF weights and RIP,
+     ``multiclass_nms_rotated_jit`` on 3,000 x 15 candidates and the
+     blocked rotated IoU, card against CPU
+ 36. S2ANet at full width: ``run_net --task train`` on
+     ``configs/s2anet_r50_fpn_1x_dota.py`` (ResNet-50, FPN-256
+     ``on_input`` from C2, 15 classes, f32, batch 2) over 8 seeded 1024^2
+     tiles with 42 boxes each in 512 slots (4 steps), then ``--task
+     test`` with the DOTA merge over 4 scene tiles from the checkpoint,
+     its ODM prior lifted so that the random head detects; checks losses,
+     results, no kernel launch; prints ms/step, peak memory, tiles/s, the
+     merge's seconds, and at the path's shapes the plain deformable conv
+     and ``ORConv2d`` at level 0, one FAM and one ODM target round and
+     ``multiclass_nms_rotated_jit`` on one tile's candidates
+ 37. ``projects/s2anet/configs/s2anet_r50_fpn_1x_dota_bs8.py``: two
+     ``train_step``s at batch 8, 1024^2, 512 slots; prints ms/step, the
+     peak memory (below the card's) and one FAM round's
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -212,7 +231,8 @@ test task, K1's, K3's and K6's in phase 24's train task, K1's and K2's in
 its val task and in phase 30's scene task, ``scene_task_launches``;
 K1's and K3's launches in phase 26's tasks and their
 times, plain times and bounds at its shapes, ``resnet_*``, and the same
-for phase 33's RoI-Transformer tasks, ``roitrans_*``), the
+for phase 33's RoI-Transformer tasks, ``roitrans_*``; every kernel's
+launches in phase 36's S2ANet tasks, ``s2anet_*_launches``, all 0), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -240,6 +260,7 @@ MAX_GT = 42
 TRAIN_TASK_TILES = 24  # phase 24: 3 steps of batch 8 an epoch, 2 epochs
 RESNET_TILES = 12  # phase 26: 6 steps of batch 2
 ROITRANS_TILES = 8  # phase 33: 4 steps of batch 2
+S2ANET_TILES = 8  # phase 36: 4 steps of batch 2
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -2805,13 +2826,13 @@ class _CaptureExtractor:
         return self.ext(feats, rois)
 
 
-def roitrans_task(torch, tmp, kernels, config, n_train, n_test, tag):
+def train_task(torch, tmp, kernels, config, n_train, n_test, tag):
     """``run_net --task train`` over ``n_train`` seeded 1024^2 tiles with
-    42 boxes each at the config's batch 2, then ``--task test`` with the
-    DOTA merge over ``n_test`` scene tiles, from a checkpoint of the
-    first, the wrappers' launches counted over each task. Returns (runner,
-    tester, train launches, test launches, train seconds, test seconds,
-    train peak bytes, the seeded targets, work dir)."""
+    42 boxes each at the config's batch 2 (``config``: the path's parts
+    under the repository), the wrappers' launches counted over the task;
+    also writes ``n_test`` scene tiles for ``test_task``. Returns
+    (runner, launches, seconds, peak bytes, the seeded targets, the
+    written config, work dir)."""
     from rs_detection_tpu_torch.flagship import make_targets
     from rs_detection_tpu_torch.tools import run_net
 
@@ -2824,7 +2845,7 @@ def roitrans_task(torch, tmp, kernels, config, n_train, n_test, tag):
     write_tiles(tiles, [f"S0__1.0__{x}___{y}.png"
                         for x, y in SCENE_OFFSETS[:n_test]], TILE, 34)
     work = os.path.join(tmp, f"{tag}_work")
-    base = os.path.join(ROOT, "projects", *config)
+    base = os.path.join(ROOT, *config)
     cfg = write_config(
         os.path.join(tmp, f"{tag}_chip.py"), _base_=base,
         allow_random_init=True, max_epoch=1, log_interval=1,
@@ -2842,15 +2863,39 @@ def roitrans_task(torch, tmp, kernels, config, n_train, n_test, tag):
         runner = run_net.main(["--config-file", cfg, "--task", "train"])
         t_train = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        train_launches = {k: fn.launches for k, fn in kernels.items()}
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    return runner, launches, t_train, peak, t, cfg, work
+
+
+def test_task(torch, tmp, kernels, cfg):
+    """``run_net --task test`` with the DOTA merge on ``train_task``'s
+    config, from its checkpoint, the wrappers' launches counted over the
+    task. Returns (tester, launches, seconds)."""
+    from rs_detection_tpu_torch.tools import run_net
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
         tester = run_net.main(["--config-file", cfg, "--task", "test"])
         t_test = time.perf_counter() - t0
-        test_launches = {k: fn.launches for k, fn in kernels.items()}
+        launches = {k: fn.launches for k, fn in kernels.items()}
     finally:
         os.chdir(cwd)
+    return tester, launches, t_test
+
+
+def train_test_task(torch, tmp, kernels, config, n_train, n_test, tag):
+    """``train_task`` then ``test_task`` on its checkpoint. Returns
+    (runner, tester, train launches, test launches, train seconds, test
+    seconds, train peak bytes, the seeded targets, work dir)."""
+    runner, train_launches, t_train, peak, t, cfg, work = train_task(
+        torch, tmp, kernels, config, n_train, n_test, tag)
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
     return (runner, tester, train_launches, test_launches, t_train, t_test,
             peak, t, work)
 
@@ -2900,11 +2945,11 @@ def phase_roitrans_task(torch, tmp, kernels, card):
     from rs_detection_tpu_torch.ops import roi_align as ra
 
     steps, n_test = ROITRANS_TILES // 2, 4
-    config = ("roi_transformer", "configs",
+    config = ("projects", "roi_transformer", "configs",
               "faster_rcnn_RoITrans_r50_fpn_1x_dota.py")
     (runner, tester, train_launches, test_launches, t_train, t_test, peak,
-     t, work) = roitrans_task(torch, tmp, kernels, config, ROITRANS_TILES,
-                              n_test, "rt")
+     t, work) = train_test_task(torch, tmp, kernels, config,
+                                 ROITRANS_TILES, n_test, "rt")
     want = dict.fromkeys(kernels, 0)
     want.update(roi_align_rotated_pyramid=steps,
                 roi_align_rotated_pyramid_bwd=steps)
@@ -3037,9 +3082,10 @@ def phase_faster_rcnn_obb(torch, tmp, kernels, card):
     pools on the horizontal RoIAlign, so no kernel launches."""
     import numpy as np
 
-    config = ("faster_rcnn", "configs", "faster_rcnn_obb_r50_fpn_1x_dota.py")
+    config = ("projects", "faster_rcnn", "configs",
+              "faster_rcnn_obb_r50_fpn_1x_dota.py")
     (runner, tester, train_launches, test_launches, t_train, t_test, peak,
-     _, work) = roitrans_task(torch, tmp, kernels, config, 4, 2, "fo")
+     _, work) = train_test_task(torch, tmp, kernels, config, 4, 2, "fo")
     want = dict.fromkeys(kernels, 0)
     if train_launches != want or test_launches != want:
         raise AssertionError(f"FasterRCNN-OBB launches {train_launches}, "
@@ -3056,6 +3102,339 @@ def phase_faster_rcnn_obb(torch, tmp, kernels, card):
         f"{peak / 2**30:.2f} GiB; test 2 tiles in "
         f"{stats['inference_s']:.3f} s of inference, {n_out} detections "
         f"after NMS; launches {train_launches} / {test_launches} [{card}]")
+
+def phase_s2anet_tiny(torch, dev):
+    """The tiny S2ANet (``tests/test_s2anet.py:16-27``'s model with the
+    zoo's freezing; ``tests/test_torch_s2anet_cuda.py:run_tiny``):
+    ``predict`` and two SGD steps on the card against the CPU, f32, one
+    seed; then the deformable conv (forward and both gradients), the ARF
+    weights and RIP, ``multiclass_nms_rotated_jit`` on one tile's 3,000
+    candidates and the blocked rotated IoU, each on the card against the
+    CPU at the tolerance stated beside it."""
+    from test_torch_s2anet_cuda import (DCN_RTOL, LOSS_RTOL, POLY_ATOL,
+                                        SCORE_ATOL, dcn_fwd_bwd, dcn_inputs,
+                                        nms_inputs, run_tiny, tiny_inputs)
+
+    from rs_detection_tpu_torch.models.roi_heads.s2anet_head import ORConv2d
+    from rs_detection_tpu_torch.ops import orn
+    from rs_detection_tpu_torch.ops.nms_rotated import \
+        multiclass_nms_rotated_jit
+    from rs_detection_tpu_torch.ops.rotated_iou import box_iou_rotated
+
+    tiles, targets = tiny_inputs()
+    _, p_cpu, l_cpu = run_tiny("cpu", tiles, targets)
+    _, p_gpu, l_gpu = run_tiny(dev, tiles, targets)
+    if not (torch.equal(p_cpu["valid"], p_gpu["valid"].cpu())
+            and torch.equal(p_cpu["labels"], p_gpu["labels"].cpu())):
+        raise AssertionError("tiny S2ANet predict: valid slots or labels "
+                             "differ")
+    errs = {key: (p_gpu[key].cpu() - p_cpu[key]).abs().max().item()
+            for key in ("polys", "scores")}
+    worst, where = max(
+        (abs(g_[k] - c[k]) / max(abs(c[k]), 1e-6), f"{k}, step {i}")
+        for i, (g_, c) in enumerate(zip(l_gpu, l_cpu), 1) for k in c)
+    log(f"  tiny S2ANet, CUDA vs CPU: {int(p_cpu['valid'].sum())} "
+        f"detections; polys max_abs_err {errs['polys']:.3e} (atol "
+        f"{POLY_ATOL}), scores {errs['scores']:.3e} (atol {SCORE_ATOL}); 2 "
+        f"SGD steps, losses worst relative error {worst:.2e} ({where}; "
+        f"tolerance {LOSS_RTOL}); losses {l_gpu[-1]}")
+    if not (p_cpu["valid"].sum() > 4 and errs["polys"] <= POLY_ATOL
+            and errs["scores"] <= SCORE_ATOL and worst <= LOSS_RTOL
+            and all(math.isfinite(v) for v in l_gpu[-1].values())):
+        raise AssertionError("tiny S2ANet: CUDA and CPU differ")
+    got = dcn_fwd_bwd(*dcn_inputs(dev))
+    want = dcn_fwd_bwd(*dcn_inputs("cpu"))
+    rel = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(got, want)]
+    log(f"  deform_conv2d [2, 40, 48, 64] -> 32, CUDA vs CPU: output, "
+        f"d input, d weight relative errors {rel[0]:.2e}, {rel[1]:.2e}, "
+        f"{rel[2]:.2e} (tolerance {DCN_RTOL})")
+    if max(rel) > DCN_RTOL:
+        raise AssertionError("deform_conv2d: CUDA and CPU differ")
+    m = ORConv2d(64, 8)
+    with torch.no_grad():
+        m.weight.normal_(generator=torch.Generator().manual_seed(39))
+    x = torch.randn(2, 9, 10, 64, generator=torch.Generator().manual_seed(40))
+    if not (torch.equal(m.to(dev).rotated_weight().cpu(),
+                        m.cpu().rotated_weight())
+            and torch.equal(orn.rotation_invariant_pooling(x.to(dev)).cpu(),
+                            orn.rotation_invariant_pooling(x))):
+        raise AssertionError("ARF / RIP: CUDA and CPU differ")
+    b, sc = nms_inputs("cpu")
+    ref = multiclass_nms_rotated_jit(b, sc, 0.05, 0.1)
+    out = multiclass_nms_rotated_jit(b.to(dev), sc.to(dev), 0.05, 0.1)
+    det_err = (out[0].cpu() - ref[0]).abs().max().item()
+    log(f"  ARF weights and RIP: CUDA equals CPU; multiclass_nms_rotated_jit "
+        f"on 3,000 x 15 candidates: {int(ref[2].sum())} kept, slots and "
+        f"labels equal, dets max_abs_err {det_err:.2e} (atol 1e-3 px)")
+    if not (torch.equal(out[2].cpu(), ref[2])
+            and torch.equal(out[1].cpu(), ref[1]) and det_err <= 1e-3):
+        raise AssertionError("multiclass_nms_rotated_jit: CUDA and CPU "
+                             "differ")
+    bd = b.to(dev)[:900]
+    whole = box_iou_rotated(bd, bd[:311])
+    if not all(torch.equal(box_iou_rotated(bd, bd[:311], pair_block=k),
+                           whole) for k in (1, 1000)):
+        raise AssertionError("box_iou_rotated: blocks change bits on the "
+                             "card")
+    iou_err = (whole.cpu() - box_iou_rotated(b[:900], b[:311])).abs().max()
+    log(f"  box_iou_rotated on the card: blocks of 1 and 1,000 pairs equal "
+        f"one block bit for bit; CUDA vs CPU max_abs_err {iou_err:.2e} "
+        f"(atol 1e-5)")
+    if iou_err > 1e-5:
+        raise AssertionError("box_iou_rotated: CUDA and CPU differ")
+
+
+def lift_odm_prior(path):
+    """Set the ODM classifier's bias of the checkpoint at ``path`` to 0
+    (scores near 0.5 instead of the 0.01 prior), so that a random-weight
+    S2ANet detects up to its ``max_per_img`` a tile, as a trained one
+    does, and the merge sees that volume."""
+    import pickle
+
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    ckpt["model"]["bbox_head.odm_cls_out.bias"][...] = 0.0
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f)
+
+
+def timed_host(torch, fn, reps=3):
+    """Median host seconds of ``fn`` over ``reps`` synchronized calls,
+    and its last result."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], out
+
+
+def phase_s2anet_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``configs/s2anet_r50_fpn_1x_dota.py`` at full width (JDet's S2ANet
+    recipe: ResNet-50, FPN-256 ``on_input`` from C2, 15 classes, f32 as
+    written, batch 2): 8 seeded 1024^2 tiles with 42 boxes (4 steps), then
+    4 test tiles at the config's batch 2 with the DOTA merge, from the
+    checkpoint with the ODM prior lifted (``lift_odm_prior``). No kernel
+    launches: ``kernels`` holds every wrapper. Then the path's pieces at
+    its shapes, on the test task's model and its first batch of tiles:
+    the plain deformable conv at level 0 (forward, forward and backward),
+    ``ORConv2d`` there, one FAM and one ODM target round against the
+    seeded ground truths in 512 slots, ``multiclass_nms_rotated_jit`` on
+    the first tile's candidates as ``get_bboxes`` calls it, which must
+    keep some. Returns (train launches, test launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.models.boxes.anchor_target import \
+        anchor_target_single
+    from rs_detection_tpu_torch.ops.deform_conv import deform_conv2d
+    from rs_detection_tpu_torch.ops.nms_rotated import \
+        multiclass_nms_rotated_jit
+
+    steps, n_test = S2ANET_TILES // 2, 4
+    runner, train_launches, t_train, peak, t, cfg, work = train_task(
+        torch, tmp, kernels, ("configs", "s2anet_r50_fpn_1x_dota.py"),
+        S2ANET_TILES, n_test, "s2")
+    lift_odm_prior(os.path.join(work, "checkpoints", "ckpt_1.pkl"))
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    none = dict.fromkeys(kernels, 0)
+    if train_launches != none or test_launches != none:
+        raise AssertionError(f"S2ANet launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(runner, steps, ("loss_fam_bbox",
+                                                "loss_odm_bbox"),
+                                "S2ANet train task")
+    dtypes = {p.dtype for p in runner.model.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"S2ANet train task: dtypes {dtypes}")
+    log(f"  run_net --task train, S2ANet from configs/s2anet_r50_fpn_1x_"
+        f"dota.py (ResNet-50, FPN-256 on_input from C2, level 0 256^2, 15 "
+        f"classes, f32 as written; cut: {S2ANET_TILES} seeded tiles of "
+        f"{TILE}^2 with {MAX_GT} boxes in 512 slots, {steps} steps of batch "
+        f"2, random weights): {t_train:.1f} s whole task; ms/step through "
+        f"the runner, median of steps 2-{steps}: "
+        f"{step_ms[len(step_ms) // 2]:.1f} (min {step_ms[0]:.1f}, max "
+        f"{step_ms[-1]:.1f}); loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    batch = tester.test_dataset.batch_size
+    n_out = check_test_results(np, tester, work, n_test, "S2ANet test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl (ODM prior lifted): {n_test} "
+        f"tiles at batch {batch} (the config's) in "
+        f"{stats['inference_s']:.3f} s = "
+        f"{n_test / stats['inference_s']:.2f} tiles/s of inference; merge "
+        f"{stats['merge_s']:.3f} s; detections {stats['detections']} in, "
+        f"{n_out} after NMS; whole task {t_test:.1f} s; launches "
+        f"{train_launches} / {test_launches} [{card}]")
+    if stats["detections"] == 0:
+        raise AssertionError("S2ANet test task: no detection")
+
+    model = tester.model
+    head = model.bbox_head
+    images, _, _ = next(iter(tester.test_dataset.batches()))
+    del runner, tester
+    x = torch.as_tensor(images, device="cuda")
+    tgt = {k: v[:2].to("cuda") for k, v in t.items()}
+    gt = torch.zeros(2, 512, 5, device="cuda")
+    gt[:, :MAX_GT] = tgt["rboxes"]
+    gt_mask = torch.zeros(2, 512, dtype=torch.bool, device="cuda")
+    gt_mask[:, :MAX_GT] = True
+    labels = torch.zeros(2, 512, dtype=torch.long, device="cuda")
+    labels[:, :MAX_GT] = tgt["labels"]
+    model.eval()
+    with torch.no_grad():
+        feats = model.extract_feats(x)
+        outs = head(feats, train=False)
+    f0, r0 = feats[0], outs[2][0]
+    off = head.align_conv.offsets(r0, head.anchor_strides[0])
+    wt = head.align_conv.weight.detach()
+    xg = f0.detach().clone().requires_grad_()
+    wg = wt.clone().requires_grad_()
+    grad = torch.randn(*f0.shape[:3], wt.shape[0], device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           42))
+
+    def dcn_step():
+        out = deform_conv2d(xg, off, wg)
+        out.backward(grad)
+        return out
+
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: deform_conv2d(f0, off, wt), 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_fb = cuda_ms(dcn_step, 3)
+    dcn_peak = torch.cuda.max_memory_allocated() - base
+    xg.grad = wg.grad = None
+    with torch.no_grad():
+        align = head.align_conv(f0, r0, head.anchor_strides[0])
+        a_nchw = align.permute(0, 3, 1, 2)
+        t_or = cuda_ms(lambda: head.or_conv(a_nchw), 5)
+        init_anchors = torch.cat([head.anchors(i, p.shape[1:3], "cuda")
+                                  for i, p in enumerate(outs[1])])
+        refined = torch.cat([r.reshape(2, -1, 5) for r in outs[2]], 1)
+        rounds = {}
+        for what, anchors in (("FAM", init_anchors), ("ODM", refined)):
+            inside = torch.ones(anchors.shape[-2], dtype=torch.bool,
+                                device="cuda")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sec, res = timed_host(torch, lambda: anchor_target_single(
+                anchors, inside, gt, gt_mask, labels, head.assigner,
+                head.sampler, head.coder.encode, None))
+            rounds[what] = (sec, torch.cuda.max_memory_allocated() - base,
+                            int(res.num_pos.sum()))
+        boxes, scores = head.candidates(outs, 0, torch.ones((), device="cuda"))
+
+        def nms():
+            return multiclass_nms_rotated_jit(
+                boxes, scores, head.score_thr, head.nms_iou_thr,
+                pre_nms=min(2000, scores.shape[0] * head.cls_out_channels),
+                max_num=head.max_per_img)
+
+        kept = int(nms()[2].sum())
+        if kept == 0:
+            raise AssertionError("S2ANet: NMS kept nothing of the first test "
+                                 "tile's candidates")
+        t_nms, _ = timed_host(torch, nms)
+    pairs = init_anchors.shape[0] * 2 * 512
+    log(f"    plain deform_conv2d at level 0 ({list(f0.shape)} NHWC -> "
+        f"{wt.shape[0]}, 3x3, f32): forward {t_fwd:.2f} ms, forward and "
+        f"backward {t_fb:.2f} ms, {dcn_peak / 2**30:.2f} GiB above its "
+        f"inputs; ORConv2d there {t_or:.2f} ms (CUDA events) [{card}]")
+    log(f"    target rounds at batch 2, 512 slots ({pairs / 1e6:.1f} M pairs, "
+        f"blocks of 2^21): " + "; ".join(
+            f"{k} {1e3 * v[0]:.1f} ms host, {v[1] / 2**30:.2f} GiB above its "
+            f"inputs, {v[2]} positives" for k, v in rounds.items())
+        + f" [{card}]")
+    log(f"    multiclass_nms_rotated_jit on the first test tile's "
+        f"{boxes.shape[0]} candidates x {scores.shape[1] - 1} classes, the "
+        f"test task's model: {1e3 * t_nms:.1f} ms host, median of 3, {kept} "
+        f"kept [{card}]")
+    return train_launches, test_launches
+
+
+def phase_s2anet_bs8(torch, card):
+    """Two ``train_step``s of ``projects/s2anet/configs/
+    s2anet_r50_fpn_1x_dota_bs8.py`` at its batch 8 (ResNet-50, FPN-256
+    from C3, 1024^2, 42 seeded boxes in 512 ground-truth slots, f32,
+    random weights): the blocked rotated IoU keeps each target round's
+    89.4 M pairs inside the card. Prints ms/step, the step's peak memory
+    and one FAM round's peak."""
+    from rs_detection_tpu_torch.config.config import Config
+    from rs_detection_tpu_torch.flagship import (init_weights, make_targets,
+                                                 normalize)
+    from rs_detection_tpu_torch.models.boxes.anchor_target import \
+        anchor_target_single
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import SGD
+    from rs_detection_tpu_torch.parallel.train_step import train_step
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    cfg = Config(os.path.join(ROOT, "projects", "s2anet", "configs",
+                              "s2anet_r50_fpn_1x_dota_bs8.py"))
+    b = cfg.dataset["train"]["batch_size"]
+    model = build_from_cfg(cfg.model, MODELS)
+    init_weights(model, torch.Generator().manual_seed(43))
+    model.to("cuda")
+    oc = dict(cfg.optimizer)
+    oc.pop("type")
+    opt = SGD(model.parameters(), **oc)
+    sched = StepLR(**{k: v for k, v in cfg.scheduler.items() if k != "type"})
+    g = torch.Generator(device="cuda").manual_seed(44)
+    t = make_targets(b, TILE, MAX_GT, g)
+    tgt = dict(rboxes=torch.zeros(b, 512, 5, device="cuda"),
+               gt_mask=torch.zeros(b, 512, dtype=torch.bool, device="cuda"),
+               labels=torch.zeros(b, 512, dtype=torch.long, device="cuda"))
+    tgt["rboxes"][:, :MAX_GT] = t["rboxes"]
+    tgt["gt_mask"][:, :MAX_GT] = True
+    tgt["labels"][:, :MAX_GT] = t["labels"]
+    x = normalize(torch.randint(0, 256, (b, TILE, TILE, 3), dtype=torch.uint8,
+                                device="cuda", generator=g))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for step in range(2):
+        t0 = time.perf_counter()
+        out = train_step(model, opt, sched, x, tgt, None, epoch=0.0)
+        losses.append({k: float(v) for k, v in out.items()})
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not (all(math.isfinite(v) for d in losses for v in d.values())
+            and losses[-1]["loss_fam_bbox"] > 0
+            and losses[-1]["loss_odm_bbox"] > 0):
+        raise AssertionError(f"bs8 S2ANet: losses {losses}")
+    head = model.bbox_head
+    with torch.no_grad():
+        sizes = [(TILE // s, TILE // s) for s in head.anchor_strides]
+        anchors = torch.cat([head.anchors(i, hw, "cuda")
+                             for i, hw in enumerate(sizes)])
+        inside = torch.ones(anchors.shape[0], dtype=torch.bool,
+                            device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sec, res = timed_host(torch, lambda: anchor_target_single(
+            anchors, inside, tgt["rboxes"], tgt["gt_mask"], tgt["labels"],
+            head.assigner, head.sampler, head.coder.encode, None), reps=1)
+        fam_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  s2anet_r50_fpn_1x_dota_bs8.py, batch {b}, {TILE}^2, 512 slots "
+        f"({anchors.shape[0]} anchors a tile, "
+        f"{anchors.shape[0] * b * 512 / 1e6:.1f} M pairs a round): 2 "
+        f"train_steps {times[0]:.0f} / {times[1]:.0f} ms; peak "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.1f}; one FAM round "
+        f"{1e3 * sec:.0f} ms, {fam_peak / 2**30:.2f} GiB above its inputs, "
+        f"{int(res.num_pos.sum())} positives; losses {losses[-1]} [{card}]")
+    if peak >= total:
+        raise AssertionError("bs8 S2ANet: peak at the card's memory")
 
 
 def main():
@@ -3228,7 +3607,17 @@ def main():
         run_phase(torch, 34, "faster_rcnn_obb_r50_fpn_1x_dota.py at full "
                   "width: 2 steps, 2 test tiles",
                   lambda: phase_faster_rcnn_obb(torch, tmp, both, card))
-    log(f"all 34 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        run_phase(torch, 35, "tiny S2ANet: predict and 2 SGD steps, the "
+                  "deformable conv, ORN, rotated NMS and IoU, CUDA vs CPU",
+                  lambda: phase_s2anet_tiny(torch, dev))
+        s2_train, s2_test = run_phase(
+            torch, 36, "run_net --task train and --task test on "
+            "configs/s2anet_r50_fpn_1x_dota.py at full width",
+            lambda: phase_s2anet_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        run_phase(torch, 37, "s2anet_r50_fpn_1x_dota_bs8.py: 2 steps at "
+                  "batch 8, 512 slots", lambda: phase_s2anet_bs8(torch, card))
+    log(f"all 37 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -3308,6 +3697,9 @@ def main():
               "tools/analysis_tools/chw_dw_proto.py:25", k7_launches, k7,
               k7[4]),
     ]
+    for k in kernels:
+        k["s2anet_train_task_launches"] = s2_train[k["name"]]
+        k["s2anet_test_task_launches"] = s2_test[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -60,11 +60,13 @@ def normalize(images_u8):
     return (images_u8.float() - m) / s
 
 
-def init_weights(model: RCNN, g: torch.Generator) -> None:
+def init_weights(model: nn.Module, g: torch.Generator) -> None:
     """Seeded random init in the spirit of the flax initializers:
     He-normal (fan_out, truncated) convs, N(0, 0.01) RPN convs, Xavier
-    shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases.
-    BN, LayerNorm and layer scales keep their constructor values."""
+    shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases; a
+    head with its own ``init_weights(g)`` (S2ANet's) draws its layers
+    after the generic pass. BN, LayerNorm and layer scales keep their
+    constructor values."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
@@ -77,8 +79,12 @@ def init_weights(model: RCNN, g: torch.Generator) -> None:
             elif isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=g)
                 nn.init.zeros_(m.bias)
-        for conv in (model.rpn.rpn_conv, model.rpn.rpn_cls, model.rpn.rpn_reg):
-            conv.weight.normal_(0.0, 0.01, generator=g)
+        rpn = getattr(model, "rpn", None)
+        if rpn is not None:
+            for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
+                conv.weight.normal_(0.0, 0.01, generator=g)
+        if hasattr(model.bbox_head, "init_weights"):
+            model.bbox_head.init_weights(g)
         # every stage's cls / reg FCs, in the order the head holds them
         std = {"fc_cls": 0.01, "fc_reg": 0.001}
         for name, m in model.bbox_head.named_modules():

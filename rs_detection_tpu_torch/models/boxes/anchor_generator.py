@@ -1,12 +1,15 @@
-"""mmdet-v2 horizontal anchor generator (counterpart of
-``rs_detection_tpu/models/boxes/anchor_generator.py:AnchorGenerator``,
-re-implemented because importing that module pulls in jax). Pure numpy:
-grids depend only on feature-map sizes and are cached per size."""
+"""Anchor generators (counterpart of
+``rs_detection_tpu/models/boxes/anchor_generator.py``, re-implemented
+because importing that module pulls in jax): the mmdet-v2 horizontal
+``AnchorGenerator`` and the rotated ``AnchorGeneratorRotatedS2ANet``
+with its ``AnchorGeneratorYangXue`` and ``AnchorGeneratorRotated``
+forms. Pure numpy: grids depend only on feature-map sizes and are cached
+per size."""
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -84,3 +87,88 @@ class AnchorGenerator:
             xx, yy = _meshgrid(vx, vy)
             out.append(np.repeat(xx & yy, self.num_base_anchors[i]))
         return out
+
+
+@BOXES.register_module()
+class AnchorGeneratorRotatedS2ANet:
+    """Rotated anchors with the legacy 0.5*(size-1) center
+    (reference ``anchor_generator.py:8-91``)."""
+
+    def __init__(self, base_size, scales, ratios, angles=(0,),
+                 scale_major=True, ctr=None, mode="S2ANet"):
+        self.base_size = base_size
+        self.scales = np.asarray(scales, np.float32)
+        self.ratios = np.asarray(ratios, np.float32)
+        self.angles = np.asarray(angles, np.float32)
+        self.ctr = ctr
+        self.mode = mode
+        self.base_anchors = self.gen_base_anchors()
+        self._cache = {}
+
+    @property
+    def num_base_anchors(self) -> int:
+        return self.base_anchors.shape[0]
+
+    def gen_base_anchors(self) -> np.ndarray:
+        w = h = float(self.base_size)
+        if self.ctr is None:
+            x_ctr = 0.5 * (w - 1)
+            y_ctr = 0.5 * (h - 1)
+        else:
+            x_ctr, y_ctr = self.ctr
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1.0 / h_ratios
+        # scale-major ordering: (ratio, scale, angle)
+        ws = (w * w_ratios[:, None, None] * self.scales[None, :, None]
+              * np.ones_like(self.angles)[None, None, :]).reshape(-1)
+        hs = (h * h_ratios[:, None, None] * self.scales[None, :, None]
+              * np.ones_like(self.angles)[None, None, :]).reshape(-1)
+        angles = np.tile(self.angles, len(self.scales) * len(self.ratios))
+        if self.mode == "YangXue":
+            # w/h swap convention (AnchorGeneratorYangXue :651)
+            ws, hs = hs, ws
+        n = ws.shape[0]
+        return np.stack([np.full(n, x_ctr, np.float32),
+                         np.full(n, y_ctr, np.float32),
+                         ws, hs, angles], axis=-1).astype(np.float32)
+
+    def grid_anchors(self, featmap_size: Tuple[int, int],
+                     stride: int = 16) -> np.ndarray:
+        key = (featmap_size, stride)
+        if key not in self._cache:
+            fh, fw = featmap_size
+            sx = np.arange(fw, dtype=np.float32) * stride
+            sy = np.arange(fh, dtype=np.float32) * stride
+            xx, yy = _meshgrid(sx, sy)
+            shifts = np.stack([xx, yy, np.zeros_like(xx),
+                               np.zeros_like(xx), np.zeros_like(xx)], -1)
+            all_anchors = (self.base_anchors[None, :, :]
+                           + shifts[:, None, :]).reshape(-1, 5)
+            self._cache[key] = all_anchors.astype(np.float32)
+        return self._cache[key]
+
+    def valid_flags(self, featmap_size, valid_size) -> np.ndarray:
+        fh, fw = featmap_size
+        vh, vw = valid_size
+        vx = np.zeros(fw, bool)
+        vy = np.zeros(fh, bool)
+        vx[:vw] = True
+        vy[:vh] = True
+        xx, yy = _meshgrid(vx, vy)
+        valid = xx & yy
+        return np.repeat(valid, self.num_base_anchors)
+
+
+@BOXES.register_module()
+class AnchorGeneratorYangXue(AnchorGeneratorRotatedS2ANet):
+    """w/h-swapped convention (reference ``:651``)."""
+
+    def __init__(self, *a, **kw):
+        kw["mode"] = "YangXue"
+        super().__init__(*a, **kw)
+
+
+@BOXES.register_module()
+class AnchorGeneratorRotated(AnchorGeneratorRotatedS2ANet):
+    """Generic rotated generator (reference ``:495-649``); same math as
+    the S2ANet variant with configurable center."""

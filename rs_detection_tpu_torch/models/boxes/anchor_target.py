@@ -29,12 +29,16 @@ class AnchorTargetResult(NamedTuple):
 def anchor_target_single(anchors, inside_mask, gt_bboxes, gt_mask,
                          gt_labels, assigner, sampler, encode_fn, generator,
                          pos_weight: float = -1.0, gt_bboxes_encode=None):
-    """anchors [A, 4] and inside_mask [A] shared by the batch;
-    gt_bboxes [B, G, 4] (assignment boxes), gt_mask [B, G], gt_labels
-    [B, G] or None (then positives get label 1); ``gt_bboxes_encode``
-    [B, G, D'] the boxes to encode when they differ from the assignment
-    boxes (the RPN assigns on the gt hbb and encodes the obb).
-    ``encode_fn(anchors, gts) -> deltas`` decides D."""
+    """anchors [A, D] shared by the batch or [B, A, D] one set an image
+    (S2ANet's refined anchors), hbbs or obbs as the assigner reads them;
+    inside_mask [A] or [B, A]; gt_bboxes [B, G, D] (assignment boxes),
+    gt_mask [B, G], gt_labels [B, G] or None (then positives get label
+    1); ``gt_bboxes_encode`` [B, G, D'] the boxes to encode when they
+    differ from the assignment boxes (the RPN assigns on the gt hbb and
+    encodes the obb). ``encode_fn(anchors, gts) -> deltas`` decides the
+    targets' width. ``sampler.sample(assigned, generator)``: a
+    ``RandomSampler`` draws from ``generator``, a ``PseudoSampler`` keeps
+    every positive and negative and takes None."""
     assigned, _ = assigner.assign(anchors, gt_bboxes, gt_mask,
                                   anchor_mask=inside_mask)
     pos, neg = sampler.sample(assigned, generator)

@@ -26,6 +26,19 @@ def random_choice_mask(mask, num_expected: int, generator):
 
 
 @BOXES.register_module()
+class PseudoSampler:
+    """Keep every positive and every negative (reference
+    ``sampler.py:114``): S2ANet's two target rounds."""
+
+    def __init__(self, **_):
+        pass
+
+    def sample(self, assigned, generator=None):
+        """assigned [..., A] (-1 / 0 / k+1) -> (pos, neg) bool masks."""
+        return assigned > 0, assigned == 0
+
+
+@BOXES.register_module()
 class RandomSampler:
     """Random balanced sampling (reference ``sampler.py:133-178``).
     ``add_gt_as_proposals`` is read by the caller, which puts the ground

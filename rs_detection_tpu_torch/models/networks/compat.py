@@ -19,6 +19,19 @@ counts the background, flat ``anchor_*`` keys become the
 ``stage1_stds`` / ``stage2_stds``. Only a KFIoU stage-2 loss is mapped;
 a GWD or KLD section is dropped and the stage trains smooth L1, as in
 JAX.
+
+A single-stage head section (``SingleStageDetector``'s ``bbox_head``,
+``roi_heads`` or ``rpn_net``) goes through ``adapt_single_stage_head``:
+the generic flattening of ``normalize_cfg``, which is what S2ANet's takes.
+The JAX package's own adapters of ``RRetinaHead``, the creator-style
+``RetinaHead`` and ``SSDHead`` wait for their heads (ROADMAP.md, Queue 1,
+item 11). As in JAX, S2ANet's ``loss_*`` sections reach the head only as
+``focal_gamma`` / ``focal_alpha`` / ``smooth_l1_beta`` (the ODM section's
+values, the later ones, override the FAM's; ``loss_weight`` is dropped),
+``test_cfg`` as ``nms_pre`` / ``score_thr`` / ``max_per_img`` /
+``nms_iou_thr``, and ``train_cfg`` as the FAM assigner's three IoU
+thresholds; the ODM's own assigner section, ``pos_weight`` and
+``allowed_border`` are dropped.
 """
 
 from __future__ import annotations
@@ -100,6 +113,23 @@ def adapt_cascade_head(bbox_head, rbbox_head=None, bbox_roi_extractor=None,
         if "pos_fraction" in smp:
             out["pos_fraction"] = smp["pos_fraction"]
     return out
+
+
+def adapt_single_stage_head(cfg):
+    """A single-stage head section onto the port's head: the legacy
+    creator forms raise naming their ROADMAP item, any other section is
+    flattened by ``normalize_cfg`` against its registered class."""
+    if cfg is None or not isinstance(cfg, Mapping):
+        return cfg
+    cfg = _plain(cfg)
+    t = cfg.get("type")
+    if t in ("RRetinaHead", "SSDHead") or (
+            t == "RetinaHead" and ("n_class" in cfg or "mode" in cfg)):
+        raise NotImplementedError(f"the head {t!r} is not ported yet "
+                                  f"(ROADMAP.md, Queue 1, item 11)")
+    from ...utils.registry import HEADS
+
+    return normalize_cfg(cfg, HEADS)
 
 
 def config_fields(cls) -> Tuple[str, ...]:

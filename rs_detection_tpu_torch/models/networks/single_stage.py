@@ -1,0 +1,80 @@
+"""Single-stage detectors (counterpart of
+``rs_detection_tpu/models/networks/single_stage.py``): backbone -> neck
+-> dense head, ``loss`` the training forward and ``predict`` the
+inference one. ``S2ANet`` is the ported network; ``RetinaNet`` and
+``FCOS`` share the class in JAX and wait for their heads (ROADMAP.md,
+Queue 1, item 11)."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
+                               register_unported)
+from ..necks.fpn import FPN
+from ..roi_heads.s2anet_head import S2ANetHead
+from .compat import adapt_single_stage_head
+from .rcnn import _build, _resnet50
+
+
+def _fpn():
+    return FPN(in_channels=(256, 512, 1024, 2048), out_channels=256,
+               num_outs=5, add_extra_convs="on_input")
+
+
+@MODELS.register_module()
+class SingleStageDetector(nn.Module):
+    """The JAX network's sections: ``backbone``, ``neck`` and the head
+    under ``bbox_head``, or under the legacy ``roi_heads`` / ``rpn_net``
+    (the first that is not None), each a module or its config section.
+    The head section goes through ``compat.adapt_single_stage_head``.
+    ``pretrained`` is read by the runner. The activations run in the
+    parameters' dtype (``compute_dtype`` None: the JAX network has no
+    such field)."""
+
+    compute_dtype = None
+
+    def __init__(self, backbone=None, neck=None, bbox_head=None,
+                 roi_heads=None, rpn_net=None, pretrained=None):
+        super().__init__()
+        # the head section first: an unported head names its item
+        # before an unported backbone (SSD's VGG) fails by name
+        head = adapt_single_stage_head(next(
+            (h for h in (bbox_head, roi_heads, rpn_net) if h is not None),
+            None))
+        self.backbone = _build(backbone, BACKBONES, _resnet50)
+        self.neck = _build(neck, NECKS, _fpn)
+        self.bbox_head = _build(head, HEADS, S2ANetHead)
+
+    def extract_feats(self, images):
+        """images NHWC -> the neck's levels, NHWC."""
+        return self.neck(self.backbone(images.to(next(
+            self.parameters()).dtype)))
+
+    def loss(self, images, targets, generator=None) -> Dict[str, torch.Tensor]:
+        """Training losses of normalized NHWC ``images`` (call in train
+        mode); ``targets`` as the head's ``loss`` reads them. The head
+        samples nothing, so ``generator`` is unused."""
+        return self.bbox_head.loss(
+            self.bbox_head(self.extract_feats(images), train=True), targets)
+
+    @torch.inference_mode()
+    def predict(self, images, scale_factor: Optional[torch.Tensor] = None):
+        """Eval-mode detections of normalized NHWC images: the head's
+        ``get_bboxes`` dict (polys, scores, labels, valid); boxes divided
+        by ``scale_factor`` [B] (default 1)."""
+        if scale_factor is None:
+            scale_factor = torch.ones(images.shape[0], device=images.device)
+        outs = self.bbox_head(self.extract_feats(images), train=False)
+        return self.bbox_head.get_bboxes(outs, scale_factor)
+
+
+@MODELS.register_module()
+class S2ANet(SingleStageDetector):
+    """Reference ``networks/s2anet.py:7-37``."""
+
+
+register_unported(MODELS, ("RetinaNet", "FCOS"), "the network", "11")

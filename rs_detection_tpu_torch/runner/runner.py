@@ -44,6 +44,7 @@ from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
 from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
+from ..models.networks import single_stage as _ss  # noqa: F401  (as well)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)
 from ..optims import optimizer as _optim  # noqa: F401  (OPTIMS)
 from ..parallel.train_step import train_step
@@ -376,15 +377,24 @@ class Runner:
     def postprocess_dense(out: Dict, metas, score_thresh=0.05):
         """Dense outputs -> per-image (polys, scores, labels) lists of
         the detections above ``score_thresh`` (labels 1-based); padding
-        images (meta None) are skipped."""
+        images (meta None) are skipped. Scores [B, P, C] (a score a class)
+        or, with "labels" [B, P] (0-based, the single-stage heads'), [B,
+        P] (one a detection). The JAX runner reads only the first form
+        and raises on the second (ROADMAP.md, Queue 3)."""
         polys = np.asarray(out["polys"])
         scores = np.asarray(out["scores"])
         valid = np.asarray(out["valid"])
+        labels = out.get("labels")
         results = []
         for i, meta in enumerate(metas):
             if meta is None:
                 continue
             p, s, v = polys[i], scores[i], valid[i]
+            if labels is not None:
+                keep = v & (s > score_thresh)
+                results.append((p[keep], s[keep],
+                                np.asarray(labels[i])[keep] + 1))
+                continue
             keep = v[:, None] & (s > score_thresh)      # [P, C]
             ri, ci = np.nonzero(keep)
             results.append((p[ri], s[ri, ci], ci + 1))

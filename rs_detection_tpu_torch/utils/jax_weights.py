@@ -10,7 +10,9 @@ names, so the mapping is mechanical:
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ``kernel`` -> ``weight``: a conv HWIO ``(kh, kw, in/groups, out)``
   becomes OIHW (a depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``),
-  an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``;
+  an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``, and
+  ORConv2d's rank-3 ARF kernel ``(out, in / nOr, nOr * k * k)`` keeps its
+  layout (the port's parameter has it);
 * every other leaf (``bias``, ``layer_scale_*``) keeps its name;
 * the ``loss_state`` collection (the running statistics of the EFL and
   EQLv2 heads, NamedTuples in a live tree, dicts by field in a saved one)
@@ -81,6 +83,8 @@ def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 2:
         return arr.T
+    if arr.ndim == 3:
+        return arr
     raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
 
 

@@ -216,7 +216,10 @@ def test_cosine_annealing_matches_jax(kw):
 
 
 def test_registries_name_the_ported_classes():
-    for registry, names in ((reg.MODELS, ["OrientedRCNN"]),
+    from rs_detection_tpu_torch.models.networks import \
+        single_stage  # noqa: F401  (registers S2ANet)
+
+    for registry, names in ((reg.MODELS, ["OrientedRCNN", "S2ANet"]),
                             (reg.BACKBONES, ["VAN", "van_b0", "van_b3"]),
                             (reg.NECKS, ["FPN"]),
                             (reg.HEADS, ["OrientedRPNHead", "OrientedHead"]),
@@ -224,5 +227,7 @@ def test_registries_name_the_ported_classes():
                              ["OrientedSingleRoIExtractor"])):
         for name in names:
             assert name in registry, (registry, name)
+    # a detector neither package has
+    assert "ReDet" not in jreg.MODELS
     with pytest.raises(KeyError, match="not registered"):
-        reg.MODELS.get("S2ANet")
+        reg.MODELS.get("ReDet")
