@@ -219,6 +219,36 @@ Phases, each of which raises (exit code 1) on failure:
  37. ``projects/s2anet/configs/s2anet_r50_fpn_1x_dota_bs8.py``: two
      ``train_step``s at batch 8, 1024^2, 512 slots; prints ms/step, the
      peak memory (below the card's) and one FAM round's
+ 38. the tiny Gliding Vertex (``tests/test_torch_gliding_cuda.py``):
+     ``predict`` and two SGD steps on CUDA against the CPU, f32, both
+     samplers taking the first candidates by index, at phase 5's and 9's
+     tolerances; ``GVFixCoder`` on 4096 axis-aligned quads bit for bit
+     (the first of two tied vertices on both), ``GVRatioCoder`` within
+     its f32 bound
+ 39. Gliding Vertex at full width: ``run_net --task train`` on
+     ``projects/gliding/configs/gliding_r50_fpn_1x_dota_with_flip_rotate_
+     balance_cate.py`` (ResNet-50, FPN-256, the hbb RPN with 261,888
+     anchors a tile, 512 roi slots, f32, batch 2, ``RandomRotateAug``,
+     ``balance_category``) over 2 seeded 1024^2 tiles, balanced to a
+     copy for each class they hold, then ``--task test`` with the DOTA
+     merge over 4 scene tiles; checks losses, results, no kernel launch;
+     prints ms/step, peak memory, tiles/s, the merge's seconds and the
+     plain horizontal RoIAlign's time on one test forward's rois
+ 40. the tiny RetinaNet (``tests/test_torch_retinanet_cuda.py``) with the
+     modern ``bbox_head`` and the legacy ``rpn_net`` of
+     ``projects/retinanet``: ``predict`` and three ``GradMutilpySGD``
+     steps with the YangXue groups on CUDA against the CPU, f32:
+     detections, losses, every parameter, the frozen stem
+ 41. RetinaNet at full width: ``run_net --task train`` on
+     ``projects/retinanet/configs/retinanet_r50v1d_fpn_dota.py``
+     (ResNet-50-v1d, FPN-256 from C3, 126 rotated anchors a position,
+     1,681,218 a tile at 800^2, f32, ``GradMutilpySGD`` with the YangXue
+     groups; the train batch cut from 3 to 1, 2 steps, no pretrained
+     weights) over 2 seeded tiles, then ``--task test`` over 4 tiles at
+     batch 4 (cut from 32) from the checkpoint, the classifier's prior
+     lifted; checks losses, results, no kernel launch, the frozen stem
+     unmoved; prints ms/step, peak memory, one target round's share of
+     a step, tiles/s, the merge's seconds and the NMS kept count
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -232,7 +262,9 @@ its val task and in phase 30's scene task, ``scene_task_launches``;
 K1's and K3's launches in phase 26's tasks and their
 times, plain times and bounds at its shapes, ``resnet_*``, and the same
 for phase 33's RoI-Transformer tasks, ``roitrans_*``; every kernel's
-launches in phase 36's S2ANet tasks, ``s2anet_*_launches``, all 0), the
+launches in phase 36's S2ANet tasks, ``s2anet_*_launches``, phase 39's
+Gliding Vertex tasks, ``gliding_*_launches``, and phase 41's RetinaNet
+tasks, ``retinanet_*_launches``, all 0), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -261,6 +293,7 @@ TRAIN_TASK_TILES = 24  # phase 24: 3 steps of batch 8 an epoch, 2 epochs
 RESNET_TILES = 12  # phase 26: 6 steps of batch 2
 ROITRANS_TILES = 8  # phase 33: 4 steps of batch 2
 S2ANET_TILES = 8  # phase 36: 4 steps of batch 2
+GLIDING_TILES = 2  # phase 39: balanced to one copy a class and more
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -2826,13 +2859,16 @@ class _CaptureExtractor:
         return self.ext(feats, rois)
 
 
-def train_task(torch, tmp, kernels, config, n_train, n_test, tag):
+def train_task(torch, tmp, kernels, config, n_train, n_test, tag,
+               train=None, test=None, **extra):
     """``run_net --task train`` over ``n_train`` seeded 1024^2 tiles with
-    42 boxes each at the config's batch 2 (``config``: the path's parts
+    42 boxes each at the config's batch (``config``: the path's parts
     under the repository), the wrappers' launches counted over the task;
-    also writes ``n_test`` scene tiles for ``test_task``. Returns
-    (runner, launches, seconds, peak bytes, the seeded targets, the
-    written config, work dir)."""
+    also writes ``n_test`` scene tiles for ``test_task``. ``train`` /
+    ``test``: more keys of those dataset sections, ``extra`` more
+    top-level entries of the written config. Returns (runner, launches,
+    seconds, peak bytes, the seeded targets, the written config, work
+    dir)."""
     from rs_detection_tpu_torch.flagship import make_targets
     from rs_detection_tpu_torch.tools import run_net
 
@@ -2850,9 +2886,9 @@ def train_task(torch, tmp, kernels, config, n_train, n_test, tag):
         os.path.join(tmp, f"{tag}_chip.py"), _base_=base,
         allow_random_init=True, max_epoch=1, log_interval=1,
         checkpoint_interval=1, work_dir=work,
-        dataset=dict(train=dict(dataset_dir=ds), val=None,
-                     test=dict(images_dir=tiles)),
-        merge_cfg=dict(dataset_type="DOTA"))
+        dataset=dict(train=dict(dataset_dir=ds, **(train or {})), val=None,
+                     test=dict(images_dir=tiles, **(test or {}))),
+        merge_cfg=dict(dataset_type="DOTA"), **extra)
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -2900,9 +2936,9 @@ def train_test_task(torch, tmp, kernels, config, n_train, n_test, tag):
             peak, t, work)
 
 
-def check_task_losses(runner, steps, bbox_keys, what):
+def check_task_losses(runner, steps, bbox_keys, what, optimizer="SGD"):
     hist = runner.history
-    if len(hist) != steps or type(runner.optimizer).__name__ != "SGD":
+    if len(hist) != steps or type(runner.optimizer).__name__ != optimizer:
         raise AssertionError(f"{what}: {len(hist)} records, "
                              f"{type(runner.optimizer).__name__}")
     for rec in hist:
@@ -3185,16 +3221,17 @@ def phase_s2anet_tiny(torch, dev):
         raise AssertionError("box_iou_rotated: CUDA and CPU differ")
 
 
-def lift_odm_prior(path):
-    """Set the ODM classifier's bias of the checkpoint at ``path`` to 0
-    (scores near 0.5 instead of the 0.01 prior), so that a random-weight
-    S2ANet detects up to its ``max_per_img`` a tile, as a trained one
-    does, and the merge sees that volume."""
+def lift_odm_prior(path, key="bbox_head.odm_cls_out.bias"):
+    """Set the classifier's bias ``key`` (S2ANet's ODM classifier by
+    default) of the checkpoint at ``path`` to 0 (scores near 0.5 instead
+    of the 0.01 prior), so that a random-weight single-stage network
+    detects up to its ``max_per_img`` a tile, as a trained one does, and
+    the merge sees that volume."""
     import pickle
 
     with open(path, "rb") as f:
         ckpt = pickle.load(f)
-    ckpt["model"]["bbox_head.odm_cls_out.bias"][...] = 0.0
+    ckpt["model"][key][...] = 0.0
     with open(path, "wb") as f:
         pickle.dump(ckpt, f)
 
@@ -3437,6 +3474,316 @@ def phase_s2anet_bs8(torch, card):
         raise AssertionError("bs8 S2ANet: peak at the card's memory")
 
 
+def phase_gliding_tiny(torch, dev):
+    """The tiny Gliding Vertex (``tests/test_torch_gliding_cuda.py``:
+    ResNet-18 with the zoo's freezing, a 32-wide FPN, the hbb RPN and the
+    head with 16 roi slots): ``predict`` and two SGD steps on the card
+    against the CPU, f32, one seed, both samplers taking the first
+    candidates by index; then ``GVFixCoder`` and ``GVRatioCoder`` on 4096
+    axis-aligned quads in every vertex order (two tied vertices on every
+    side), the glides bit for bit, the ratios within their f32 bound."""
+    from test_torch_gliding_cuda import (LOSS_RTOL, POLY_ATOL, SCORE_ATOL,
+                                         aligned_quads, ratio_bound,
+                                         run_tiny, tiny_inputs)
+
+    from rs_detection_tpu_torch.models.boxes.coder import (GVFixCoder,
+                                                           GVRatioCoder)
+
+    tiles, targets = tiny_inputs()
+    _, p_cpu, l_cpu = run_tiny("cpu", tiles, targets)
+    _, p_gpu, l_gpu = run_tiny(dev, tiles, targets)
+    if not torch.equal(p_cpu["valid"], p_gpu["valid"].cpu()):
+        raise AssertionError("tiny Gliding Vertex predict: valid masks "
+                             "differ")
+    errs = {key: (p_gpu[key].cpu() - p_cpu[key]).abs().max().item()
+            for key in ("polys", "scores")}
+    worst, where = max(
+        (abs(g_[k] - c[k]) / max(abs(c[k]), 1e-6), f"{k}, step {i}")
+        for i, (g_, c) in enumerate(zip(l_gpu, l_cpu), 1) for k in c)
+    log(f"  tiny Gliding Vertex, CUDA vs CPU: {int(p_cpu['valid'].sum())} "
+        f"valid proposals; polys max_abs_err {errs['polys']:.3e} (atol "
+        f"{POLY_ATOL}), scores {errs['scores']:.3e} (atol {SCORE_ATOL}); 2 "
+        f"SGD steps, losses worst relative error {worst:.2e} ({where}; "
+        f"tolerance {LOSS_RTOL}); losses {l_gpu[-1]}")
+    if not (errs["polys"] <= POLY_ATOL and errs["scores"] <= SCORE_ATOL
+            and worst <= LOSS_RTOL
+            and all(math.isfinite(v) for v in l_gpu[-1].values())):
+        raise AssertionError("tiny Gliding Vertex: CUDA and CPU differ")
+    q = aligned_quads()
+    fix_gpu = GVFixCoder().encode(q.to(dev)).cpu()
+    err = (GVRatioCoder().encode(q.to(dev)).cpu()
+           - GVRatioCoder().encode(q)).abs()
+    rb = ratio_bound(q)
+    log(f"  GVFixCoder on {q.shape[0]} axis-aligned quads: card equals CPU "
+        f"bit for bit: {torch.equal(fix_gpu, GVFixCoder().encode(q))}; "
+        f"GVRatioCoder max_abs_err {err.max().item():.2e}, at most "
+        f"{(err / rb).max().item():.3f} of its f32 bound (ratio_bound)")
+    if not torch.equal(fix_gpu, GVFixCoder().encode(q)) or (err > rb).any():
+        raise AssertionError("GV coders on aligned quads: CUDA and CPU "
+                             "differ")
+
+
+def phase_gliding_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``projects/gliding/configs/gliding_r50_fpn_1x_dota_with_flip_rotate_
+    balance_cate.py`` at full width (ResNet-50, FPN-256, the hbb RPN with
+    261,888 anchors a tile, 2000 proposals, the head's 512 roi slots, f32
+    as written, batch 2, ``RandomRotateAug`` and ``balance_category``):
+    2 seeded 1024^2 tiles, balanced to one entry a class they hold and
+    more (a step a pair), then 4 test tiles at the config's batch with
+    the DOTA merge. No kernel launches: the horizontal
+    RoIAlign is plain PyTorch in both packages. Then the plain horizontal
+    RoIAlign's time on one test forward's rois. Returns (train launches,
+    test launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import normalize
+
+    n_test = 4
+    config = ("projects", "gliding", "configs",
+              "gliding_r50_fpn_1x_dota_with_flip_rotate_balance_cate.py")
+    (runner, tester, train_launches, test_launches, t_train, t_test, peak,
+     _, work) = train_test_task(torch, tmp, kernels, config, GLIDING_TILES,
+                                n_test, "gv")
+    # balance_category repeats a tile once per class it holds, times the
+    # class's factor
+    steps = -(-len(runner.train_dataset) // 2)
+    none = dict.fromkeys(kernels, 0)
+    if train_launches != none or test_launches != none:
+        raise AssertionError(f"Gliding Vertex launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(
+        runner, steps, ("loss_rpn_bbox", "gliding_bbox_loss",
+                        "gliding_fix_loss"), "Gliding Vertex train task")
+    dtypes = {p.dtype for p in runner.model.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"Gliding Vertex train task: dtypes {dtypes}")
+    log(f"  run_net --task train, Gliding Vertex from projects/gliding/"
+        f"configs/gliding_r50_fpn_1x_dota_with_flip_rotate_balance_cate.py "
+        f"(ResNet-50, FPN-256, GlidingRPNHead 3 anchors x 87,296 positions, "
+        f"2000 proposals, GlidingHead 512 rois, 15 classes, f32 as written, "
+        f"RandomRotateAug, balance_category; cut: {GLIDING_TILES} seeded "
+        f"tiles of {TILE}^2 with {MAX_GT} boxes in 512 slots, balanced to "
+        f"{len(runner.train_dataset)}, {steps} steps of batch 2, random "
+        f"weights): {t_train:.1f} s whole task; ms/step "
+        f"through the runner, median of steps 2-{steps}: "
+        f"{step_ms[len(step_ms) // 2]:.1f} (min {step_ms[0]:.1f}, max "
+        f"{step_ms[-1]:.1f}); loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    batch = tester.test_dataset.batch_size
+    n_out = check_test_results(np, tester, work, n_test,
+                               "Gliding Vertex test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl: {n_test} tiles at batch "
+        f"{batch} (the config's) in {stats['inference_s']:.3f} s = "
+        f"{n_test / stats['inference_s']:.2f} tiles/s of inference; merge "
+        f"{stats['merge_s']:.3f} s; detections {stats['detections']} in, "
+        f"{n_out} after NMS; whole task {t_test:.1f} s; launches "
+        f"{train_launches} / {test_launches} [{card}]")
+    model = tester.model
+    del runner, tester
+    x = normalize(torch.randint(
+        0, 256, (batch, TILE, TILE, 3), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(45)).to("cuda"))
+    cap = _CaptureExtractor(model.bbox_head.extractor)
+    model.bbox_head.extractor = cap
+    model.eval().predict(x)
+    model.bbox_head.extractor = cap.ext
+    if len(cap.seen) != 1:
+        raise AssertionError("Gliding Vertex: the RoI extractor calls differ")
+    fs, rois = cap.seen[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        cap.ext(fs, rois)
+        torch.cuda.synchronize()
+        h_peak = torch.cuda.max_memory_allocated() - base
+        t_h = cuda_ms(lambda: cap.ext(fs, rois), 3)
+    log(f"    plain horizontal RoIAlign on one test forward (batch "
+        f"{batch}): {rois.shape[0]} hbb rois, C=256, f32, {t_h:.3f} ms, "
+        f"{h_peak / 2**30:.2f} GiB above its inputs [{card}]")
+    return train_launches, test_launches
+
+
+def phase_retina_tiny(torch, dev):
+    """The tiny RetinaNet (``tests/test_torch_retinanet_cuda.py``:
+    ResNet-18 with running statistics, a 32-wide FPN from C3) in both head
+    forms, the modern ``bbox_head`` and the legacy ``rpn_net`` of
+    ``projects/retinanet``: ``predict`` (the classifier spread) and three
+    ``GradMutilpySGD`` steps with the recipe's YangXue links (conv biases'
+    gradients x 2 and decay 0 inside the clip, the stem frozen), on the
+    card against the CPU, f32, one seed: detections, losses and every
+    parameter, and the stem where it started."""
+    from test_torch_retinanet_cuda import (FORMS, LOSS_RTOL, PARAM_ATOL,
+                                           POLY_ATOL, SCORE_ATOL, STEM,
+                                           compare, run_tiny, tiny_inputs,
+                                           tiny_model)
+
+    from rs_detection_tpu_torch.flagship import init_weights
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    tiles, targets = tiny_inputs()
+    for form in FORMS:
+        cpu = run_tiny(form, "cpu", tiles, targets)
+        gpu = run_tiny(form, dev, tiles, targets)
+        same = (torch.equal(cpu[1]["valid"], gpu[1]["valid"].cpu())
+                and torch.equal(cpu[1]["labels"], gpu[1]["labels"].cpu()))
+        err = compare(cpu, gpu)
+        fresh = build_from_cfg(tiny_model(form), MODELS)
+        init_weights(fresh, torch.Generator().manual_seed(3))
+        stem = all(torch.equal(gpu[0].state_dict()[k].cpu(),
+                               fresh.state_dict()[k]) for k in STEM)
+        log(f"  tiny RetinaNet ({form} head, "
+            f"{gpu[0].bbox_head.num_anchors} anchors a position), CUDA vs "
+            f"CPU: {int(cpu[1]['valid'].sum())} detections, slots and labels "
+            f"equal {same}; polys max_abs_err {err['polys']:.3e} (atol "
+            f"{POLY_ATOL}), scores {err['scores']:.3e} (atol {SCORE_ATOL}); 3 "
+            f"GradMutilpySGD + YangXue steps: losses worst relative error "
+            f"{err['losses']:.2e} (tolerance {LOSS_RTOL}), parameters "
+            f"max_abs_err {err['params']:.2e} (atol {PARAM_ATOL}); stem "
+            f"unmoved {stem}; losses {gpu[2][-1]}")
+        if not (same and stem and err["polys"] <= POLY_ATOL
+                and err["scores"] <= SCORE_ATOL
+                and err["losses"] <= LOSS_RTOL
+                and err["params"] <= PARAM_ATOL
+                and int(cpu[1]["valid"].sum()) > 4
+                and all(math.isfinite(v) for v in gpu[2][-1].values())):
+            raise AssertionError(f"tiny RetinaNet ({form}): CUDA and CPU "
+                                 f"differ")
+
+
+def phase_retina_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``projects/retinanet/configs/retinanet_r50v1d_fpn_dota.py`` at full
+    width (ResNet-50-v1d, FPN-256 from C3 with ReLU'd ``on_output`` extra
+    convs, the legacy ``rpn_net``: 7 ratios x 3 octave scales x 6 angles
+    = 126 anchors a position, 1,681,218 a tile at 800^2; f32;
+    ``GradMutilpySGD`` with the YangXue groups). Cut: the train batch 3
+    to 1, 2 seeded tiles (2 steps, 42 boxes in 512 slots), the test batch
+    32 to 4 with 4 tiles, random weights (no ``pretrained_weights``), the
+    classifier's prior lifted in the checkpoint so that the test task
+    detects. No kernel launches. Then, on the trained model: the frozen
+    stem where the seed put it, one target round at batch 1 against 512
+    slots (its share of a step), and ``multiclass_nms_rotated_jit`` on
+    the first test tile's candidates. Returns (train launches, test
+    launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.config.config import Config
+    from rs_detection_tpu_torch.flagship import init_weights
+    from rs_detection_tpu_torch.models.boxes.anchor_target import \
+        anchor_target_single
+    from rs_detection_tpu_torch.ops.nms_rotated import \
+        multiclass_nms_rotated_jit
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    n_train, n_test = 2, 4
+    config = ("projects", "retinanet", "configs",
+              "retinanet_r50v1d_fpn_dota.py")
+    runner, train_launches, t_train, peak, t, cfg, work = train_task(
+        torch, tmp, kernels, config, n_train, n_test, "rn",
+        train=dict(batch_size=1), test=dict(batch_size=4),
+        pretrained_weights=None)
+    lift_odm_prior(os.path.join(work, "checkpoints", "ckpt_1.pkl"),
+                   "bbox_head.retina_cls.bias")
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    none = dict.fromkeys(kernels, 0)
+    if train_launches != none or test_launches != none:
+        raise AssertionError(f"RetinaNet launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(runner, n_train, ("loss_bbox",),
+                                "RetinaNet train task", "GradMutilpySGD")
+    model = runner.model
+    fresh = build_from_cfg(Config(cfg).model, MODELS)
+    init_weights(fresh, torch.Generator().manual_seed(runner.cfg.seed or 0))
+    stem = [k for k in fresh.state_dict()
+            if k.startswith(("backbone.Conv_", "backbone.Norm_"))
+            and not k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))]
+    moved = [k for k in stem if not torch.equal(
+        model.state_dict()[k].cpu(), fresh.state_dict()[k])]
+    if not stem or moved or len(runner.optimizer.frozen) != len(stem):
+        raise AssertionError(f"RetinaNet train task: the frozen stem moved "
+                             f"({moved} of {stem})")
+    head = model.bbox_head
+    log(f"  run_net --task train, RetinaNet from projects/retinanet/configs/"
+        f"retinanet_r50v1d_fpn_dota.py (ResNet-50-v1d, FPN-256 from C3, "
+        f"legacy rpn_net: {head.num_anchors} anchors a position, 15 "
+        f"classes, f32; GradMutilpySGD, YangXue groups; cut: {n_train} "
+        f"seeded tiles of {TILE}^2 resized to 800^2 with {MAX_GT} boxes in "
+        f"512 slots, {n_train} steps of batch 1 (the config's 3), random "
+        f"weights): {t_train:.1f} s whole task; ms/step through the runner, "
+        f"step 2: {step_ms[-1]:.1f}; loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB; the stem's {len(stem)} tensors unmoved "
+        f"[{card}]")
+    n_out = check_test_results(np, tester, work, n_test, "RetinaNet test "
+                               "task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl (classifier prior lifted): "
+        f"{n_test} tiles at batch 4 (the config's 32) in "
+        f"{stats['inference_s']:.3f} s = "
+        f"{n_test / stats['inference_s']:.2f} tiles/s of inference; merge "
+        f"{stats['merge_s']:.3f} s; detections {stats['detections']} in, "
+        f"{n_out} after NMS; whole task {t_test:.1f} s; launches "
+        f"{train_launches} / {test_launches} [{card}]")
+    if stats["detections"] == 0:
+        raise AssertionError("RetinaNet test task: no detection")
+    images, _, _ = next(iter(tester.test_dataset.batches()))
+    test_model = tester.model
+    del runner, tester
+    x = torch.as_tensor(images[:1], device="cuda")
+    gt = torch.zeros(1, 512, 5, device="cuda")
+    gt[:, :MAX_GT] = t["rboxes"][:1].to("cuda") * (800 / TILE)
+    gt[:, :MAX_GT, 4] = t["rboxes"][:1, :, 4].to("cuda")
+    gt_mask = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
+    gt_mask[:, :MAX_GT] = True
+    labels = torch.zeros(1, 512, dtype=torch.long, device="cuda")
+    labels[:, :MAX_GT] = t["labels"][:1].to("cuda")
+    with torch.no_grad():
+        test_model.eval()
+        outs = test_model.bbox_head(test_model.extract_feats(x))
+        sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+        anchors = torch.cat([head.anchors(i, hw, "cuda")
+                             for i, hw in enumerate(sizes)])
+        inside = torch.ones(anchors.shape[0], dtype=torch.bool,
+                            device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sec, res = timed_host(torch, lambda: anchor_target_single(
+            anchors, inside, gt, gt_mask, labels, head.assigner,
+            head.sampler, head.coder.encode, None), reps=1)
+        round_peak = torch.cuda.max_memory_allocated() - base
+        boxes, scores = test_model.bbox_head.candidates(
+            outs, 0, torch.ones((), device="cuda"))
+        th = test_model.bbox_head
+
+        def nms():
+            return multiclass_nms_rotated_jit(
+                boxes, scores, th.score_thr, th.nms_iou_thr,
+                pre_nms=min(2000, scores.shape[0] * th.cls_out_channels),
+                max_num=th.max_per_img)
+
+        kept = int(nms()[2].sum())
+        t_nms, _ = timed_host(torch, nms)
+    pairs = anchors.shape[0] * 512
+    log(f"    one target round at batch 1, 512 slots ({anchors.shape[0]} "
+        f"anchors, {pairs / 1e6:.1f} M rotated-IoU pairs, blocks of 2^21): "
+        f"{1e3 * sec:.1f} ms host, {100 * 1e3 * sec / step_ms[-1]:.1f}% of "
+        f"step 2, {round_peak / 2**30:.2f} GiB above its inputs, "
+        f"{int(res.num_pos.sum())} positives [{card}]")
+    log(f"    multiclass_nms_rotated_jit on the first test tile's "
+        f"{boxes.shape[0]} candidates x {scores.shape[1] - 1} classes: "
+        f"{1e3 * t_nms:.1f} ms host, median of 3, {kept} kept [{card}]")
+    if kept == 0 or anchors.shape[0] != 1681218:
+        raise AssertionError(f"RetinaNet: {kept} kept, {anchors.shape[0]} "
+                             f"anchors")
+    return train_launches, test_launches
+
+
 def main():
     import torch
 
@@ -3447,7 +3794,7 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28, 31 and 32 share the CPU tests' configs and rendered
+    # phases 25, 28, 31, 32, 35, 38 and 40 share the CPU tests' configs and
     # tiles
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
@@ -3617,7 +3964,23 @@ def main():
                 both, dw_chw=dw.dw_chw_cuda), card))
         run_phase(torch, 37, "s2anet_r50_fpn_1x_dota_bs8.py: 2 steps at "
                   "batch 8, 512 slots", lambda: phase_s2anet_bs8(torch, card))
-    log(f"all 37 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        run_phase(torch, 38, "tiny Gliding Vertex: predict and 2 SGD steps, "
+                  "the GV coders on axis-aligned quads, CUDA vs CPU",
+                  lambda: phase_gliding_tiny(torch, dev))
+        gv_train, gv_test = run_phase(
+            torch, 39, "run_net --task train and --task test on "
+            "gliding_r50_fpn_1x_dota_with_flip_rotate_balance_cate.py at full "
+            "width", lambda: phase_gliding_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        run_phase(torch, 40, "tiny RetinaNet, both head forms: predict and "
+                  "3 GradMutilpySGD + YangXue steps, CUDA vs CPU",
+                  lambda: phase_retina_tiny(torch, dev))
+        rn_train, rn_test = run_phase(
+            torch, 41, "run_net --task train and --task test on "
+            "retinanet_r50v1d_fpn_dota.py at full width",
+            lambda: phase_retina_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 41 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -3700,6 +4063,10 @@ def main():
     for k in kernels:
         k["s2anet_train_task_launches"] = s2_train[k["name"]]
         k["s2anet_test_task_launches"] = s2_test[k["name"]]
+        k["gliding_train_task_launches"] = gv_train[k["name"]]
+        k["gliding_test_task_launches"] = gv_test[k["name"]]
+        k["retinanet_train_task_launches"] = rn_train[k["name"]]
+        k["retinanet_test_task_launches"] = rn_test[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,9 @@
 """Box delta coders (counterpart of ``MidpointOffsetCoder``,
 ``OrientedDeltaXYWHTCoder``, ``DeltaXYWHBBoxCoder``,
-``GVDeltaXYWHBBoxCoder`` and ``DeltaXYWHABBoxCoder`` in
+``GVDeltaXYWHBBoxCoder``, ``DeltaXYWHABBoxCoder`` and Gliding Vertex's
+``GVFixCoder`` / ``GVRatioCoder`` in
 ``rs_detection_tpu/models/boxes/coder.py``): the encoders make the
-training targets, the decoders the proposals and detections. The
-midpoint-offset coders of Gliding Vertex are not ported yet (ROADMAP.md,
-Queue 1, item 10b)."""
+training targets, the decoders the proposals and detections."""
 
 from __future__ import annotations
 
@@ -187,6 +186,57 @@ class DeltaXYWHBBoxCoder:
         return B.delta2bbox(bboxes, pred_bboxes, self.means, self.stds,
                             max_shape if self.clip_border else None,
                             wh_ratio_clip)
+
+
+def _at_first(values, keys, key):
+    """``values`` [..., K] at the first index where ``keys`` equals
+    ``key`` [...]: the tie order of ``jnp.argmin`` / ``argmax``, the same
+    on every device (the smallest matching index, not a reduction's
+    pick)."""
+    idx = torch.arange(keys.shape[-1], device=keys.device)
+    first = torch.where(keys == key[..., None], idx, keys.shape[-1]).amin(-1)
+    return torch.gather(values, -1, first[..., None])[..., 0]
+
+
+@BOXES.register_module()
+class GVFixCoder:
+    """The glide of each side's extreme vertex along its hbb edge, as a
+    fraction of the edge: the top vertex from the left, the right one
+    from the top, the bottom one from the right, the left one from the
+    bottom. Where two vertices tie on a side (an axis-aligned quad) the
+    first one counts."""
+
+    def encode(self, polys):
+        """polys [..., 8] -> [..., 4] in [0, 1]."""
+        xs, ys = polys[..., 0::2], polys[..., 1::2]
+        xmin, xmax = xs.amin(-1), xs.amax(-1)
+        ymin, ymax = ys.amin(-1), ys.amax(-1)
+        t_x = _at_first(xs, ys, ymin)
+        r_y = _at_first(ys, xs, xmax)
+        d_x = _at_first(xs, ys, ymax)
+        l_y = _at_first(ys, xs, xmin)
+        w = (xmax - xmin).clamp(min=1e-6)
+        h = (ymax - ymin).clamp(min=1e-6)
+        return torch.stack([(t_x - xmin) / w, (r_y - ymin) / h,
+                            (xmax - d_x) / w, (ymax - l_y) / h], dim=-1)
+
+    def decode(self, hbboxes, fix_deltas):
+        """hbbs [..., 4] and glides [..., 4] -> quads [..., 8]."""
+        x1, y1, x2, y2 = hbboxes.unbind(-1)
+        w, h = x2 - x1, y2 - y1
+        dt, dr, dd, dl = fix_deltas.unbind(-1)
+        return torch.stack([x1 + dt * w, y1, x2, y1 + dr * h,
+                            x2 - dd * w, y2, x1, y2 - dl * h], dim=-1)
+
+
+@BOXES.register_module()
+class GVRatioCoder:
+    """The quad's area over its hbb's, [..., 1]."""
+
+    def encode(self, polys):
+        hbb = B.poly2hbb(polys)
+        h_area = (hbb[..., 2] - hbb[..., 0]) * (hbb[..., 3] - hbb[..., 1])
+        return (B.get_bbox_areas(polys) / h_area.clamp(min=1e-6))[..., None]
 
 
 @BOXES.register_module()

@@ -22,10 +22,14 @@ JAX.
 
 A single-stage head section (``SingleStageDetector``'s ``bbox_head``,
 ``roi_heads`` or ``rpn_net``) goes through ``adapt_single_stage_head``:
-the generic flattening of ``normalize_cfg``, which is what S2ANet's takes.
-The JAX package's own adapters of ``RRetinaHead``, the creator-style
-``RetinaHead`` and ``SSDHead`` wait for their heads (ROADMAP.md, Queue 1,
-item 11). As in JAX, S2ANet's ``loss_*`` sections reach the head only as
+the creator-style ``RetinaHead`` of ``projects/retinanet`` (``n_class``,
+``mode``, an explicit rotated anchor generator) through
+``adapt_legacy_retina``, as in JAX; any other section through the
+generic flattening of ``normalize_cfg``, which is what S2ANet's and the
+modern ``RetinaHead`` take. The JAX package's adapters of R3Det's
+``RRetinaHead`` and of ``SSDHead`` wait for their heads (ROADMAP.md,
+Queue 1, item 11). The legacy RetinaHead's ``loc_loss_weight`` and
+``cls_loss_weight`` are dropped, as in JAX. As in JAX, S2ANet's ``loss_*`` sections reach the head only as
 ``focal_gamma`` / ``focal_alpha`` / ``smooth_l1_beta`` (the ODM section's
 values, the later ones, override the FAM's; ``loss_weight`` is dropped),
 ``test_cfg`` as ``nms_pre`` / ``score_thr`` / ``max_per_img`` /
@@ -39,6 +43,8 @@ from __future__ import annotations
 import inspect
 from collections.abc import Mapping
 from typing import Any, Dict, Tuple
+
+import numpy as np
 
 
 def _plain(node):
@@ -117,19 +123,69 @@ def adapt_cascade_head(bbox_head, rbbox_head=None, bbox_roi_extractor=None,
 
 def adapt_single_stage_head(cfg):
     """A single-stage head section onto the port's head: the legacy
-    creator forms raise naming their ROADMAP item, any other section is
-    flattened by ``normalize_cfg`` against its registered class."""
+    creator-style ``RetinaHead`` through ``adapt_legacy_retina``,
+    ``RRetinaHead`` and ``SSDHead`` raise naming their ROADMAP item, any
+    other section is flattened by ``normalize_cfg`` against its
+    registered class."""
     if cfg is None or not isinstance(cfg, Mapping):
         return cfg
     cfg = _plain(cfg)
     t = cfg.get("type")
-    if t in ("RRetinaHead", "SSDHead") or (
-            t == "RetinaHead" and ("n_class" in cfg or "mode" in cfg)):
+    if t in ("RRetinaHead", "SSDHead"):
         raise NotImplementedError(f"the head {t!r} is not ported yet "
                                   f"(ROADMAP.md, Queue 1, item 11)")
+    if t == "RetinaHead" and ("n_class" in cfg or "mode" in cfg):
+        return adapt_legacy_retina(cfg)
     from ...utils.registry import HEADS
 
     return normalize_cfg(cfg, HEADS)
+
+
+def adapt_legacy_retina(cfg):
+    """The creator-style ``RetinaHead`` section (``n_class``, ``mode``,
+    an explicit rotated anchor generator) as a ``RetinaHead`` section,
+    as the JAX ``_adapt_legacy_retina`` folds it: ``n_class`` plus the
+    background, ``score_threshold`` / ``nms_iou_threshold`` / ``roi_beta``
+    to their fields, ``max_dets`` capped at 4096 slots, the octave base
+    scale and the scales per octave recovered from ``base_sizes``,
+    ``strides`` and ``scales``, the angles in radians where they are
+    written in degrees. Everything else (``loc_loss_weight``,
+    ``cls_loss_weight``, the generator's ``type`` and ``mode``) is
+    dropped."""
+    out = dict(type="RetinaHead",
+               num_classes=int(cfg.get("n_class", 15)) + 1,
+               in_channels=cfg.get("in_channels", 256),
+               feat_channels=cfg.get("feat_channels",
+                                     cfg.get("in_channels", 256)),
+               stacked_convs=cfg.get("stacked_convs", 4))
+    if "score_threshold" in cfg:
+        out["score_thr"] = cfg["score_threshold"]
+    if "nms_iou_threshold" in cfg:
+        out["nms_iou_thr"] = cfg["nms_iou_threshold"]
+    if "max_dets" in cfg:
+        out["max_per_img"] = min(int(cfg["max_dets"]), 4096)
+    if "roi_beta" in cfg:
+        out["smooth_l1_beta"] = cfg["roi_beta"]
+    ag = cfg.get("anchor_generator") or {}
+    if ag.get("strides") is not None:
+        out["anchor_strides"] = list(ag["strides"])
+    if ag.get("ratios") is not None:
+        out["anchor_ratios"] = list(ag["ratios"])
+    scales, base_sizes = ag.get("scales"), ag.get("base_sizes")
+    if scales is not None and base_sizes is not None \
+            and ag.get("strides") is not None:
+        out["octave_base_scale"] = int(round(
+            base_sizes[0] / ag["strides"][0] * scales[0]))
+        out["scales_per_octave"] = len(scales)
+    angles = ag.get("angles")
+    if angles:
+        arr = np.asarray(angles, np.float64)
+        if np.abs(arr).max() > 3.2:          # degrees -> radians
+            arr = arr * np.pi / 180.0
+        out["anchor_angles"] = [float(a) for a in arr]
+    from ..roi_heads.retina_head import RetinaHead
+
+    return _filter_to_fields(RetinaHead, out)
 
 
 def config_fields(cls) -> Tuple[str, ...]:

@@ -11,8 +11,7 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-from ...utils.registry import (HEADS, MODELS, build_from_cfg,
-                               register_unported)
+from ...utils.registry import HEADS, MODELS, build_from_cfg
 from ..roi_heads.rbbox_head import RoITransformerHead
 from ..roi_heads.rpn_head import RPNHead
 from .compat import adapt_cascade_head, normalize_cfg
@@ -65,7 +64,3 @@ class FasterRCNNOBB(RoITransformer):
                                        num_stages=1), HEADS)
         return head
 
-
-# Gliding Vertex shares the hbb RPN and waits for its own slice
-register_unported(MODELS, ("GlidingVertex",), "the network", "10b")
-register_unported(HEADS, ("GlidingRPNHead", "GlidingHead"), "the head", "10b")

@@ -1,8 +1,8 @@
 """Single-stage detectors (counterpart of
 ``rs_detection_tpu/models/networks/single_stage.py``): backbone -> neck
 -> dense head, ``loss`` the training forward and ``predict`` the
-inference one. ``S2ANet`` is the ported network; ``RetinaNet`` and
-``FCOS`` share the class in JAX and wait for their heads (ROADMAP.md,
+inference one. ``S2ANet`` and ``RetinaNet`` are the ported networks;
+``FCOS`` shares the class in JAX and waits for its head (ROADMAP.md,
 Queue 1, item 11)."""
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from torch import nn
 from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
                                register_unported)
 from ..necks.fpn import FPN
+from ..roi_heads import retina_head  # noqa: F401  (registers RetinaHead)
 from ..roi_heads.s2anet_head import S2ANetHead
 from .compat import adapt_single_stage_head
 from .rcnn import _build, _resnet50
@@ -77,4 +78,10 @@ class S2ANet(SingleStageDetector):
     """Reference ``networks/s2anet.py:7-37``."""
 
 
-register_unported(MODELS, ("RetinaNet", "FCOS"), "the network", "11")
+@MODELS.register_module()
+class RetinaNet(SingleStageDetector):
+    """Reference ``networks/retinanet.py:9``: the head under ``rpn_net``
+    (the legacy creator form) or ``bbox_head``."""
+
+
+register_unported(MODELS, ("FCOS",), "the network", "11")

@@ -38,6 +38,23 @@ from .oriented_rpn_head import _take
 ROI_LAYER = dict(output_size=7, sampling_ratio=2)
 
 
+@torch.no_grad()
+def sample_slots(cand, cand_valid, gts, gt_mask, generator, assigner,
+                 sampler):
+    """``sampler.num`` fixed slots of the candidates [B, N, D] against
+    the ground truths gts [B, G, D'], positives first: (sel [B, S], pos,
+    neg [B, S], matched ground-truth index [B, S]). The second stage of
+    every two-stage head with a ``RandomSampler`` samples through it."""
+    assigned, _ = assigner.assign(cand, gts, gt_mask, anchor_mask=cand_valid)
+    pos, neg = sampler.sample(assigned, generator)
+    idx = torch.arange(cand.shape[1], device=cand.device)
+    priority = pos.float() * 2.0 + neg.float() - idx * 1e-9
+    _, sel = top_k(priority, sampler.num)
+    matched = (torch.gather(assigned, 1, sel) - 1).clamp(0, gts.shape[1] - 1)
+    return (sel, torch.gather(pos, 1, sel), torch.gather(neg, 1, sel),
+            matched)
+
+
 class FCHead(nn.Module):
     """The shared 2-FC trunk (1024 wide, ReLU) and the cls / reg linears
     of one stage; the flax names ``fc0``, ``fc1``, ``fc_cls``,
@@ -103,22 +120,6 @@ class RoITransformerHead(nn.Module):
         self.stage2 = FCHead(in_channels * p * p, num_classes, 5) \
             if num_stages == 2 else None
 
-    @torch.no_grad()
-    def _sample(self, cand, cand_valid, gts, gt_mask, generator, assigner):
-        """Fixed slots of the candidates [B, N, D] against the ground
-        truths gts [B, G, D']: (sel [B, S], pos, neg [B, S], matched
-        ground-truth index [B, S])."""
-        assigned, _ = assigner.assign(cand, gts, gt_mask,
-                                      anchor_mask=cand_valid)
-        pos, neg = self.sampler.sample(assigned, generator)
-        idx = torch.arange(cand.shape[1], device=cand.device)
-        priority = pos.float() * 2.0 + neg.float() - idx * 1e-9
-        _, sel = top_k(priority, self.sampler.num)
-        matched = (torch.gather(assigned, 1, sel) - 1).clamp(
-            0, gts.shape[1] - 1)
-        return (sel, torch.gather(pos, 1, sel), torch.gather(neg, 1, sel),
-                matched)
-
     def _cls_loss(self, cls, labels, pos, neg):
         lw = (pos | neg).reshape(-1).float()
         return softmax_cross_entropy(cls, labels.reshape(-1), lw,
@@ -141,9 +142,9 @@ class RoITransformerHead(nn.Module):
 
         # stage 1: hbb rois -> rbox deltas
         cand = torch.cat([proposals.float(), gt_hbb], 1)
-        sel, pos1, neg1, matched = self._sample(
+        sel, pos1, neg1, matched = sample_slots(
             cand, torch.cat([prop_valid, gt_mask], 1), gt_hbb, gt_mask,
-            generator, self.assigner_h)
+            generator, self.assigner_h, self.sampler)
         rois_h = _take(cand, sel)
         rrois = B.hbb2obb(rois_h)
         t1 = self.coder1.encode(rrois, _take(gt_rbox, matched))
@@ -165,9 +166,9 @@ class RoITransformerHead(nn.Module):
                                      reg1.detach()).reshape(b, s, 5)
         cand = torch.cat([rboxes1, gt_rbox], 1)
         valid = torch.ones(b, s, dtype=torch.bool, device=dev)
-        sel, pos2, neg2, matched = self._sample(
+        sel, pos2, neg2, matched = sample_slots(
             cand, torch.cat([valid, gt_mask], 1), gt_rbox, gt_mask,
-            generator, self.assigner_r)
+            generator, self.assigner_r, self.sampler)
         rois_r = _take(cand, sel)
         matched_gt = _take(gt_rbox, matched)
         t2 = torch.where(pos2[..., None], self.coder2.encode(

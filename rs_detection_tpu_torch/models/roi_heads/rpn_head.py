@@ -8,9 +8,7 @@ coordinate offset, and the top ``nms_post`` as fixed-shape hbbs with a
 valid mask. Batched over images instead of vmapped; every top-k and sort
 goes through the stable ``ops.nms.top_k`` (ties to the lower index, as
 ``jax.lax.top_k``), so the card and the CPU order ties alike.
-
-``GlidingRPNHead`` (the same head under Gliding Vertex's name) waits for
-that family (ROADMAP.md, Queue 1, item 10b)."""
+``GlidingRPNHead`` is the same head under Gliding Vertex's name."""
 
 from __future__ import annotations
 
@@ -177,3 +175,9 @@ class RPNHead(nn.Module):
             out_s = F.pad(out_s, (0, pad), value=float("-inf"))
             out_valid = torch.cat([out_valid, out_valid.new_zeros(b, pad)], 1)
         return out_p, torch.where(out_valid, out_s, 0.0), out_valid
+
+
+@HEADS.register_module()
+class GlidingRPNHead(RPNHead):
+    """The hbb RPN under Gliding Vertex's name (JAX ``rpn_head.py:183``,
+    reference ``gliding_rpn_head.py:9``)."""

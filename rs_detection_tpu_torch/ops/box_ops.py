@@ -67,6 +67,34 @@ def hbb2obb(hbboxes):
                         torch.where(wide, zeros, zeros - HALF_PI)], dim=-1)
 
 
+def hbb2poly(hbboxes):
+    """hbb -> its corners (l, t), (r, t), (r, b), (l, b)."""
+    l, t, r, b = hbboxes.unbind(-1)
+    return torch.stack([l, t, r, t, r, b, l, b], dim=-1)
+
+
+def poly2hbb(polys):
+    """poly [..., 2 K] -> the hbb (x0, y0, x1, y1) that bounds it."""
+    pts = polys.reshape(*polys.shape[:-1], polys.shape[-1] // 2, 2)
+    return torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
+
+
+def get_bbox_areas(bboxes):
+    """Areas of hbbs [..., 4], obbs [..., 5] or quads [..., 8] (the
+    shoelace formula, either winding)."""
+    dim = bboxes.shape[-1]
+    if dim == 4:
+        return ((bboxes[..., 2] - bboxes[..., 0])
+                * (bboxes[..., 3] - bboxes[..., 1]))
+    if dim == 5:
+        return bboxes[..., 2] * bboxes[..., 3]
+    pts = bboxes.reshape(*bboxes.shape[:-1], 4, 2)
+    rolled = torch.roll(pts, 1, dims=-2)
+    cross = (pts[..., 0] * rolled[..., 1]
+             - rolled[..., 0] * pts[..., 1]).sum(-1)
+    return 0.5 * torch.abs(cross)
+
+
 def rotated_box_to_poly(rrects):
     """(cx, cy, w, h, theta) -> quadrilateral in the JDet convention: the
     corners (-w/2, -h/2), (w/2, -h/2), (w/2, h/2), (-w/2, h/2) rotated by

@@ -42,6 +42,8 @@ from ..data import image as _image  # noqa: F401  (registers ImageDataset)
 from ..data.scene import SceneDataset
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
+from ..models import param_generators as _pg  # noqa: F401  (MODELS too)
+from ..models.networks import gliding_vertex as _gv  # noqa: F401  (as well)
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
 from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
 from ..models.networks import single_stage as _ss  # noqa: F401  (as well)
@@ -179,16 +181,20 @@ class Runner:
         """The optimizer and schedule, and the SWA pair when the config
         sets ``optimizer_swa`` (its learning rate defaults to the main
         one's). A config without an optimizer trains with SGD at rate
-        0.01, the JAX runner's default."""
+        0.01, the JAX runner's default. ``parameter_groups_generator``
+        links its groups into the main optimizer (not the SWA one), with
+        the optimizer's ``weight_decay`` as the base, as the JAX runner
+        wraps ``tx``."""
         cfg = self.cfg
-        if cfg.parameter_groups_generator is not None:
-            raise NotImplementedError(
-                "parameter_groups_generator is not ported yet (ROADMAP.md, "
-                "Queue 1, item 8)")
-        params = list(self.model.parameters())
+        params = list(self.model.named_parameters())
         opt_cfg = dict(cfg.optimizer or dict(type="SGD"))
         opt_cfg.setdefault("lr", 0.01)
         self.optimizer = build_from_cfg(opt_cfg, OPTIMS, params=params)
+        pg = cfg.parameter_groups_generator
+        if isinstance(pg, dict) and pg.get("type"):
+            wrap = build_from_cfg(dict(pg), MODELS)
+            self.optimizer = wrap(self.optimizer, base_weight_decay=float(
+                opt_cfg.get("weight_decay", 0.0) or 0.0))
         self.scheduler = build_from_cfg(cfg.scheduler, SCHEDULERS) \
             or constant_lr
         self.optimizer_swa, self.scheduler_swa = None, constant_lr
