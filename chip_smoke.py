@@ -294,6 +294,17 @@ RESNET_TILES = 12  # phase 26: 6 steps of batch 2
 ROITRANS_TILES = 8  # phase 33: 4 steps of batch 2
 S2ANET_TILES = 8  # phase 36: 4 steps of batch 2
 GLIDING_TILES = 2  # phase 39: balanced to one copy a class and more
+FCOS_TILES = 6  # phase 43: 3 steps of batch 2
+R3DET_TILES = 2  # phase 45: 2 steps of batch 1
+# the transforms of the FCOS recipe, for the R3Det config, which has no
+# dataset section
+NORMALIZE = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
+                 std=[58.395, 57.12, 57.375], to_bgr=False)
+R3DET_TRAIN = [dict(type="RotatedResize", min_size=1024, max_size=1024),
+               dict(type="RotatedRandomFlip", prob=0.5),
+               dict(type="Pad", size_divisor=32), NORMALIZE]
+R3DET_TEST = [dict(type="RotatedResize", min_size=1024, max_size=1024),
+              dict(type="Pad", size_divisor=32), NORMALIZE]
 # kernel vs plain, as max|diff| / max|plain|: bf16 rounds the hidden
 # tensor at other points in the two versions (1-2 bf16 ulps, 2^-8 each,
 # of the output's largest values); f32 differs only in summation order
@@ -2868,7 +2879,7 @@ def train_task(torch, tmp, kernels, config, n_train, n_test, tag,
     ``test``: more keys of those dataset sections, ``extra`` more
     top-level entries of the written config. Returns (runner, launches,
     seconds, peak bytes, the seeded targets, the written config, work
-    dir)."""
+    dir). ``extra`` may hold a ``merge_cfg`` in place of the DOTA one."""
     from rs_detection_tpu_torch.flagship import make_targets
     from rs_detection_tpu_torch.tools import run_net
 
@@ -2888,7 +2899,7 @@ def train_task(torch, tmp, kernels, config, n_train, n_test, tag,
         checkpoint_interval=1, work_dir=work,
         dataset=dict(train=dict(dataset_dir=ds, **(train or {})), val=None,
                      test=dict(images_dir=tiles, **(test or {}))),
-        merge_cfg=dict(dataset_type="DOTA"), **extra)
+        merge_cfg=extra.pop("merge_cfg", dict(dataset_type="DOTA")), **extra)
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -3784,6 +3795,378 @@ def phase_retina_task(torch, tmp, kernels, card):
     return train_launches, test_launches
 
 
+def phase_fcos_tiny(torch, dev):
+    """The tiny FCOS (``tests/test_torch_fcos_cuda.py``: ResNet-18 with
+    running statistics, a 32-wide FPN from C2, the head at 32 channels
+    on strides 4-64): ``predict`` (the classifier spread) and two SGD
+    steps on the card against the CPU, f32, one seed, axis-aligned boxes;
+    then the weighted poly-IoU and poly-GIoU losses and their gradients
+    on ~3,900 box pairs held 1e-3 from every decision, and
+    ``convex_sort`` on 4,096 sets of 24 points, card against CPU."""
+    import numpy as np
+    from test_torch_fcos_cuda import (LOSS_RTOL, POLY_ATOL, SCORE_ATOL,
+                                      compare, poly_loss_fwd_bwd,
+                                      poly_loss_inputs, run_tiny,
+                                      tiny_inputs)
+
+    from rs_detection_tpu_torch.ops.convex_sort import convex_sort
+
+    tiles, targets = tiny_inputs()
+    cpu = run_tiny("cpu", tiles, targets)
+    gpu = run_tiny(dev, tiles, targets)
+    same = (torch.equal(cpu[1]["valid"], gpu[1]["valid"].cpu())
+            and torch.equal(cpu[1]["labels"], gpu[1]["labels"].cpu()))
+    err = compare(cpu, gpu)
+    log(f"  tiny FCOS, CUDA vs CPU: {int(cpu[1]['valid'].sum())} "
+        f"detections, slots and labels equal {same}; polys max_abs_err "
+        f"{err['polys']:.3e} (atol {POLY_ATOL}), scores {err['scores']:.3e} "
+        f"(atol {SCORE_ATOL}); 2 SGD steps, losses worst relative error "
+        f"{err['losses']:.2e} (tolerance {LOSS_RTOL}); losses {gpu[2][-1]}")
+    if not (same and err["polys"] <= POLY_ATOL
+            and err["scores"] <= SCORE_ATOL and err["losses"] <= LOSS_RTOL
+            and int(cpu[1]["valid"].sum()) > 4
+            and all(math.isfinite(v) for v in gpu[2][-1].values())):
+        raise AssertionError("tiny FCOS: CUDA and CPU differ")
+    pred, target, w = poly_loss_inputs()
+    for giou in (False, True):
+        lc, gc = poly_loss_fwd_bwd("cpu", pred, target, w, giou)
+        lg, gg = poly_loss_fwd_bwd(dev, pred, target, w, giou)
+        rel = abs(lg.item() - lc.item()) / abs(lc.item())
+        g_rel = ((gg - gc).abs().max() / gc.abs().max()).item()
+        log(f"  poly_{'giou' if giou else 'iou'}_loss on {len(pred)} pairs, "
+            f"CUDA vs CPU: loss relative error {rel:.2e}, gradient "
+            f"{g_rel:.2e} of its largest entry (tolerance 1e-5 each)")
+        if rel > 1e-5 or g_rel > 1e-5:
+            raise AssertionError("poly-IoU loss: CUDA and CPU differ")
+    rng = np.random.RandomState(0)
+    pts = torch.from_numpy(rng.uniform(-10, 10, (4096, 24, 2)).astype(
+        np.float32))
+    masks = torch.from_numpy(rng.rand(4096, 24) < 0.6)
+    if not torch.equal(convex_sort(pts.to(dev), masks.to(dev)).cpu(),
+                       convex_sort(pts, masks)):
+        raise AssertionError("convex_sort: CUDA and CPU differ")
+    log("  convex_sort on 4,096 sets of 24 points: card equals CPU")
+
+
+def phase_fcos_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``configs/fcos/fcos_obb_r50_fpn_1x_dota.py`` at full width (ResNet-50,
+    FPN-256 from C3 with ReLU'd ``on_output`` extra convs, the FCOS head:
+    two towers of four GroupNorm convs at 256 channels on 5 levels,
+    21,824 points a 1024^2 tile, 15 classes, the poly-IoU loss, f32 as
+    written, batch 2): ``FCOS_TILES`` seeded tiles with 42 boxes in 512
+    slots, then 4 test tiles at the config's batch 1 with the DOTA merge,
+    from the checkpoint with the classifier's prior lifted. No kernel
+    launches. Then, on the trained model and a batch of 2 tiles: the
+    dense targets against 512 slots, the poly-IoU loss forward and
+    backward on the batch's 43,648 points, the head's whole loss; on the
+    test task's model ``multiclass_nms_rotated_jit`` on the first test
+    tile's candidates.
+    Returns (train launches, test launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import normalize
+    from rs_detection_tpu_torch.models.losses.poly_iou_loss import \
+        poly_iou_loss
+    from rs_detection_tpu_torch.ops import box_ops as B
+    from rs_detection_tpu_torch.ops.nms_rotated import \
+        multiclass_nms_rotated_jit
+
+    n_test = 4
+    steps = FCOS_TILES // 2
+    config = ("configs", "fcos", "fcos_obb_r50_fpn_1x_dota.py")
+    runner, train_launches, t_train, peak, t, cfg, work = train_task(
+        torch, tmp, kernels, config, FCOS_TILES, n_test, "fc")
+    lift_odm_prior(os.path.join(work, "checkpoints", "ckpt_1.pkl"),
+                   "bbox_head.conv_cls.bias")
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    none = dict.fromkeys(kernels, 0)
+    if train_launches != none or test_launches != none:
+        raise AssertionError(f"FCOS launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(runner, steps, ("loss_bbox",),
+                                "FCOS train task")
+    log(f"  run_net --task train, FCOS from configs/fcos/"
+        f"fcos_obb_r50_fpn_1x_dota.py (ResNet-50, FPN-256 from C3, FCOSHead "
+        f"4 + 4 GroupNorm convs, 21,824 points a tile, 15 classes, poly-IoU "
+        f"loss, f32 as written; cut: {FCOS_TILES} seeded tiles of {TILE}^2 "
+        f"with {MAX_GT} boxes in 512 slots, {steps} steps of batch 2, random "
+        f"weights): {t_train:.1f} s whole task; ms/step through the runner, "
+        f"median of steps 2-{steps}: {step_ms[len(step_ms) // 2]:.1f} (min "
+        f"{step_ms[0]:.1f}, max {step_ms[-1]:.1f}); loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    n_out = check_test_results(np, tester, work, n_test, "FCOS test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl (classifier prior lifted): "
+        f"{n_test} tiles at batch {tester.test_dataset.batch_size} (the "
+        f"config's) in {stats['inference_s']:.3f} s = "
+        f"{n_test / stats['inference_s']:.2f} tiles/s of inference; merge "
+        f"{stats['merge_s']:.3f} s; detections {stats['detections']} in, "
+        f"{n_out} after NMS; whole task {t_test:.1f} s; launches "
+        f"{train_launches} / {test_launches} [{card}]")
+    if stats["detections"] == 0:
+        raise AssertionError("FCOS test task: no detection")
+    model = runner.model
+    head = model.bbox_head
+    test_model = tester.model
+    del tester
+    g = torch.Generator(device="cuda").manual_seed(46)
+    x = normalize(torch.randint(0, 256, (2, TILE, TILE, 3), dtype=torch.uint8,
+                                device="cuda", generator=g))
+    tgt = dict(rboxes=torch.zeros(2, 512, 5, device="cuda"),
+               gt_mask=torch.zeros(2, 512, dtype=torch.bool, device="cuda"),
+               labels=torch.zeros(2, 512, dtype=torch.long, device="cuda"))
+    tgt["rboxes"][:, :MAX_GT] = t["rboxes"][:2].to("cuda")
+    tgt["gt_mask"][:, :MAX_GT] = True
+    tgt["labels"][:, :MAX_GT] = t["labels"][:2].to("cuda")
+    model.train()
+    with torch.no_grad():
+        outs = head(model.extract_feats(x), train=True)
+        sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+        points, strides, ranges = head.level_tensors(sizes, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_tg, (labels, bbox_t) = timed_host(torch, lambda: head.targets(
+            points, strides, ranges, tgt["rboxes"], tgt["gt_mask"],
+            tgt["labels"]))
+        tg_peak = torch.cuda.max_memory_allocated() - base
+    reg4 = torch.cat([r.reshape(2, -1, 4) for r in outs[1]], 1) \
+        * strides[None, :, None]
+    th = torch.cat([r.reshape(2, -1, 1) for r in outs[2]], 1)
+    pts = points.repeat(2, 1)
+    pos = labels.reshape(-1) < head.num_classes
+    tgt_boxes = B.distance2obb(pts, bbox_t.reshape(-1, 5))
+    reg = torch.cat([reg4, th], -1).reshape(-1, 5)
+
+    def poly_step():
+        p = reg.clone().requires_grad_(True)
+        loss = poly_iou_loss(B.distance2obb(pts, p), tgt_boxes,
+                             weight=pos.float(), avg_factor=pos.sum())
+        loss.backward()
+        return loss.detach()
+
+    t_poly, poly_val = timed_host(torch, poly_step)
+    outs = [[o.detach().requires_grad_(True) for o in lv] for lv in outs]
+
+    def head_loss():
+        losses = head.loss(outs, tgt)
+        sum(losses.values()).backward()
+        return losses
+
+    t_loss, losses = timed_host(torch, head_loss)
+    losses = {k: round(v.item(), 4) for k, v in losses.items()}
+    test_model.eval()
+    with torch.no_grad():
+        images, _, _ = next(iter(runner.test_dataset.batches()))
+        xo = torch.as_tensor(images[:1], device="cuda")
+        th = test_model.bbox_head
+        ev = th(test_model.extract_feats(xo), train=False)
+        boxes, scores, ctr = th.candidates(ev, 0, torch.ones(
+            (), device="cuda"))
+
+        def nms():
+            return multiclass_nms_rotated_jit(
+                boxes, scores, head.score_thr, head.nms_iou_thr,
+                pre_nms=min(2000, scores.shape[0] * head.num_classes),
+                max_num=head.max_per_img, score_factors=ctr)
+
+        kept = int(nms()[2].sum())
+        t_nms, _ = timed_host(torch, nms)
+    med = step_ms[len(step_ms) // 2]
+    log(f"    dense targets at batch 2, 512 slots ({points.shape[0]} points "
+        f"a tile, {2 * points.shape[0] * 512 / 1e6:.1f} M point-box pairs): "
+        f"{1e3 * t_tg:.1f} ms host, median of 3, "
+        f"{100 * 1e3 * t_tg / med:.1f}% of the median step, "
+        f"{tg_peak / 2**30:.2f} GiB above its inputs, {int(pos.sum())} "
+        f"positives [{card}]")
+    log(f"    poly_iou_loss forward + backward on the batch's "
+        f"{pts.shape[0]} points ({int(pos.sum())} weighted): "
+        f"{1e3 * t_poly:.1f} ms host, median of 3, "
+        f"{100 * 1e3 * t_poly / med:.1f}% of the step, loss "
+        f"{poly_val.item():.4f}; the head's whole loss forward + backward "
+        f"{1e3 * t_loss:.1f} ms, {losses} [{card}]")
+    log(f"    multiclass_nms_rotated_jit on the first test tile's "
+        f"{boxes.shape[0]} candidates x {head.num_classes} classes, score "
+        f"factors the centerness: {1e3 * t_nms:.1f} ms host, median of 3, "
+        f"{kept} kept [{card}]")
+    if kept == 0 or points.shape[0] != 21824 or not math.isfinite(
+            poly_val.item()):
+        raise AssertionError(f"FCOS: {kept} kept, {points.shape[0]} points")
+    return train_launches, test_launches
+
+
+def phase_r3det_tiny(torch, dev):
+    """The tiny R3Det (``tests/test_torch_r3det_cuda.py``: ResNet-18 with
+    running statistics, a 32-wide FPN from C3, a ``RetinaHead`` of 9
+    anchors a position, the refine stage built from the first of two
+    ``refine_heads`` and ``frm_cfgs``): ``predict`` (the refine classifier
+    spread) and two SGD steps on the card against the CPU, f32, one seed,
+    axis-aligned boxes; then ``feature_refine`` with 1 and 5 points and
+    its backward (autograd's scatter-add) on boxes that span the border
+    band, card against CPU."""
+    from test_torch_r3det_cuda import (FR_ATOL, LOSS_RTOL, POLY_ATOL,
+                                       SCORE_ATOL, compare, fr_fwd_bwd,
+                                       fr_inputs, run_tiny, tiny_inputs)
+
+    tiles, targets = tiny_inputs()
+    cpu = run_tiny("cpu", tiles, targets)
+    gpu = run_tiny(dev, tiles, targets)
+    same = (torch.equal(cpu[1]["valid"], gpu[1]["valid"].cpu())
+            and torch.equal(cpu[1]["labels"], gpu[1]["labels"].cpu()))
+    err = compare(cpu, gpu)
+    log(f"  tiny R3Det, CUDA vs CPU: {int(cpu[1]['valid'].sum())} "
+        f"detections, slots and labels equal {same}; polys max_abs_err "
+        f"{err['polys']:.3e} (atol {POLY_ATOL}), scores {err['scores']:.3e} "
+        f"(atol {SCORE_ATOL}); 2 SGD steps, losses worst relative error "
+        f"{err['losses']:.2e} (tolerance {LOSS_RTOL}); losses {gpu[2][-1]}")
+    if not (same and err["polys"] <= POLY_ATOL
+            and err["scores"] <= SCORE_ATOL and err["losses"] <= LOSS_RTOL
+            and int(cpu[1]["valid"].sum()) > 4
+            and all(math.isfinite(v) for v in gpu[2][-1].values())):
+        raise AssertionError("tiny R3Det: CUDA and CPU differ")
+    for points in (1, 5):
+        feats, boxes = fr_inputs(seed=points)
+        oc, gc = fr_fwd_bwd("cpu", feats, boxes, 0.5, points)
+        og, gg = fr_fwd_bwd(dev, feats, boxes, 0.5, points)
+        e_out = ((og - oc).abs().max() / oc.abs().max()).item()
+        e_grad = ((gg - gc).abs().max() / gc.abs().max()).item()
+        log(f"  feature_refine, {points} point(s), CUDA vs CPU: output "
+            f"{e_out:.2e}, gradient {e_grad:.2e} of the largest entry "
+            f"(tolerance {FR_ATOL})")
+        if e_out > FR_ATOL or e_grad > FR_ATOL:
+            raise AssertionError("feature_refine: CUDA and CPU differ")
+
+
+def phase_r3det_task(torch, tmp, kernels, card):
+    """``run_net --task train`` then ``--task test`` on
+    ``projects/r3det/configs/r3det_r50_fpn_1x_dota.py`` at full width
+    (ResNet-50, FPN-256 from C3, the ``RRetinaHead`` as a ``RetinaHead``
+    of 7 ratios x 3 octave scales = 21 anchors a position, 458,304 a
+    1024^2 tile, one refine stage of four convs a branch, the feature
+    refine at one point, 15 classes, f32). The config has no dataset,
+    optimizer or schedule section: the phase gives it seeded tiles with
+    the FCOS recipe's transforms at batch 1 (cut), and both runners train
+    it with their default SGD at 0.01; its JDet ``merge_cfg`` keys, which
+    neither runner's merge takes, are covered by the DOTA merge.
+    ``R3DET_TILES`` tiles with 42 boxes in 512 slots, then 4 test tiles at
+    batch 1 from the checkpoint with the refine classifier's prior
+    lifted. No kernel launches. Then, on the trained model: one
+    first-stage target round at batch 1 against 512 slots (its share of a
+    step) and the refine round, and ``feature_refine`` at level 0 (its
+    forward, and forward with backward). Returns (train launches, test
+    launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.models.boxes.anchor_target import \
+        anchor_target_single
+    from rs_detection_tpu_torch.ops.fr import feature_refine
+
+    n_test = 4
+    config = ("projects", "r3det", "configs", "r3det_r50_fpn_1x_dota.py")
+    runner, train_launches, t_train, peak, t, cfg, work = train_task(
+        torch, tmp, kernels, config, R3DET_TILES, n_test, "r3",
+        train=dict(type="DOTADataset", batch_size=1, shuffle=False,
+                   filter_empty_gt=False, transforms=R3DET_TRAIN),
+        test=dict(type="ImageDataset", dataset_type="DOTA", batch_size=1,
+                  transforms=R3DET_TEST),
+        merge_cfg=dict(_cover_=True, dataset_type="DOTA"))
+    lift_odm_prior(os.path.join(work, "checkpoints", "ckpt_1.pkl"),
+                   "refine_head.out_cls.bias")
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    none = dict.fromkeys(kernels, 0)
+    if train_launches != none or test_launches != none:
+        raise AssertionError(f"R3Det launches {train_launches}, "
+                             f"{test_launches}; expected none")
+    step_ms = check_task_losses(runner, R3DET_TILES, ("loss_bbox",),
+                                "R3Det train task")
+    model = runner.model
+    head = model.bbox_head
+    log(f"  run_net --task train, R3Det from projects/r3det/configs/"
+        f"r3det_r50_fpn_1x_dota.py (ResNet-50, FPN-256 from C3, RetinaHead "
+        f"{head.num_anchors} anchors a position, one refine stage, feature "
+        f"refine at 1 point, 15 classes, f32, the runner's default SGD; "
+        f"cut: {R3DET_TILES} seeded tiles of {TILE}^2 with {MAX_GT} boxes "
+        f"in 512 slots, {R3DET_TILES} steps of batch 1, random weights): "
+        f"{t_train:.1f} s whole task; ms/step through the runner, step 2: "
+        f"{step_ms[-1]:.1f}; loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    n_out = check_test_results(np, tester, work, n_test, "R3Det test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl (refine classifier prior "
+        f"lifted): {n_test} tiles at batch 1 in {stats['inference_s']:.3f} "
+        f"s = {n_test / stats['inference_s']:.2f} tiles/s of inference; "
+        f"merge {stats['merge_s']:.3f} s; detections "
+        f"{stats['detections']} in, {n_out} after NMS; whole task "
+        f"{t_test:.1f} s; launches {train_launches} / {test_launches} "
+        f"[{card}]")
+    if stats["detections"] == 0:
+        raise AssertionError("R3Det test task: no detection")
+    images, _, _ = next(iter(tester.test_dataset.batches()))
+    del tester
+    x = torch.as_tensor(images[:1], device="cuda")
+    gt = torch.zeros(1, 512, 5, device="cuda")
+    gt[:, :MAX_GT] = t["rboxes"][:1].to("cuda")
+    gt_mask = torch.zeros(1, 512, dtype=torch.bool, device="cuda")
+    gt_mask[:, :MAX_GT] = True
+    labels = torch.zeros(1, 512, dtype=torch.long, device="cuda")
+    labels[:, :MAX_GT] = t["labels"][:1].to("cuda")
+    model.eval()
+    with torch.no_grad():
+        feats = model.extract_feats(x)
+        outs = head(feats)
+        sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+        anchors = torch.cat([head.anchors(i, hw, "cuda")
+                             for i, hw in enumerate(sizes)])
+        inside = torch.ones(anchors.shape[0], dtype=torch.bool,
+                            device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sec, res = timed_host(torch, lambda: anchor_target_single(
+            anchors, inside, gt, gt_mask, labels, head.assigner,
+            head.sampler, head.coder.encode, None), reps=1)
+        round_peak = torch.cuda.max_memory_allocated() - base
+        refined = model.refined_anchors(outs[1])
+        flat = torch.cat([r.reshape(1, -1, 5) for r in refined], 1)
+        rh = model.refine_head
+        r_sec, r_res = timed_host(torch, lambda: anchor_target_single(
+            flat, torch.ones(flat.shape[:2], dtype=torch.bool,
+                             device="cuda"), gt, gt_mask, labels,
+            rh.assigner, rh.sampler, rh.coder.encode, None), reps=1)
+        level0 = torch.randn(feats[0].shape, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(47))
+        scale = 1.0 / model.frm.featmap_strides[0]
+        fr_ms = cuda_ms(lambda: feature_refine(level0, refined[0], scale),
+                        10)
+
+    def fr_step():
+        f = level0.clone().requires_grad_(True)
+        feature_refine(f, refined[0], scale).sum().backward()
+        return f.grad
+
+    fr_bwd_s, _ = timed_host(torch, fr_step)
+    pairs = anchors.shape[0] * 512
+    log(f"    one first-stage target round at batch 1, 512 slots "
+        f"({anchors.shape[0]} anchors, {pairs / 1e6:.1f} M rotated-IoU "
+        f"pairs, blocks of 2^21): {1e3 * sec:.1f} ms host, "
+        f"{100 * 1e3 * sec / step_ms[-1]:.1f}% of step 2, "
+        f"{round_peak / 2**30:.2f} GiB above its inputs, "
+        f"{int(res.num_pos.sum())} positives; the refine round "
+        f"({flat.shape[1]} refined boxes, "
+        f"{flat.shape[1] * 512 / 1e6:.1f} M pairs): {1e3 * r_sec:.1f} ms, "
+        f"{int(r_res.num_pos.sum())} positives [{card}]")
+    log(f"    feature_refine at level 0 ({list(level0.shape)}, 1 point, "
+        f"f32): {fr_ms:.3f} ms forward (CUDA events, mean of 10); forward "
+        f"and backward {1e3 * fr_bwd_s:.2f} ms host, median of 3 [{card}]")
+    if anchors.shape[0] != 458304 or not math.isfinite(fr_ms):
+        raise AssertionError(f"R3Det: {anchors.shape[0]} anchors")
+    return train_launches, test_launches
+
+
 def main():
     import torch
 
@@ -3794,8 +4177,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28, 31, 32, 35, 38 and 40 share the CPU tests' configs and
-    # tiles
+    # phases 25, 28, 31, 32, 35, 38, 40, 42 and 44 share the CPU tests'
+    # configs and tiles
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -3980,7 +4363,23 @@ def main():
             "retinanet_r50v1d_fpn_dota.py at full width",
             lambda: phase_retina_task(torch, tmp, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 41 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        run_phase(torch, 42, "tiny FCOS: predict and 2 SGD steps, the "
+                  "poly-IoU losses, convex_sort, CUDA vs CPU",
+                  lambda: phase_fcos_tiny(torch, dev))
+        fc_train, fc_test = run_phase(
+            torch, 43, "run_net --task train and --task test on "
+            "configs/fcos/fcos_obb_r50_fpn_1x_dota.py at full width",
+            lambda: phase_fcos_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        run_phase(torch, 44, "tiny R3Det: predict and 2 SGD steps, the "
+                  "feature-refine gather, CUDA vs CPU",
+                  lambda: phase_r3det_tiny(torch, dev))
+        r3_train, r3_test = run_phase(
+            torch, 45, "run_net --task train and --task test on "
+            "r3det_r50_fpn_1x_dota.py at full width",
+            lambda: phase_r3det_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 45 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -4067,6 +4466,10 @@ def main():
         k["gliding_test_task_launches"] = gv_test[k["name"]]
         k["retinanet_train_task_launches"] = rn_train[k["name"]]
         k["retinanet_test_task_launches"] = rn_test[k["name"]]
+        k["fcos_train_task_launches"] = fc_train[k["name"]]
+        k["fcos_test_task_launches"] = fc_test[k["name"]]
+        k["r3det_train_task_launches"] = r3_train[k["name"]]
+        k["r3det_test_task_launches"] = r3_test[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,9 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
     """Seeded random init in the spirit of the flax initializers:
     He-normal (fan_out, truncated) convs, N(0, 0.01) RPN convs, Xavier
     shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases; a
-    head with its own ``init_weights(g)`` (S2ANet's) draws its layers
-    after the generic pass. BN, LayerNorm and layer scales keep their
+    head with its own ``init_weights(g)`` (the single-stage heads, R3Det's
+    ``frm`` and ``refine_head``) draws its layers after the generic
+    pass. BN, LayerNorm and layer scales keep their
     constructor values."""
     with torch.no_grad():
         for m in model.modules():
@@ -83,8 +84,9 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
         if rpn is not None:
             for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
                 conv.weight.normal_(0.0, 0.01, generator=g)
-        if hasattr(model.bbox_head, "init_weights"):
-            model.bbox_head.init_weights(g)
+        for part in ("bbox_head", "frm", "refine_head"):
+            if hasattr(getattr(model, part, None), "init_weights"):
+                getattr(model, part).init_weights(g)
         # every stage's cls / reg FCs, in the order the head holds them
         std = {"fc_cls": 0.01, "fc_reg": 0.001}
         for name, m in model.bbox_head.named_modules():

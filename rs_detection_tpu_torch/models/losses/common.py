@@ -3,8 +3,10 @@ of ``rs_detection_tpu/models/losses/common.py``): every loss takes dense
 predictions and targets, a weight per element, and sums over
 ``max(avg_factor, 1)`` when one is given, else averages. The JAX
 functions' ``reduction="none"/"sum"`` is not ported: no caller uses it.
-``FocalLoss`` and ``SmoothL1Loss`` are the registered config forms; the
-heads call the functions."""
+``FocalLoss``, ``SmoothL1Loss``, ``L1Loss``, ``CrossEntropyLoss`` (softmax,
+or sigmoid with ``use_sigmoid`` / ``use_bce``), ``CrossEntropyLossForRcnn``
+and ``BinaryCrossEntropyLoss`` are the registered config forms; the heads
+call the functions."""
 
 from __future__ import annotations
 
@@ -58,12 +60,22 @@ def smooth_l1_loss(pred, target, weight=None, beta: float = 1.0,
     return weight_reduce_loss(loss, weight, avg_factor)
 
 
+def l1_loss(pred, target, weight=None, avg_factor=None):
+    return weight_reduce_loss(torch.abs(pred - target), weight, avg_factor)
+
+
 def softmax_cross_entropy(pred, label, weight=None, avg_factor=None,
                           ignore_index: int = -1):
     """Softmax CE over integer labels; ``ignore_index`` rows count 0."""
     loss = F.cross_entropy(pred, label, reduction="none",
                            ignore_index=ignore_index)
     return weight_reduce_loss(loss, weight, avg_factor)
+
+
+def require_mean(name, reduction):
+    """Raise unless ``reduction`` is the mean, the one the port keeps."""
+    if reduction != "mean":
+        raise NotImplementedError(f"{name}: only reduction='mean'")
 
 
 @LOSSES.register_module()
@@ -92,11 +104,62 @@ class SmoothL1Loss:
     """The config form of ``smooth_l1_loss``."""
 
     def __init__(self, beta=1.0, reduction="mean", loss_weight=1.0):
-        if reduction != "mean":
-            raise NotImplementedError("SmoothL1Loss: only reduction='mean'")
+        require_mean("SmoothL1Loss", reduction)
         self.beta = beta
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
         return self.loss_weight * smooth_l1_loss(pred, target, weight,
                                                  self.beta, avg_factor)
+
+
+@LOSSES.register_module()
+class L1Loss:
+    """The config form of ``l1_loss``."""
+
+    def __init__(self, reduction="mean", loss_weight=1.0):
+        require_mean("L1Loss", reduction)
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        return self.loss_weight * l1_loss(pred, target, weight, avg_factor)
+
+
+@LOSSES.register_module()
+class CrossEntropyLoss:
+    """Softmax cross entropy over integer labels, or with ``use_sigmoid``
+    (``use_bce``, the FCOS configs' centerness loss) the sigmoid BCE on
+    logits."""
+
+    def __init__(self, use_sigmoid=False, use_bce=False, reduction="mean",
+                 loss_weight=1.0, ignore_index=-1):
+        require_mean(type(self).__name__, reduction)
+        self.use_sigmoid = use_sigmoid or use_bce
+        self.loss_weight = loss_weight
+        self.ignore_index = ignore_index
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        if self.use_sigmoid:
+            loss = binary_cross_entropy(pred, target, weight, avg_factor)
+        else:
+            loss = softmax_cross_entropy(pred, target, weight, avg_factor,
+                                         self.ignore_index)
+        return self.loss_weight * loss
+
+
+@LOSSES.register_module()
+class CrossEntropyLossForRcnn(CrossEntropyLoss):
+    """The RCNN variant (reference ``cross_entropy_loss.py:130``)."""
+
+
+@LOSSES.register_module()
+class BinaryCrossEntropyLoss:
+    """The config form of ``binary_cross_entropy`` on logits."""
+
+    def __init__(self, reduction="mean", loss_weight=1.0):
+        require_mean("BinaryCrossEntropyLoss", reduction)
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        return self.loss_weight * binary_cross_entropy(pred, target, weight,
+                                                       avg_factor)

@@ -24,11 +24,12 @@ A single-stage head section (``SingleStageDetector``'s ``bbox_head``,
 ``roi_heads`` or ``rpn_net``) goes through ``adapt_single_stage_head``:
 the creator-style ``RetinaHead`` of ``projects/retinanet`` (``n_class``,
 ``mode``, an explicit rotated anchor generator) through
-``adapt_legacy_retina``, as in JAX; any other section through the
-generic flattening of ``normalize_cfg``, which is what S2ANet's and the
-modern ``RetinaHead`` take. The JAX package's adapters of R3Det's
-``RRetinaHead`` and of ``SSDHead`` wait for their heads (ROADMAP.md,
-Queue 1, item 11). The legacy RetinaHead's ``loc_loss_weight`` and
+``adapt_legacy_retina``, R3Det's mmdet-v2 ``RRetinaHead`` through
+``adapt_retina_like``, as in JAX; any other section through the
+generic flattening of ``normalize_cfg``, which is what S2ANet's, FCOS's
+and the modern ``RetinaHead`` take. R3Det's ``RRetinaRefineHead``
+sections fold through ``adapt_refine_head``. The JAX package's adapter
+of ``SSDHead`` waits for its head (ROADMAP.md, Queue 1, item 11e). The legacy RetinaHead's ``loc_loss_weight`` and
 ``cls_loss_weight`` are dropped, as in JAX. As in JAX, S2ANet's ``loss_*`` sections reach the head only as
 ``focal_gamma`` / ``focal_alpha`` / ``smooth_l1_beta`` (the ODM section's
 values, the later ones, override the FAM's; ``loss_weight`` is dropped),
@@ -124,16 +125,18 @@ def adapt_cascade_head(bbox_head, rbbox_head=None, bbox_roi_extractor=None,
 def adapt_single_stage_head(cfg):
     """A single-stage head section onto the port's head: the legacy
     creator-style ``RetinaHead`` through ``adapt_legacy_retina``,
-    ``RRetinaHead`` and ``SSDHead`` raise naming their ROADMAP item, any
-    other section is flattened by ``normalize_cfg`` against its
-    registered class."""
+    ``RRetinaHead`` through ``adapt_retina_like``, ``SSDHead`` raises
+    naming its ROADMAP item, any other section is flattened by
+    ``normalize_cfg`` against its registered class."""
     if cfg is None or not isinstance(cfg, Mapping):
         return cfg
     cfg = _plain(cfg)
     t = cfg.get("type")
-    if t in ("RRetinaHead", "SSDHead"):
+    if t == "SSDHead":
         raise NotImplementedError(f"the head {t!r} is not ported yet "
-                                  f"(ROADMAP.md, Queue 1, item 11)")
+                                  f"(ROADMAP.md, Queue 1, item 11e)")
+    if t == "RRetinaHead":
+        return adapt_retina_like(cfg)
     if t == "RetinaHead" and ("n_class" in cfg or "mode" in cfg):
         return adapt_legacy_retina(cfg)
     from ...utils.registry import HEADS
@@ -186,6 +189,65 @@ def adapt_legacy_retina(cfg):
     from ..roi_heads.retina_head import RetinaHead
 
     return _filter_to_fields(RetinaHead, out)
+
+
+def adapt_retina_like(cfg):
+    """R3Det's mmdet-v2 ``RRetinaHead`` section as a ``RetinaHead``
+    section, as the JAX ``adapt_retina_like`` folds it: ``num_classes``
+    plus the background, the anchor generator's octave base scale, scales
+    per octave, ratios, strides and angles (None keeps the head's 0), the
+    coder's means and stds, the focal gamma / alpha and the smooth-L1
+    beta. Everything else (``use_h_gt``, the losses' weights) is
+    dropped."""
+    cfg = _plain(cfg)
+    out = dict(type="RetinaHead",
+               num_classes=int(cfg.get("num_classes", 15)) + 1,
+               in_channels=cfg.get("in_channels", 256),
+               feat_channels=cfg.get("feat_channels", 256),
+               stacked_convs=cfg.get("stacked_convs", 4))
+    ag = cfg.get("anchor_generator") or {}
+    for src, dst in (("octave_base_scale", "octave_base_scale"),
+                     ("scales_per_octave", "scales_per_octave")):
+        if src in ag:
+            out[dst] = ag[src]
+    if ag.get("ratios") is not None:
+        out["anchor_ratios"] = list(ag["ratios"])
+    if ag.get("strides") is not None:
+        out["anchor_strides"] = list(ag["strides"])
+    if ag.get("angles"):
+        out["anchor_angles"] = list(ag["angles"])
+    coder = cfg.get("bbox_coder") or {}
+    if coder.get("target_means") is not None:
+        out["target_means"] = list(coder["target_means"])
+    if coder.get("target_stds") is not None:
+        out["target_stds"] = list(coder["target_stds"])
+    lc = cfg.get("loss_cls") or {}
+    if "gamma" in lc:
+        out["focal_gamma"] = lc["gamma"]
+    if "alpha" in lc:
+        out["focal_alpha"] = lc["alpha"]
+    lb = cfg.get("loss_bbox") or {}
+    if "beta" in lb:
+        out["smooth_l1_beta"] = lb["beta"]
+    return out
+
+
+def adapt_refine_head(cfg, num_classes_fallback=16):
+    """R3Det's ``RRetinaRefineHead`` section as an ``R3DetRefineHead``
+    section, as in JAX: ``num_classes`` plus the background, the widths,
+    ``stacked_convs`` and the coder's stds; the pseudo anchor generator,
+    the coder's means and the losses are dropped."""
+    cfg = _plain(cfg)
+    out = dict(type="R3DetRefineHead",
+               num_classes=int(cfg.get("num_classes",
+                                       num_classes_fallback - 1)) + 1,
+               in_channels=cfg.get("in_channels", 256),
+               feat_channels=cfg.get("feat_channels", 256),
+               stacked_convs=cfg.get("stacked_convs", 2))
+    coder = cfg.get("bbox_coder") or {}
+    if coder.get("target_stds") is not None:
+        out["target_stds"] = list(coder["target_stds"])
+    return out
 
 
 def config_fields(cls) -> Tuple[str, ...]:

@@ -1,9 +1,9 @@
 """Single-stage detectors (counterpart of
 ``rs_detection_tpu/models/networks/single_stage.py``): backbone -> neck
 -> dense head, ``loss`` the training forward and ``predict`` the
-inference one. ``S2ANet`` and ``RetinaNet`` are the ported networks;
-``FCOS`` shares the class in JAX and waits for its head (ROADMAP.md,
-Queue 1, item 11)."""
+inference one: ``S2ANet``, ``RetinaNet`` and ``FCOS``. ``R3Det`` builds on
+the class in ``r3det.py``. The YOLO names raise naming their ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from torch import nn
 from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
                                register_unported)
 from ..necks.fpn import FPN
+from ..roi_heads import fcos_head  # noqa: F401  (registers FCOSHead)
 from ..roi_heads import retina_head  # noqa: F401  (registers RetinaHead)
 from ..roi_heads.s2anet_head import S2ANetHead
 from .compat import adapt_single_stage_head
@@ -37,6 +38,7 @@ class SingleStageDetector(nn.Module):
     such field)."""
 
     compute_dtype = None
+    default_head = S2ANetHead
 
     def __init__(self, backbone=None, neck=None, bbox_head=None,
                  roi_heads=None, rpn_net=None, pretrained=None):
@@ -48,7 +50,7 @@ class SingleStageDetector(nn.Module):
             None))
         self.backbone = _build(backbone, BACKBONES, _resnet50)
         self.neck = _build(neck, NECKS, _fpn)
-        self.bbox_head = _build(head, HEADS, S2ANetHead)
+        self.bbox_head = _build(head, HEADS, self.default_head)
 
     def extract_feats(self, images):
         """images NHWC -> the neck's levels, NHWC."""
@@ -84,4 +86,13 @@ class RetinaNet(SingleStageDetector):
     (the legacy creator form) or ``bbox_head``."""
 
 
-register_unported(MODELS, ("FCOS",), "the network", "11")
+
+@MODELS.register_module()
+class FCOS(SingleStageDetector):
+    """Reference ``networks/fcos.py:4``: the ``FCOSHead`` under
+    ``roi_heads`` or ``bbox_head``."""
+
+
+# the YOLOv5 networks (``projects/yolo``) wait for their family
+register_unported(MODELS, ("YOLO", "YOLOv5S", "YOLOv5M", "YOLOv5L",
+                           "YOLOv5X"), "the network", "11f")

@@ -70,6 +70,7 @@ class RetinaHead(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.cls_out_channels = num_classes - 1
+        self.feat_channels = feat_channels
         self.stacked_convs = stacked_convs
         self.anchor_strides = tuple(anchor_strides)
         self.target_means = tuple(target_means)

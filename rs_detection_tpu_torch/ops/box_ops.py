@@ -1,6 +1,8 @@
 """Rotated-box algebra on torch tensors (the subset of
-``rs_detection_tpu/ops/box_ops.py`` that Oriented R-CNN and the hbb-RPN
-families use), and the numpy conversions of the host-side data pipeline.
+``rs_detection_tpu/ops/box_ops.py`` that the ported families use: the
+two-stage heads, the dense single-stage heads, FCOS's ``distance2obb``,
+``mintheta_obb`` and ``bbox2type``), and the numpy conversions of the
+host-side data pipeline.
 
 obb = (cx, cy, w, h, theta), theta in radians, OBBDetection convention
 (``obb2poly`` rotates by R = [[cos, sin], [-sin, cos]]); hbb = (x0, y0,
@@ -32,6 +34,33 @@ def regular_obb(obboxes):
     h_r = torch.where(swap, h, w)
     t_r = regular_theta(torch.where(swap, theta, theta + HALF_PI))
     return torch.stack([x, y, w_r, h_r, t_r], dim=-1)
+
+
+def mintheta_obb(obboxes):
+    """The (w, h, theta) form of each box with the smaller |theta| (ties
+    to the theta + pi/2 form, as in JAX)."""
+    x, y, w, h, theta = obboxes.unbind(-1)
+    t1 = regular_theta(theta)
+    t2 = regular_theta(theta + HALF_PI)
+    pick1 = torch.abs(t1) < torch.abs(t2)
+    return torch.stack([x, y, torch.where(pick1, w, h),
+                        torch.where(pick1, h, w),
+                        torch.where(pick1, t1, t2)], dim=-1)
+
+
+def distance2obb(points, distance):
+    """FCOS decode: points [..., 2] and (left, top, right, bottom, theta)
+    [..., 5] in the box's frame -> ``regular_obb`` boxes [..., 5]."""
+    dist, theta = distance[..., :4], distance[..., 4]
+    c, s = torch.cos(theta), torch.sin(theta)
+    ox = (dist[..., 2] - dist[..., 0]) / 2
+    oy = (dist[..., 3] - dist[..., 1]) / 2
+    # the offset rotated by [[cos, sin], [-sin, cos]]
+    cx = points[..., 0] + c * ox + s * oy
+    cy = points[..., 1] - s * ox + c * oy
+    return regular_obb(torch.stack(
+        [cx, cy, dist[..., 0] + dist[..., 2], dist[..., 1] + dist[..., 3],
+         theta], dim=-1))
 
 
 def obb2poly(obboxes):
@@ -77,6 +106,36 @@ def poly2hbb(polys):
     """poly [..., 2 K] -> the hbb (x0, y0, x1, y1) that bounds it."""
     pts = polys.reshape(*polys.shape[:-1], polys.shape[-1] // 2, 2)
     return torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
+
+
+def poly2obb(polys):
+    """Quad [..., 8] -> ``regular_obb`` box: w the longer of the edges
+    (p1, p2) / (p2, p3), theta along it (le90), the centre the midpoint of
+    p1 and p3 (the JAX closed form, exact for rectangles)."""
+    x1, y1, x2, y2, x3, y3, x4, y4 = polys[..., :8].unbind(-1)
+    edge1 = torch.sqrt((x1 - x2) ** 2 + (y1 - y2) ** 2)
+    edge2 = torch.sqrt((x2 - x3) ** 2 + (y2 - y3) ** 2)
+    angle = norm_angle(torch.where(edge1 > edge2,
+                                   torch.atan2(y2 - y1, x2 - x1),
+                                   torch.atan2(y4 - y1, x4 - x1)), "le90")
+    return regular_obb(torch.stack(
+        [(x1 + x3) / 2.0, (y1 + y3) / 2.0, torch.maximum(edge1, edge2),
+         torch.minimum(edge1, edge2), angle], dim=-1))
+
+
+_BBOX_TYPES = {4: "hbb", 5: "obb", 8: "poly"}
+
+
+def bbox2type(bboxes, to_type: str):
+    """Convert between "hbb" [..., 4], "obb" [..., 5] and "poly" [..., 8]
+    (the JAX table)."""
+    ori = _BBOX_TYPES.get(bboxes.shape[-1], "notype")
+    if ori == to_type:
+        return bboxes
+    table = {("poly", "obb"): poly2obb, ("poly", "hbb"): poly2hbb,
+             ("obb", "poly"): obb2poly, ("obb", "hbb"): obb2hbb,
+             ("hbb", "poly"): hbb2poly, ("hbb", "obb"): hbb2obb}
+    return table[(ori, to_type)](bboxes)
 
 
 def get_bbox_areas(bboxes):

@@ -45,6 +45,7 @@ from ..flagship import init_weights, resolve_device
 from ..models import param_generators as _pg  # noqa: F401  (MODELS too)
 from ..models.networks import gliding_vertex as _gv  # noqa: F401  (as well)
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
+from ..models.networks import r3det as _r3det  # noqa: F401  (as well)
 from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
 from ..models.networks import single_stage as _ss  # noqa: F401  (as well)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)

@@ -18,9 +18,10 @@ names, so the mapping is mechanical:
   EQLv2 heads, NamedTuples in a live tree, dicts by field in a saved one)
   maps by the same rule: ``_bbox_head/efl/pos_grad`` is the head's buffer
   ``bbox_head.efl.pos_grad``;
-* the detector's ``_backbone``, ``_neck``, ``_rpn`` and ``_bbox_head``
-  (the names flax gives the submodules a config builds in ``setup``)
-  are the port's ``backbone``, ``neck``, ``rpn`` and ``bbox_head``, the
+* the detector's ``_backbone``, ``_neck``, ``_rpn``, ``_bbox_head`` and
+  R3Det's ``_frm`` and ``_refine_head`` (the names flax gives the
+  submodules a config builds in ``setup``) are the port's ``backbone``,
+  ``neck``, ``rpn``, ``bbox_head``, ``frm`` and ``refine_head``, the
   names of submodules given to it as modules.
 
 Any name or shape that does not match, in either direction, raises:
@@ -56,7 +57,8 @@ from torch import nn
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
 _BUILT = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn",
-          "_bbox_head": "bbox_head"}
+          "_bbox_head": "bbox_head", "_frm": "frm",
+          "_refine_head": "refine_head"}
 
 
 def _node(v):

@@ -254,33 +254,34 @@ def test_tiny_form_outputs_like_jax(path):
                                        atol=1e-4 * np.abs(r_).max())
 
 
-OTHER_SINGLE_STAGE = sorted(
-    glob.glob(os.path.join(REPO, "configs", "fcos", "*.py"))
-    + [p for d in ("fcos", "ssd")
-       for p in glob.glob(os.path.join(REPO, "projects", d, "configs",
-                                       "*.py"))])
+OTHER_SINGLE_STAGE = sorted(glob.glob(os.path.join(REPO, "projects", "ssd",
+                                                  "configs", "*.py")))
 
 
 @pytest.mark.parametrize(
     "path", OTHER_SINGLE_STAGE,
     ids=lambda p: os.path.relpath(p, REPO).replace("/", ":")[:-3])
 def test_other_single_stage_configs_raise_with_their_item(path):
-    """FCOS and SSD (a ``SingleStageDetector`` with an ``SSDHead``) wait
-    for item 11: each config raises naming it, never builds something
-    else. The RetinaNet configs build
-    (``tests/test_torch_retinanet_configs.py``)."""
+    """SSD (a ``SingleStageDetector`` with an ``SSDHead``) waits for item
+    11: each config raises naming it, never builds something else. The
+    RetinaNet and FCOS configs build (``tests/test_torch_retinanet_
+    configs.py``, ``tests/test_torch_fcos_configs.py``)."""
     with torch.device("meta"), pytest.raises(NotImplementedError,
                                              match="item 11"):
         reg.build_from_cfg(Config(path).model, reg.MODELS)
 
 
 def test_legacy_single_stage_heads_raise_with_their_item():
-    """R3Det's ``RRetinaHead`` and ``SSDHead`` wait for item 11; the
-    legacy ``RetinaHead`` adapts as the JAX ``_adapt_legacy_retina``
-    does (``tests/test_torch_retinanet_configs.py``)."""
-    for head in (dict(type="RRetinaHead"), dict(type="SSDHead")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            compat.adapt_single_stage_head(head)
+    """``SSDHead`` waits for item 11; R3Det's ``RRetinaHead`` adapts as
+    the JAX ``adapt_retina_like`` does (``tests/test_torch_r3det_
+    configs.py``), the legacy ``RetinaHead`` as the JAX
+    ``_adapt_legacy_retina`` does (``tests/test_torch_retinanet_
+    configs.py``)."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        compat.adapt_single_stage_head(dict(type="SSDHead"))
+    rretina = dict(type="RRetinaHead")
+    assert compat.adapt_single_stage_head(rretina) == \
+        jcompat.adapt_retina_like(rretina)
     legacy = dict(type="RetinaHead", n_class=15)
     assert compat.adapt_single_stage_head(legacy) == \
         jcompat._adapt_legacy_retina(legacy)
