@@ -147,7 +147,13 @@ Phases, each of which raises (exit code 1) on failure:
  28. the overfit test on the card (``tests/test_torch_overfit_map.py``):
      200 epochs of the tiny ResNet config on 4 rendered tiles, per-class
      APs at least 0.3, float and int8 (within 0.05), merged detections
-     on the scene's ground truth; the trained runner is kept for phase 31
+     on the scene's ground truth. It trains in a child process of this
+     script with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, under
+     ``torch.use_deterministic_algorithms`` and no cuDNN autotuning, so
+     every run trains the same bits (their sha256 printed) and the gates
+     decide one outcome; no other phase runs with that variable. The
+     trained runner comes back to phase 31 through ``Runner.save`` /
+     ``Runner.load``
  29. dataset preparation: 2 rendered FAIR scenes of 2872^2 (8-bit RGB
      TIFF, labelXml of 40 rotated objects with FAIR1M-2.0 class names)
      and 1 test scene through ``rs_detection_tpu_torch.tools.preprocess``
@@ -249,6 +255,26 @@ Phases, each of which raises (exit code 1) on failure:
      lifted; checks losses, results, no kernel launch, the frozen stem
      unmoved; prints ms/step, peak memory, one target round's share of
      a step, tiles/s, the merge's seconds and the NMS kept count
+ 42-45. FCOS and R3Det: the tiny networks CUDA against the CPU and
+     their zoo configs' train and test tasks at full width (``phase_fcos_
+     tiny``, ``phase_fcos_task``, ``phase_r3det_tiny``,
+     ``phase_r3det_task``)
+ 46. the tiny SSD (``tests/test_torch_ssd_cuda.py``: VGG-16 on 96^2
+     tiles, the neck padded on every extra level, 3 classes):
+     ``predict`` and two SGD steps on CUDA against the CPU, f32, at
+     phase 5's and 9's tolerances, the inputs' assignment and
+     hard-negative margins above 1e-5
+ 47. SSD at full width: ``run_net --task train`` on
+     ``projects/ssd/configs/ssd300_coco.py`` (VGG-16 + L2Norm, the SSD
+     neck, the multibox head, 39,202,226 parameters, 10,765 anchors at
+     300^2, f32, SGD) at the config's batch 32 over 96 rendered
+     COCO-format 300^2 images (3 steps, 512 slots), then ``--task val``
+     (``COCODataset.evaluate``) and ``--task test`` at batch 1 from the
+     checkpoint with the classifier spread; the dataset sections covered
+     with the JAX ``COCODataset``'s keys and ``img_size=300``; no kernel
+     launches; ``ssd300_coco_test.py`` builds and takes one step; prints
+     ms/step, peak memory, the target round's and the hard-negative
+     mining's time at batch 32, images/s and one image's NMS time
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -263,14 +289,18 @@ K1's and K3's launches in phase 26's tasks and their
 times, plain times and bounds at its shapes, ``resnet_*``, and the same
 for phase 33's RoI-Transformer tasks, ``roitrans_*``; every kernel's
 launches in phase 36's S2ANet tasks, ``s2anet_*_launches``, phase 39's
-Gliding Vertex tasks, ``gliding_*_launches``, and phase 41's RetinaNet
-tasks, ``retinanet_*_launches``, all 0), the
+Gliding Vertex tasks, ``gliding_*_launches``, phase 41's RetinaNet
+tasks, ``retinanet_*_launches``, phases 43 and 45's ``fcos_*`` and
+``r3det_*_launches`` and phase 47's SSD train, val and test tasks,
+``ssd_*_launches``, all 0), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import math
 import os
@@ -296,6 +326,10 @@ S2ANET_TILES = 8  # phase 36: 4 steps of batch 2
 GLIDING_TILES = 2  # phase 39: balanced to one copy a class and more
 FCOS_TILES = 6  # phase 43: 3 steps of batch 2
 R3DET_TILES = 2  # phase 45: 2 steps of batch 1
+SSD_TRAIN = 96  # phase 47: 3 steps of the config's batch 32
+SSD_VAL = 8
+SSD_TEST = 8
+SSD_CLASSES = 80
 # the transforms of the FCOS recipe, for the R3Det config, which has no
 # dataset section
 NORMALIZE = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
@@ -2455,28 +2489,62 @@ def phase_eqlv2(torch, tmp, card):
                              "trip")
 
 
-def phase_overfit(torch, dev, tmp, card):
-    """The torch form of the JAX overfit test on the card: 200 epochs of
-    the tiny ResNet config on rendered tiles, per-class APs float and
-    int8, merged scene detections (``tests/test_torch_overfit_map.py``).
-    Returns the trained runner, its rendered dataset and a copy of its
-    config (phase 31 serves a scene with it)."""
-    import copy
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms (cuBLAS's among them need
+    ``CUBLAS_WORKSPACE_CONFIG`` set before torch first touches the card)
+    and no cuDNN autotuning inside the block, the earlier settings back
+    after it."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.benchmark = was[1]
 
+
+def params_digest(model):
+    """sha256 of every parameter and buffer's bytes, in state_dict order."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+OVERFIT_CHILD = "--overfit-child"
+
+
+def overfit_child(root):
+    """Phase 28's training and gates, in a process of its own whose
+    ``CUBLAS_WORKSPACE_CONFIG`` the parent set: TF32 off as phase 1 sets
+    it, then ``deterministic``. Logs the phase's line, saves the trained
+    runner and leaves (checkpoint, dataset, config) in
+    ``root/trained.pkl``."""
+    import copy
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_overfit_map as overfit
 
     from rs_detection_tpu_torch.config import get_cfg
 
-    root = os.path.join(tmp, "overfit")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
     os.makedirs(root)
-    cwd = os.getcwd()
     os.chdir(root)  # submit_zips/ is cwd-relative
     t0 = time.perf_counter()
-    try:
-        runner, ds_dir = overfit.trained_runner(root, dev)
+    with deterministic(torch):
+        runner, ds_dir = overfit.trained_runner(root, torch.device("cuda", 0))
+        digest = params_digest(runner.model)
         out = overfit.check_trained(runner, ds_dir, int8=True)
-    finally:
-        os.chdir(cwd)
     log(f"  overfit, Resnet18 Oriented R-CNN (tests/test_runner.py:"
         f"_tiny_cfg, SGD lr 0.001), 400 steps on 4 rendered 128^2 tiles in "
         f"{time.perf_counter() - t0:.1f} s: APs float "
@@ -2485,8 +2553,53 @@ def phase_overfit(torch, dev, tmp, card):
             f"{k} {v:.4f}" for k, v in out["aps_int8"].items())
         + f" (gates: >= 0.3, int8 within 0.05); merged scene detections on "
         f"{out['matched'][0]} of {out['matched'][1]} ground truths (gate "
-        f"40%) [{card}]")
-    return runner, ds_dir, copy.deepcopy(get_cfg().dump())
+        f"40%); trained parameters sha256 {digest}; cuBLAS workspace "
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')} [{card}]")
+    with open(os.path.join(root, "trained.pkl"), "wb") as f:
+        pickle.dump((runner.save(), ds_dir,
+                     copy.deepcopy(get_cfg().dump())), f)
+
+
+def phase_overfit(torch, dev, tmp, card):
+    """The torch form of the JAX overfit test on the card: 200 epochs of
+    the tiny ResNet config on rendered tiles, per-class APs float and
+    int8, merged scene detections (``tests/test_torch_overfit_map.py``),
+    under ``deterministic``: the same bits, so the same APs, in every
+    run. It runs in a child process (``overfit_child``), the only one
+    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic cuBLAS
+    needs and which slows some of cuBLAS's products elsewhere
+    (``rs_detection_tpu_torch/tools/cublas_workspace.py``). Returns the
+    trained runner, loaded here from the child's checkpoint, its
+    rendered dataset and a copy of its config (phase 31 serves a scene
+    with it)."""
+    import pickle
+
+    from rs_detection_tpu_torch.config import get_cfg
+    from rs_detection_tpu_torch.runner.runner import Runner
+
+    root = os.path.join(tmp, "overfit")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           OVERFIT_CHILD, root], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise AssertionError(f"the overfit child exited {proc.returncode}")
+    with open(os.path.join(root, "trained.pkl"), "rb") as f:
+        ckpt, ds_dir, saved_cfg = pickle.load(f)
+    cfg = get_cfg()
+    cfg.clear()
+    cfg.update(saved_cfg)
+    runner = Runner(device=dev)
+    runner.load(ckpt)
+    digest = params_digest(runner.model)
+    log(f"  the trained runner loaded here from {os.path.basename(ckpt)}: "
+        f"sha256 {digest}")
+    if f"sha256 {digest}" not in proc.stdout:
+        raise AssertionError("the loaded runner is not the child's")
+    return runner, ds_dir, saved_cfg
 
 
 def compare_tile_dirs(a, b):
@@ -4167,6 +4280,267 @@ def phase_r3det_task(torch, tmp, kernels, card):
     return train_launches, test_launches
 
 
+def phase_ssd_tiny(torch, dev):
+    """The tiny SSD (``tests/test_torch_ssd_cuda.py``: VGG-16 at its fixed
+    widths on 96^2 tiles, the neck padded on every extra level so that
+    none is empty, 3 classes): ``predict`` (the classifier spread) and
+    two SGD steps on the card against the CPU, f32, one seed; the
+    inputs' assignment and hard-negative margins printed (both must
+    stand above f32 rounding)."""
+    from test_torch_ssd_cuda import (LOSS_RTOL, POLY_ATOL, SCORE_ATOL,
+                                     assignment_margin, compare,
+                                     mining_margin, run_tiny, tiny_inputs)
+
+    from rs_detection_tpu_torch.flagship import normalize
+
+    tiles, targets = tiny_inputs()
+    cpu = run_tiny("cpu", tiles, targets)
+    gpu = run_tiny(dev, tiles, targets)
+    same = (torch.equal(cpu[1]["valid"], gpu[1]["valid"].cpu())
+            and torch.equal(cpu[1]["labels"], gpu[1]["labels"].cpu()))
+    err = compare(cpu, gpu)
+    model = cpu[0].train()
+    head = model.bbox_head
+    with torch.no_grad():
+        outs = head(model.extract_feats(normalize(tiles)))
+    sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+    margins = (assignment_margin(head, targets["hboxes"],
+                                 targets["gt_mask"], sizes),
+               mining_margin(head, outs, targets))
+    log(f"  tiny SSD (levels {[s[0] for s in sizes]}), CUDA vs CPU: "
+        f"{int(cpu[1]['valid'].sum())} detections, slots and labels equal "
+        f"{same}; polys max_abs_err {err['polys']:.3e} (atol {POLY_ATOL}), "
+        f"scores {err['scores']:.3e} (atol {SCORE_ATOL}); 2 SGD steps, "
+        f"losses worst relative error {err['losses']:.2e} (tolerance "
+        f"{LOSS_RTOL}); losses {gpu[2][-1]}; assignment margin "
+        f"{margins[0]:.2e}, hard-negative cut margin {margins[1]:.2e} "
+        f"(relative)")
+    if not (same and err["polys"] <= POLY_ATOL
+            and err["scores"] <= SCORE_ATOL and err["losses"] <= LOSS_RTOL
+            and int(cpu[1]["valid"].sum()) > 4 and min(margins) > 1e-5
+            and all(math.isfinite(v) for v in gpu[2][-1].values())):
+        raise AssertionError("tiny SSD: CUDA and CPU differ")
+
+
+def spread_ssd_classifier(path, levels=6, seed=47):
+    """In the checkpoint at ``path``, every level's ``cls_{i}`` bias: the
+    background's -10, each class's N(0, 1) (seeded), so that a random
+    SSD head scores its best class above the 0.02 threshold (a random
+    one's softmax is near 1/81) and its NMS sees a trained head's
+    volume."""
+    import pickle
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    rng = np.random.RandomState(seed)
+    for i in range(levels):
+        bias = ckpt["model"][f"bbox_head.cls_{i}.bias"]
+        bias[...] = rng.randn(*bias.shape)
+        bias[0::SSD_CLASSES + 1] = -10.0
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f)
+
+
+def phase_ssd_task(torch, tmp, kernels, card):
+    """``projects/ssd/configs/ssd300_coco.py`` at full width through
+    ``run_net``: VGG-16 with L2Norm, the SSD neck, the multibox head (80
+    classes and the background, 10,765 anchors at 300^2), f32, SGD at the
+    config's batch 32, over ``SSD_TRAIN`` rendered COCO-format 300^2
+    images (one step per 32, 512 slots); then ``--task val`` (COCO
+    ``evaluate``) over ``SSD_VAL`` images and ``--task test`` over
+    ``SSD_TEST``, both at batch 1, from the checkpoint with the
+    classifier spread (``spread_ssd_classifier``). The dataset sections
+    are covered with the JAX ``COCODataset``'s own keys (the zoo's
+    ``anno_file`` / ``root`` reach neither package's class) and
+    ``img_size=300`` (the class letterboxes to 640 and ignores the
+    transforms); the images are square, so the letterbox is the
+    identity. No kernel launches. Then ``ssd300_coco_test.py`` builds and
+    takes one step at its batch 1. Then, on the trained model at batch
+    32: the target round (its host time and memory), the hard-negative
+    mining, and on the test task's model one image's NMS. Returns the
+    train, val and test launches."""
+    import numpy as np
+    from test_torch_ssd_cuda import render_coco
+
+    from rs_detection_tpu_torch.tools import run_net
+
+    config = os.path.join(ROOT, "projects", "ssd", "configs",
+                          "ssd300_coco.py")
+    sets = {}
+    for split, n, seed in (("train", SSD_TRAIN, 47), ("val", SSD_VAL, 48),
+                           ("test", SSD_TEST, 49)):
+        sets[split] = render_coco(os.path.join(tmp, f"ssd_{split}"), n=n,
+                                  size=300, seed=seed, objects=6)
+    work = os.path.join(tmp, "ssd_work")
+
+    def section(split, **kw):
+        img_dir, ann = sets[split]
+        return dict(_cover_=True, type="COCODataset", images_dir=img_dir,
+                    annotations_file=ann, img_size=300, **kw)
+
+    cfg = write_config(
+        os.path.join(tmp, "ssd_chip.py"), _base_=config,
+        allow_random_init=True, max_epoch=1, log_interval=1,
+        checkpoint_interval=1, work_dir=work,
+        dataset=dict(train=section("train", batch_size=32, shuffle=True),
+                     val=section("val", batch_size=1),
+                     test=section("test", batch_size=1)))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    launches, seconds = {}, {}
+    try:
+        for task in ("train", "val", "test"):
+            if task == "val":
+                spread_ssd_classifier(os.path.join(work, "checkpoints",
+                                                   "ckpt_1.pkl"))
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run_net.main(["--config-file", cfg, "--task", task])
+            seconds[task] = time.perf_counter() - t0
+            launches[task] = {k: fn.launches for k, fn in kernels.items()}
+            if task == "train":
+                runner, peak = out, torch.cuda.max_memory_allocated()
+            elif task == "val":
+                aps = dict(out.val_aps)
+                del out
+            else:
+                tester = out
+    finally:
+        os.chdir(cwd)
+    none = dict.fromkeys(kernels, 0)
+    if any(v != none for v in launches.values()):
+        raise AssertionError(f"SSD launches {launches}; expected none")
+    model = runner.model
+    head = model.bbox_head
+    steps = SSD_TRAIN // 32
+    step_ms = check_task_losses(runner, steps, ("loss_bbox",),
+                                "SSD train task")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  run_net --task train, SSD from projects/ssd/configs/"
+        f"ssd300_coco.py (VGG-16 + L2Norm, SSDNeck, SSDHead 81 classes, "
+        f"{n_params:,} parameters, f32, SGD; dataset sections covered with "
+        f"the JAX COCODataset's keys images_dir / annotations_file and "
+        f"img_size=300: the zoo's anno_file / root reach neither class, "
+        f"which letterboxes to 640 and ignores the transforms; cut: "
+        f"{SSD_TRAIN} rendered COCO-format 300^2 images, 6 boxes each in "
+        f"512 slots, {steps} steps of the config's batch 32, random "
+        f"weights): {seconds['train']:.1f} s whole task; ms/step through "
+        f"the runner, median of steps 2-{steps}: "
+        f"{step_ms[len(step_ms) // 2]:.1f} (min {step_ms[0]:.1f}, max "
+        f"{step_ms[-1]:.1f}); loader wait "
+        f"{runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if n_params != 39202226:
+        raise AssertionError(f"SSD300: {n_params} parameters")
+    if not all(math.isfinite(v) for v in aps.values()) or \
+            "eval/mAP" not in aps:
+        raise AssertionError(f"SSD val task: {aps}")
+    log(f"  run_net --task val from ckpt_1.pkl (classifier spread): "
+        f"{SSD_VAL} images at batch 1 (cut from 2) through COCODataset."
+        f"evaluate in {seconds['val']:.1f} s: mAP {aps['eval/mAP']:.4f}, "
+        f"AP50 {aps['eval/AP50']:.4f} (a random head)")
+    with open(os.path.join(work, "test", "test_1.pkl"), "rb") as f:
+        results = __import__("pickle").load(f)
+    stats = tester.test_stats
+    if len(results) != SSD_TEST or stats["detections"] == 0 or not all(
+            np.isfinite(p).all() and np.isfinite(s).all()
+            and ((lab >= 1) & (lab <= 80)).all()
+            for (p, s, lab), _ in results):
+        raise AssertionError(f"SSD test task: bad results {stats}")
+    log(f"  run_net --task test from ckpt_1.pkl: {SSD_TEST} images at batch "
+        f"1 in {stats['inference_s']:.3f} s = "
+        f"{SSD_TEST / stats['inference_s']:.2f} images/s of inference; "
+        f"{stats['detections']} detections, labels 1-80; whole task "
+        f"{seconds['test']:.1f} s; launches train / val / test "
+        f"{launches['train']} / {launches['val']} / {launches['test']} "
+        f"[{card}]")
+    # the zoo's test config: its own batch 1, one step
+    t0 = time.perf_counter()
+    cfg_t = write_config(
+        os.path.join(tmp, "ssd_test_chip.py"),
+        _base_=os.path.join(ROOT, "projects", "ssd", "configs",
+                            "ssd300_coco_test.py"),
+        allow_random_init=True, max_epoch=1, max_iter=1, log_interval=1,
+        checkpoint_interval=1, work_dir=os.path.join(tmp, "ssd_test_work"),
+        dataset=dict(train=section("train", batch_size=1, shuffle=False),
+                     val=None, test=None))
+    os.chdir(tmp)
+    try:
+        one = run_net.main(["--config-file", cfg_t, "--task", "train"])
+    finally:
+        os.chdir(cwd)
+    if len(one.history) != 1 or not all(
+            math.isfinite(v) for k, v in one.history[0].items()
+            if "loss" in k):
+        raise AssertionError(f"ssd300_coco_test.py: {one.history}")
+    log(f"  ssd300_coco_test.py: built, 1 step at its batch 1 in "
+        f"{time.perf_counter() - t0:.1f} s, losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in one.history[0].items()
+                    if "loss" in k))
+    del one
+    # the target round and the mining at batch 32, 512 slots
+    images, tg, _ = next(iter(runner.train_dataset.batches(seed=0)))
+    x = torch.as_tensor(images, device="cuda")
+    tgt = {k: torch.as_tensor(v, device="cuda") for k, v in tg.items()}
+    model.train()
+    with torch.no_grad():
+        outs = head(model.extract_feats(x), train=True)
+        sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+        anchors = head.anchors(sizes, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_tg, res = timed_host(torch, lambda: head.targets(anchors, tgt))
+        tg_peak = torch.cuda.max_memory_allocated() - base
+        cls = torch.cat([c.reshape(32, -1, head.num_classes)
+                         for c in outs[0]], 1).float()
+        ce = -torch.log_softmax(cls, -1).gather(
+            -1, res.labels[..., None])[..., 0]
+        pos = res.labels > 0
+        num_pos = pos.sum().clamp(min=1).float()
+        t_mine, neg = timed_host(torch, lambda: head.hard_negatives(
+            ce, pos, res.label_weights, num_pos))
+    med = step_ms[len(step_ms) // 2]
+    log(f"    target round at batch 32, 512 slots ({anchors.shape[0]} "
+        f"anchors an image, {32 * anchors.shape[0] * 512 / 1e6:.1f} M "
+        f"anchor-box pairs): {1e3 * t_tg:.1f} ms host, median of 3, "
+        f"{100 * 1e3 * t_tg / med:.1f}% of the median step, "
+        f"{tg_peak / 2**30:.2f} GiB above its inputs; {int(pos.sum())} "
+        f"positives; hard-negative mining over {ce.numel():,} anchors "
+        f"({int(neg.sum())} kept): {1e3 * t_mine:.2f} ms host, median of 3 "
+        f"[{card}]")
+    # one test image's NMS on the test task's model
+    tm = tester.model.eval()
+    th = tm.bbox_head
+    images, _, _ = next(iter(tester.test_dataset.batches()))
+    with torch.no_grad():
+        cls_s, reg_s = th(tm.extract_feats(torch.as_tensor(
+            images, device="cuda")))
+        scores = torch.softmax(torch.cat([c[0].reshape(
+            -1, th.num_classes) for c in cls_s]).float(), -1)[:, 1:]
+        reg = torch.cat([r[0].reshape(-1, 4) for r in reg_s]).float()
+        from rs_detection_tpu_torch.ops import box_ops as B
+        from rs_detection_tpu_torch.ops.nms import top_k
+
+        _, top_i = top_k(scores.amax(1), th.nms_pre)
+        boxes = B.delta2bbox(th.anchors(sizes, "cuda")[top_i], reg[top_i],
+                             th.target_means, th.target_stds)
+        cand = scores[top_i]
+        t_nms, (out_s, _, _) = timed_host(torch, lambda: th.nms(boxes, cand))
+    kept = int(torch.isfinite(out_s).sum())
+    log(f"    class-aware greedy NMS on one test image's {boxes.shape[0]} "
+        f"candidates ({int((cand.amax(1) > th.score_thr).sum())} above "
+        f"{th.score_thr}): {1e3 * t_nms:.1f} ms host, median of 3, {kept} "
+        f"kept [{card}]")
+    if anchors.shape[0] != 10765 or kept == 0:
+        raise AssertionError(f"SSD: {anchors.shape[0]} anchors, {kept} kept")
+    return launches["train"], launches["val"], launches["test"]
+
+
 def main():
     import torch
 
@@ -4177,8 +4551,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28, 31, 32, 35, 38, 40, 42 and 44 share the CPU tests'
-    # configs and tiles
+    # phases 25, 28, 31, 32, 35, 38, 40, 42, 44, 46 and 47 share the CPU
+    # tests' configs, tiles and datasets
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -4379,7 +4753,14 @@ def main():
             "r3det_r50_fpn_1x_dota.py at full width",
             lambda: phase_r3det_task(torch, tmp, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 45 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        run_phase(torch, 46, "tiny SSD: predict and 2 SGD steps, CUDA vs "
+                  "CPU", lambda: phase_ssd_tiny(torch, dev))
+        ssd_train, ssd_val, ssd_test = run_phase(
+            torch, 47, "run_net --task train, val and test on "
+            "ssd300_coco.py at full width, one step of ssd300_coco_test.py",
+            lambda: phase_ssd_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 47 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -4470,6 +4851,9 @@ def main():
         k["fcos_test_task_launches"] = fc_test[k["name"]]
         k["r3det_train_task_launches"] = r3_train[k["name"]]
         k["r3det_test_task_launches"] = r3_test[k["name"]]
+        k["ssd_train_task_launches"] = ssd_train[k["name"]]
+        k["ssd_val_task_launches"] = ssd_val[k["name"]]
+        k["ssd_test_task_launches"] = ssd_test[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4478,4 +4862,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [OVERFIT_CHILD]:
+        overfit_child(sys.argv[2])
+    else:
+        main()

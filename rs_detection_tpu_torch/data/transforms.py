@@ -1,16 +1,17 @@
 """Host-side transforms (counterpart of ``Compose``, ``Resize``,
 ``RotatedResize``, ``Pad``, ``Normalize`` and the training augmentations
 ``RandomFlip``, ``RotatedRandomFlip``, ``RandomRotateAug``, ``RandmNoise``
-and ``RandmGrayScale`` in ``rs_detection_tpu/data/transforms.py``): PIL +
-numpy, before batching. ``Normalize`` emits float32 HWC arrays, so
+and ``RandmGrayScale``, and SSD's ``MinIoURandomCrop``, ``Expand``,
+``PhotoMetricDistortion`` and ``Resize_keep_ratio`` in
+``rs_detection_tpu/data/transforms.py``): PIL + numpy, before batching.
+``Normalize`` emits float32 HWC arrays, so
 batches are NHWC. The augmentations draw from Python's ``random`` and
 from ``np.random`` in the JAX package's order, so one seed gives the
 same augmentation in both; inside ``own_draws(seed)`` the thread that
 runs them draws from a generator pair of its own instead (the threaded
-loader's samples, ``data/custom.py``). The SSD / YOLO transforms
-(``MinIoURandomCrop``, ``Expand``, ``PhotoMetricDistortion``,
-``Resize_keep_ratio``) wait for those families (ROADMAP.md, Queue 1,
-item 11)."""
+loader's samples, ``data/custom.py``). ``PhotoMetricDistortion``
+converts to HSV and back through ``cv_ops``, the numpy twins of the
+OpenCV calls of the JAX transform."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from PIL import Image
 from ..ops.box_ops import (norm_angle, poly_to_rotated_box_np,
                            rotated_box_to_poly_np)
 from ..utils.registry import TRANSFORMS, build_from_cfg
+from . import cv_ops
 
 _DRAWS = threading.local()
 
@@ -360,3 +362,152 @@ class RandmGrayScale:
         if py_random().random() < self.prob:
             image = image.convert("L").convert("RGB")
         return image, target
+
+
+@TRANSFORMS.register_module()
+class MinIoURandomCrop:
+    """A random crop whose box-covered share of every hbb (``hboxes``) is
+    at least a ``min_ious`` draw (1 keeps the image, 0 takes any crop),
+    keeping the boxes whose centers it holds (reference
+    ``transforms.py:483``). Up to ``max_tries`` crops of 0.3-1 of each
+    side and an aspect within [1/2, 2]; none found keeps the image."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9),
+                 min_crop_size=0.3, max_tries=50):
+        self.min_ious = (1,) + tuple(min_ious) + (0,)
+        self.min_crop_size = min_crop_size
+        self.max_tries = max_tries
+
+    def __call__(self, image, target=None):
+        if target is None or target.get("hboxes") is None \
+                or len(target["hboxes"]) == 0:
+            return image, target
+        rnd = py_random()
+        w, h = image.size
+        boxes = target["hboxes"]
+        min_iou = rnd.choice(self.min_ious)
+        if min_iou == 1:
+            return image, target
+        for _ in range(self.max_tries):
+            cw = rnd.uniform(self.min_crop_size * w, w)
+            ch = rnd.uniform(self.min_crop_size * h, h)
+            if cw / ch < 0.5 or cw / ch > 2:
+                continue
+            left = rnd.uniform(0, w - cw)
+            top = rnd.uniform(0, h - ch)
+            patch = np.array([left, top, left + cw, top + ch])
+            inter = (np.clip(np.minimum(boxes[:, 2], patch[2])
+                             - np.maximum(boxes[:, 0], patch[0]), 0, None)
+                     * np.clip(np.minimum(boxes[:, 3], patch[3])
+                               - np.maximum(boxes[:, 1], patch[1]), 0, None))
+            area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+            if (inter / np.maximum(area, 1e-6)).min() < min_iou:
+                continue
+            ctr = (boxes[:, :2] + boxes[:, 2:4]) / 2
+            keep = ((ctr[:, 0] > patch[0]) & (ctr[:, 0] < patch[2])
+                    & (ctr[:, 1] > patch[1]) & (ctr[:, 1] < patch[3]))
+            if not keep.any():
+                continue
+            image = image.crop(tuple(int(v) for v in patch))
+            for key in _BOX_KEYS + ["labels"]:
+                b = target.get(key)
+                if b is None or len(b) == 0:
+                    continue
+                b = b[keep] if len(b) == len(keep) else b
+                if key == "labels":
+                    target[key] = b
+                    continue
+                b = b.copy().astype(np.float32)
+                if "rboxes" in key:
+                    b[:, 0] -= patch[0]
+                    b[:, 1] -= patch[1]
+                else:
+                    b[:, 0::2] -= patch[0]
+                    b[:, 1::2] -= patch[1]
+                target[key] = b
+            target["img_size"] = image.size
+            return image, target
+        return image, target
+
+
+@TRANSFORMS.register_module()
+class Expand:
+    """With probability ``prob``, the image pasted at a random place on a
+    ``mean``-filled canvas ``ratio_range`` times its size, the boxes
+    moved with it (reference ``transforms.py:556``)."""
+
+    def __init__(self, mean=(123.675, 116.28, 103.53), ratio_range=(1, 4),
+                 prob=0.5):
+        self.mean = tuple(int(m) for m in mean)
+        self.ratio_range = ratio_range
+        self.prob = prob
+
+    def __call__(self, image, target=None):
+        rnd = py_random()
+        if rnd.random() > self.prob:
+            return image, target
+        w, h = image.size
+        ratio = rnd.uniform(*self.ratio_range)
+        nw, nh = int(w * ratio), int(h * ratio)
+        left = rnd.randint(0, nw - w)
+        top = rnd.randint(0, nh - h)
+        canvas = Image.new(image.mode, (nw, nh), self.mean)
+        canvas.paste(image, (left, top))
+        if target is not None:
+            for key in _BOX_KEYS + ["bboxes"]:
+                b = target.get(key)
+                if b is None or len(b) == 0:
+                    continue
+                b = b.copy().astype(np.float32)
+                if "rboxes" in key:
+                    b[:, 0] += left
+                    b[:, 1] += top
+                else:
+                    b[:, 0::2] += left
+                    b[:, 1::2] += top
+                target[key] = b
+            target["img_size"] = canvas.size
+        return canvas, target
+
+
+@TRANSFORMS.register_module()
+class PhotoMetricDistortion:
+    """Brightness and contrast jitter in f32, then saturation and hue in
+    OpenCV's uint8 HSV (reference ``transforms.py:583``), each with
+    probability 1/2, in the JAX transform's order of draws."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_range = contrast_range
+        self.saturation_range = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, image, target=None):
+        rnd = py_random()
+        arr = np.asarray(image, np.float32)
+        if rnd.random() < 0.5:
+            arr += rnd.uniform(-self.brightness_delta,
+                               self.brightness_delta)
+        if rnd.random() < 0.5:
+            arr *= rnd.uniform(*self.contrast_range)
+        hsv = cv_ops.rgb2hsv(np.clip(arr, 0, 255).astype(np.uint8)) \
+            .astype(np.float32)
+        if rnd.random() < 0.5:
+            hsv[..., 1] *= rnd.uniform(*self.saturation_range)
+        if rnd.random() < 0.5:
+            hsv[..., 0] = (hsv[..., 0] + rnd.uniform(
+                -self.hue_delta, self.hue_delta)) % 180
+        arr = cv_ops.hsv2rgb(np.clip(hsv, 0, 255).astype(np.uint8))
+        return Image.fromarray(arr), target
+
+
+@TRANSFORMS.register_module()
+class Resize_keep_ratio(Resize):
+    """``Resize`` with ``keep_ratio`` forced True, as the JAX alias
+    forces it whatever the config writes (reference
+    ``transforms.py:593``; both SSD configs write ``keep_ratio=False``,
+    ROADMAP.md, "Known inexact spots")."""
+
+    def __init__(self, min_size, max_size, **kw):
+        super().__init__(min_size, max_size, keep_ratio=True)

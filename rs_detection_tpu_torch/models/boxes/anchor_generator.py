@@ -1,7 +1,8 @@
 """Anchor generators (counterpart of
 ``rs_detection_tpu/models/boxes/anchor_generator.py``, re-implemented
 because importing that module pulls in jax): the mmdet-v2 horizontal
-``AnchorGenerator`` and the rotated ``AnchorGeneratorRotatedS2ANet``
+``AnchorGenerator``, SSD's ``SSDAnchorGenerator`` on it, and the
+rotated ``AnchorGeneratorRotatedS2ANet``
 with its ``AnchorGeneratorYangXue`` and ``AnchorGeneratorRotated``
 forms. Pure numpy: grids depend only on feature-map sizes and are cached
 per size."""
@@ -24,13 +25,15 @@ def _meshgrid(x: np.ndarray, y: np.ndarray):
 @BOXES.register_module()
 class AnchorGenerator:
     """Scale-major anchors centred on the stride grid's corners (the
-    mmdet-v2 defaults, the only ones the Oriented RPN configs use)."""
+    mmdet-v2 defaults, the only ones the Oriented RPN configs use), or
+    on ``centers`` (one (x, y) a level) where given."""
 
     def __init__(self, strides: Sequence[int], ratios: Sequence[float],
-                 scales: Sequence[float]):
+                 scales: Sequence[float], centers=None):
         self.strides = [int(s) for s in strides]
         self.scales = np.asarray(scales, np.float32)
         self.ratios = np.asarray(ratios, np.float32)
+        self.centers = centers
         self.base_anchors = self.gen_base_anchors()
         self._cache = {}
 
@@ -43,14 +46,21 @@ class AnchorGenerator:
         return [ba.shape[0] for ba in self.base_anchors]
 
     def gen_base_anchors(self) -> List[np.ndarray]:
-        return [self._single_level(s) for s in self.strides]
+        return [self._single_level(
+            s, None if self.centers is None else self.centers[i])
+            for i, s in enumerate(self.strides)]
 
-    def _single_level(self, base_size) -> np.ndarray:
+    def _single_level(self, base_size, center=None) -> np.ndarray:
+        """The level's anchors at the origin (or at ``center``), in the
+        JAX generator's f32 arithmetic."""
+        w = h = float(base_size)
+        x_c, y_c = (0.0, 0.0) if center is None else center
         h_ratios = np.sqrt(self.ratios)
         w_ratios = 1.0 / h_ratios
-        ws = (base_size * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        hs = (base_size * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        return np.stack([-0.5 * ws, -0.5 * hs, 0.5 * ws, 0.5 * hs], -1) \
+        ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        return np.stack([x_c - 0.5 * ws, y_c - 0.5 * hs,
+                         x_c + 0.5 * ws, y_c + 0.5 * hs], -1) \
             .astype(np.float32)
 
     def grid_anchors(self, featmap_sizes) -> List[np.ndarray]:
@@ -86,6 +96,65 @@ class AnchorGenerator:
             vy[:vh] = True
             xx, yy = _meshgrid(vx, vy)
             out.append(np.repeat(xx & yy, self.num_base_anchors[i]))
+        return out
+
+
+@BOXES.register_module()
+class SSDAnchorGenerator(AnchorGenerator):
+    """SSD's multibox anchors (the JAX ``SSDAnchorGenerator``): a level's
+    min / max sizes from ``basesize_ratio_range`` over ``input_size``,
+    the scales 1 and sqrt(max / min), the ratios 1, 1/r and r of each r
+    of the level, centred on ((s - 1) / 2, (s - 1) / 2). The JAX index
+    list keeps 5 or 9 anchors a position where mmdet keeps 4 or 6
+    (ROADMAP.md, "Known inexact spots"); the port keeps JAX's."""
+
+    def __init__(self, strides, ratios, basesize_ratio_range,
+                 input_size=300):
+        self.strides = [int(s) for s in strides]
+        self.input_size = input_size
+        self.centers = [((s - 1) / 2.0, (s - 1) / 2.0) for s in self.strides]
+        min_ratio, max_ratio = basesize_ratio_range
+        min_ratio, max_ratio = int(min_ratio * 100), int(max_ratio * 100)
+        step = int(math.floor(max_ratio - min_ratio) / (len(strides) - 2))
+        min_sizes, max_sizes = [], []
+        for ratio in range(int(min_ratio), int(max_ratio) + 1, step):
+            min_sizes.append(int(input_size * ratio / 100))
+            max_sizes.append(int(input_size * (ratio + step) / 100))
+        if min_ratio == 20:
+            min_sizes.insert(0, int(input_size * 10 / 100))
+            max_sizes.insert(0, int(input_size * 20 / 100))
+        else:
+            min_sizes.insert(0, int(input_size * 7 / 100))
+            max_sizes.insert(0, int(input_size * 15 / 100))
+        self.scales_per_level, self.ratios_per_level = [], []
+        for k in range(len(self.strides)):
+            anchor_ratio = [1.0]
+            for r in ratios[k]:
+                anchor_ratio += [1 / r, r]
+            self.ratios_per_level.append(np.array(anchor_ratio, np.float32))
+            self.scales_per_level.append(np.array(
+                [1.0, np.sqrt(max_sizes[k] / min_sizes[k])], np.float32))
+        self.base_sizes = min_sizes
+        self.base_anchors = self.gen_base_anchors()
+        self._cache = {}
+
+    def gen_base_anchors(self) -> List[np.ndarray]:
+        """Each level's anchors scale-minor (the scales vary slowest), in
+        the JAX generator's f32 arithmetic, less the one that JAX's index
+        list [0, n, 2, ..., 2n - 1] over the 2n of them leaves out: the
+        scale-1 anchor of the ratio 1 / r of the level's first r."""
+        out = []
+        for size, scales, ratios, (x_c, y_c) in zip(
+                self.base_sizes, self.scales_per_level,
+                self.ratios_per_level, self.centers):
+            w = h = float(size)
+            h_ratios = np.sqrt(ratios)
+            w_ratios = 1.0 / h_ratios
+            ws = (w * scales[:, None] * w_ratios[None, :]).reshape(-1)
+            hs = (h * scales[:, None] * h_ratios[None, :]).reshape(-1)
+            anchors = np.stack([x_c - 0.5 * ws, y_c - 0.5 * hs,
+                                x_c + 0.5 * ws, y_c + 0.5 * hs], -1)
+            out.append(np.delete(anchors, 1, 0).astype(np.float32))
         return out
 
 

@@ -28,8 +28,8 @@ the creator-style ``RetinaHead`` of ``projects/retinanet`` (``n_class``,
 ``adapt_retina_like``, as in JAX; any other section through the
 generic flattening of ``normalize_cfg``, which is what S2ANet's, FCOS's
 and the modern ``RetinaHead`` take. R3Det's ``RRetinaRefineHead``
-sections fold through ``adapt_refine_head``. The JAX package's adapter
-of ``SSDHead`` waits for its head (ROADMAP.md, Queue 1, item 11e). The legacy RetinaHead's ``loc_loss_weight`` and
+sections fold through ``adapt_refine_head``, SSD's ``SSDHead`` through
+``adapt_ssd``. The legacy RetinaHead's ``loc_loss_weight`` and
 ``cls_loss_weight`` are dropped, as in JAX. As in JAX, S2ANet's ``loss_*`` sections reach the head only as
 ``focal_gamma`` / ``focal_alpha`` / ``smooth_l1_beta`` (the ODM section's
 values, the later ones, override the FAM's; ``loss_weight`` is dropped),
@@ -125,16 +125,15 @@ def adapt_cascade_head(bbox_head, rbbox_head=None, bbox_roi_extractor=None,
 def adapt_single_stage_head(cfg):
     """A single-stage head section onto the port's head: the legacy
     creator-style ``RetinaHead`` through ``adapt_legacy_retina``,
-    ``RRetinaHead`` through ``adapt_retina_like``, ``SSDHead`` raises
-    naming its ROADMAP item, any other section is flattened by
+    ``RRetinaHead`` through ``adapt_retina_like``, ``SSDHead`` through
+    ``adapt_ssd``, any other section is flattened by
     ``normalize_cfg`` against its registered class."""
     if cfg is None or not isinstance(cfg, Mapping):
         return cfg
     cfg = _plain(cfg)
     t = cfg.get("type")
     if t == "SSDHead":
-        raise NotImplementedError(f"the head {t!r} is not ported yet "
-                                  f"(ROADMAP.md, Queue 1, item 11e)")
+        return adapt_ssd(cfg)
     if t == "RRetinaHead":
         return adapt_retina_like(cfg)
     if t == "RetinaHead" and ("n_class" in cfg or "mode" in cfg):
@@ -142,6 +141,47 @@ def adapt_single_stage_head(cfg):
     from ...utils.registry import HEADS
 
     return normalize_cfg(cfg, HEADS)
+
+
+def adapt_ssd(cfg):
+    """The zoo's mmdet ``SSDHead`` section as an ``SSDHead`` section, as
+    the JAX ``_adapt_ssd`` folds it: ``num_classes`` plus the background,
+    the anchor generator's strides, ratios, ``basesize_ratio_range`` and
+    ``input_size``, the coder's means and stds (``bbox_coder_cfg`` or
+    ``bbox_coder``), ``train_cfg``'s ``neg_pos_ratio`` and ``test_cfg``'s
+    ``nms_pre``, ``score_thr``, ``max_per_img`` and the NMS IoU. The rest
+    of ``train_cfg`` (the assigner, ``smoothl1_beta``, ``pos_weight``) is
+    dropped: the head's assigner is fixed, as in JAX."""
+    out = dict(cfg)
+    out["num_classes"] = int(cfg.get("num_classes", 80)) + 1
+    ag = out.pop("anchor_generator", None) or {}
+    if ag.get("strides") is not None:
+        out["anchor_strides"] = list(ag["strides"])
+    if ag.get("ratios") is not None:
+        out["anchor_ratios"] = [list(r) for r in ag["ratios"]]
+    if ag.get("basesize_ratio_range") is not None:
+        out["basesize_ratio_range"] = tuple(ag["basesize_ratio_range"])
+    if ag.get("input_size") is not None:
+        out["input_size"] = int(ag["input_size"])
+    coder = out.pop("bbox_coder_cfg", None) or out.pop("bbox_coder",
+                                                       None) or {}
+    if coder.get("target_means") is not None:
+        out["target_means"] = list(coder["target_means"])
+    if coder.get("target_stds") is not None:
+        out["target_stds"] = list(coder["target_stds"])
+    tc = out.pop("train_cfg", None) or {}
+    if "neg_pos_ratio" in tc:
+        out["neg_pos_ratio"] = tc["neg_pos_ratio"]
+    ec = out.pop("test_cfg", None) or {}
+    for k in ("nms_pre", "score_thr", "max_per_img"):
+        if k in ec:
+            out[k] = ec[k]
+    nms = ec.get("nms") or {}
+    if "iou_threshold" in nms:
+        out["nms_iou_thr"] = nms["iou_threshold"]
+    from ..roi_heads.ssd_head import SSDHead
+
+    return _filter_to_fields(SSDHead, out)
 
 
 def adapt_legacy_retina(cfg):

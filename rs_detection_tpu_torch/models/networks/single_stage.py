@@ -1,9 +1,9 @@
 """Single-stage detectors (counterpart of
 ``rs_detection_tpu/models/networks/single_stage.py``): backbone -> neck
 -> dense head, ``loss`` the training forward and ``predict`` the
-inference one: ``S2ANet``, ``RetinaNet`` and ``FCOS``. ``R3Det`` builds on
-the class in ``r3det.py``. The YOLO names raise naming their ROADMAP
-item."""
+inference one: ``S2ANet``, ``RetinaNet``, ``FCOS`` and ``SSD``. ``R3Det``
+builds on the class in ``r3det.py``. The YOLO names raise naming their
+ROADMAP item."""
 
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ from torch import nn
 
 from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
                                register_unported)
+from ..necks import ssd_neck  # noqa: F401  (registers SSDNeck)
 from ..necks.fpn import FPN
 from ..roi_heads import fcos_head  # noqa: F401  (registers FCOSHead)
 from ..roi_heads import retina_head  # noqa: F401  (registers RetinaHead)
+from ..roi_heads import ssd_head  # noqa: F401  (registers SSDHead)
 from ..roi_heads.s2anet_head import S2ANetHead
 from .compat import adapt_single_stage_head
 from .rcnn import _build, _resnet50
@@ -44,7 +46,7 @@ class SingleStageDetector(nn.Module):
                  roi_heads=None, rpn_net=None, pretrained=None):
         super().__init__()
         # the head section first: an unported head names its item
-        # before an unported backbone (SSD's VGG) fails by name
+        # before the backbone is built
         head = adapt_single_stage_head(next(
             (h for h in (bbox_head, roi_heads, rpn_net) if h is not None),
             None))
@@ -68,7 +70,8 @@ class SingleStageDetector(nn.Module):
     def predict(self, images, scale_factor: Optional[torch.Tensor] = None):
         """Eval-mode detections of normalized NHWC images: the head's
         ``get_bboxes`` dict (polys, scores, labels, valid); boxes divided
-        by ``scale_factor`` [B] (default 1)."""
+        by ``scale_factor`` [B] (default 1) where the head reads it (SSD's
+        does not)."""
         if scale_factor is None:
             scale_factor = torch.ones(images.shape[0], device=images.device)
         outs = self.bbox_head(self.extract_feats(images), train=False)
@@ -86,11 +89,17 @@ class RetinaNet(SingleStageDetector):
     (the legacy creator form) or ``bbox_head``."""
 
 
-
 @MODELS.register_module()
 class FCOS(SingleStageDetector):
     """Reference ``networks/fcos.py:4``: the ``FCOSHead`` under
     ``roi_heads`` or ``bbox_head``."""
+
+
+@MODELS.register_module()
+class SSD(SingleStageDetector):
+    """The JAX ``SSD`` (``roi_heads/ssd_head.py``): ``SSD_VGG16``,
+    ``SSDNeck`` and ``SSDHead``, as the zoo's ``SingleStageDetector``
+    sections build them too."""
 
 
 # the YOLOv5 networks (``projects/yolo``) wait for their family

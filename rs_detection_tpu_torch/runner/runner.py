@@ -8,8 +8,9 @@ config, and runs on the card (or on the CPU when the caller asks for it):
   switch-over at ``swa_start_epoch`` (a fresh ``optimizer_swa`` state
   and the ``scheduler_swa`` schedule from its step 0);
 * ``val``: ``predict`` -> ``postprocess_dense`` -> the dataset's
-  VOC-style oriented mAP, on the f32 master weights (the activations in
-  the model's compute dtype), leaving training as it was;
+  mAP (VOC-style oriented; SSD's ``COCODataset``'s, COCO-style hbb), on
+  the f32 master weights (the activations in the model's compute
+  dtype), leaving training as it was;
 * ``test`` (tile inference with optional flip-TTA -> results pickle ->
   tile merge -> submission), ``test_time`` and ``run_on_images``;
 * ``save`` / ``load``: the port's checkpoint pickle
@@ -39,6 +40,7 @@ import torch
 from ..config import get_cfg, save_cfg
 from ..data import dota as _dota  # noqa: F401  (registers the datasets)
 from ..data import image as _image  # noqa: F401  (registers ImageDataset)
+from ..data import yolo as _yolo  # noqa: F401  (registers COCODataset)
 from ..data.scene import SceneDataset
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
@@ -341,9 +343,11 @@ class Runner:
         self.logger.print_log({"msg": f"profiler trace -> {path}"})
 
     def val(self):
-        """mAP of the val dataset (``evaluate``'s dict, also logged). The
-        model serves its f32 master weights in eval mode, its activations
-        in the compute dtype, and goes back to the mode it was in."""
+        """mAP of the val dataset (``evaluate``'s dict, also logged; its
+        scalars in ``val_aps``). The model serves its f32 master weights
+        in eval mode, its activations in the compute dtype, and goes back
+        to the mode it was in. ``evaluate`` is handed one (detections,
+        meta) pair an image, in the dataset's order."""
         if self.val_dataset is None:
             self.logger.print_log({"msg": "no val dataset, skip"})
             return {}
@@ -360,7 +364,8 @@ class Runner:
             self.model.train(training)
         aps = self.val_dataset.evaluate(results, self.work_dir, self.epoch,
                                         self.logger)
-        self.val_aps = {k: float(v) for k, v in aps.items()}
+        self.val_aps = {k: float(v) for k, v in aps.items()
+                        if not isinstance(v, list)}
         self.logger.log(self.val_aps)
         return aps
 
@@ -387,7 +392,11 @@ class Runner:
         images (meta None) are skipped. Scores [B, P, C] (a score a class)
         or, with "labels" [B, P] (0-based, the single-stage heads'), [B,
         P] (one a detection). The JAX runner reads only the first form
-        and raises on the second (ROADMAP.md, Queue 3)."""
+        and raises on the second (ROADMAP.md, Queue 3). A meta's
+        ``letterbox`` (r, dw, dh), the resize and pad that a
+        ``YoloDataset`` gave the image, is undone on the polygons: they
+        come out in the image's own frame (where the JAX runner leaves
+        them in the letterboxed one)."""
         polys = np.asarray(out["polys"])
         scores = np.asarray(out["scores"])
         valid = np.asarray(out["valid"])
@@ -397,6 +406,10 @@ class Runner:
             if meta is None:
                 continue
             p, s, v = polys[i], scores[i], valid[i]
+            if meta.get("letterbox") is not None:
+                r, dw, dh = meta["letterbox"]
+                p = ((p - np.asarray([dw, dh] * 4, p.dtype))
+                     / np.asarray(r, p.dtype))
             if labels is not None:
                 keep = v & (s > score_thresh)
                 results.append((p[keep], s[keep],

@@ -92,8 +92,8 @@ def test_pad_to_size_and_errors():
     assert tg == tr == {"pad_shape": (64, 48)}
     with pytest.raises(ValueError):
         transforms.Pad()
-    with pytest.raises(KeyError, match="MinIoURandomCrop"):
-        transforms.Compose([dict(type="MinIoURandomCrop")])
+    with pytest.raises(KeyError, match="NoSuchTransform"):
+        transforms.Compose([dict(type="NoSuchTransform")])
 
 
 def test_collate_matches_jax():

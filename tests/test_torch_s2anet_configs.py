@@ -34,6 +34,7 @@ from rs_detection_tpu_torch.models.networks import \
     single_stage  # noqa: F401  (registers the networks)
 from rs_detection_tpu_torch.models.roi_heads.s2anet_head import (
     ORConv2d, S2ANetHead)
+from rs_detection_tpu_torch.models.roi_heads.ssd_head import SSDHead
 from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_slice import perturb
@@ -262,23 +263,27 @@ OTHER_SINGLE_STAGE = sorted(glob.glob(os.path.join(REPO, "projects", "ssd",
     "path", OTHER_SINGLE_STAGE,
     ids=lambda p: os.path.relpath(p, REPO).replace("/", ":")[:-3])
 def test_other_single_stage_configs_raise_with_their_item(path):
-    """SSD (a ``SingleStageDetector`` with an ``SSDHead``) waits for item
-    11: each config raises naming it, never builds something else. The
-    RetinaNet and FCOS configs build (``tests/test_torch_retinanet_
-    configs.py``, ``tests/test_torch_fcos_configs.py``)."""
-    with torch.device("meta"), pytest.raises(NotImplementedError,
-                                             match="item 11"):
-        reg.build_from_cfg(Config(path).model, reg.MODELS)
+    """SSD (a ``SingleStageDetector`` with an ``SSDHead``), the last of
+    these to wait for item 11 (11e), is ported: each config builds the
+    SSD network, never something else (the parity tests are
+    ``tests/test_torch_ssd_configs.py``). The RetinaNet and FCOS configs
+    build (``tests/test_torch_retinanet_configs.py``,
+    ``tests/test_torch_fcos_configs.py``)."""
+    with torch.device("meta"):
+        model = reg.build_from_cfg(Config(path).model, reg.MODELS)
+    assert type(model.backbone).__name__ == "SSDVGG"
+    assert isinstance(model.bbox_head, SSDHead)
 
 
 def test_legacy_single_stage_heads_raise_with_their_item():
-    """``SSDHead`` waits for item 11; R3Det's ``RRetinaHead`` adapts as
-    the JAX ``adapt_retina_like`` does (``tests/test_torch_r3det_
-    configs.py``), the legacy ``RetinaHead`` as the JAX
-    ``_adapt_legacy_retina`` does (``tests/test_torch_retinanet_
-    configs.py``)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        compat.adapt_single_stage_head(dict(type="SSDHead"))
+    """No legacy single-stage head waits for item 11 any more:
+    ``SSDHead`` adapts as the JAX ``_adapt_ssd`` does (``tests/test_
+    torch_ssd_configs.py``), R3Det's ``RRetinaHead`` as the JAX
+    ``adapt_retina_like`` (``tests/test_torch_r3det_configs.py``), the
+    legacy ``RetinaHead`` as the JAX ``_adapt_legacy_retina``
+    (``tests/test_torch_retinanet_configs.py``)."""
+    ssd = dict(type="SSDHead")
+    assert compat.adapt_single_stage_head(ssd) == jcompat._adapt_ssd(ssd)
     rretina = dict(type="RRetinaHead")
     assert compat.adapt_single_stage_head(rretina) == \
         jcompat.adapt_retina_like(rretina)
