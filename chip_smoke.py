@@ -275,6 +275,29 @@ Phases, each of which raises (exit code 1) on failure:
      launches; ``ssd300_coco_test.py`` builds and takes one step; prints
      ms/step, peak memory, the target round's and the hard-negative
      mining's time at batch 32, images/s and one image's NMS time
+ 48. the narrow YOLO (``tests/test_torch_yolo_cuda.py``: width 0.125,
+     depth 0.33, 4 classes, 128^2, batch 2): the three losses, every
+     gradient, ``get_bboxes`` of seeded raw outputs and three nesterov
+     SGD steps under ``CosineAnnealingLRGroup`` with the per-step EMA on
+     CUDA against the CPU, f32, each difference beside its tolerance
+ 49. YOLOv5S at full width: ``run_net --task train`` on
+     ``projects/yolo/configs/yolov5s_dota.py`` as written (15 classes,
+     7,060,084 parameters, the ``YoloDataset`` at 1024^2 and batch 8,
+     SGD with decay 5e-4, ``CosineAnnealingLR``) over 24 seeded tiles (3
+     steps), then ``--task val`` (a ``DOTADataset`` section) and ``--task
+     test`` with the merge from the checkpoint with the head's biases
+     lifted; no kernel launches; prints ms/step, images/s, peak memory,
+     the NMS's time and kept count, and what sets a step (one batch's
+     host load, ``train_step``, the loss alone)
+ 50. YOLOv5X at full width with the EMA: ``run_net --task train`` on
+     ``projects/yolo/configs/yolov5x_coco_12epoch_ema.py`` (86,749,405
+     parameters, 640^2, batch 16, nesterov SGD,
+     ``CosineAnnealingLRGroup``, the YOLO parameter-group generator) over
+     48 seeded tiles (3 steps; the train section given a ``dataset_dir``),
+     then ``--task val`` in a fresh runner resumed from the checkpoint:
+     the parameters and the EMA come back apart and equal by sha256, val
+     serves the EMA; no kernel launches; prints ms/step, peak memory and
+     the EMA pass's time
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -291,8 +314,10 @@ for phase 33's RoI-Transformer tasks, ``roitrans_*``; every kernel's
 launches in phase 36's S2ANet tasks, ``s2anet_*_launches``, phase 39's
 Gliding Vertex tasks, ``gliding_*_launches``, phase 41's RetinaNet
 tasks, ``retinanet_*_launches``, phases 43 and 45's ``fcos_*`` and
-``r3det_*_launches`` and phase 47's SSD train, val and test tasks,
-``ssd_*_launches``, all 0), the
+``r3det_*_launches``, phase 47's SSD train, val and test tasks,
+``ssd_*_launches``, phase 49's YOLO train, val and test tasks,
+``yolo_*_launches``, and phase 50's train and val tasks,
+``yolox_*_launches``, all 0), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -330,6 +355,16 @@ SSD_TRAIN = 96  # phase 47: 3 steps of the config's batch 32
 SSD_VAL = 8
 SSD_TEST = 8
 SSD_CLASSES = 80
+YOLO_TRAIN = 24  # phase 49: 3 steps of the DOTA config's batch 8
+YOLO_VAL = 8
+YOLO_TEST = 4
+YOLOX_TRAIN = 48  # phase 50: 3 steps of the COCO config's batch 16
+YOLOX_VAL = 4
+YOLOX_SIDE = 640
+# [0, 1] pixels, as a YoloDataset serves them, for the DOTA val and test
+# sections of phase 49
+UNIT_PIXELS = dict(type="Normalize", mean=[0.0, 0.0, 0.0],
+                   std=[255.0, 255.0, 255.0], to_bgr=False)
 # the transforms of the FCOS recipe, for the R3Det config, which has no
 # dataset section
 NORMALIZE = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
@@ -4541,6 +4576,347 @@ def phase_ssd_task(torch, tmp, kernels, card):
     return launches["train"], launches["val"], launches["test"]
 
 
+def phase_yolo_tiny(torch, dev):
+    """The narrow YOLO (``tests/test_torch_yolo_cuda.py``: width 0.125,
+    depth 0.33, 4 classes, 128^2, batch 2) on the card against the CPU,
+    f32, one seed: the three losses and every gradient, ``get_bboxes``
+    of seeded raw outputs (its NMS margin printed), three nesterov SGD
+    steps under ``CosineAnnealingLRGroup`` with the per-step EMA (the
+    losses, the parameters, the EMA, the rates)."""
+    from test_torch_yolo_cuda import (GRAD_RTOL, LOSS_RTOL, POLY_ATOL,
+                                      SCORE_ATOL, STEP_RTOL, compare,
+                                      nms_margin, run_tiny, synthetic_preds,
+                                      tiny_inputs)
+
+    tiles, targets = tiny_inputs()
+    cpu = run_tiny("cpu", tiles, targets)
+    gpu = run_tiny(dev, tiles, targets)
+    same = (torch.equal(cpu["pred"]["valid"], gpu["pred"]["valid"])
+            and torch.equal(cpu["pred"]["labels"], gpu["pred"]["labels"]))
+    err = compare(cpu, gpu)
+    margin = nms_margin(cpu["model"].cpu().bbox_head, synthetic_preds())
+    log(f"  narrow YOLO, CUDA vs CPU: losses worst relative error "
+        f"{err['losses']:.2e} (tolerance {LOSS_RTOL}), gradients "
+        f"{err['grads']:.2e} of their largest entry ({GRAD_RTOL}); "
+        f"{int(cpu['pred']['valid'].sum())} detections, slots and labels "
+        f"equal {same}, polys max_abs_err {err['polys']:.3e} (atol "
+        f"{POLY_ATOL}), scores {err['scores']:.3e} ({SCORE_ATOL}), NMS "
+        f"margin {margin:.2e}; 3 steps with the EMA: losses "
+        f"{err['steps']:.2e}, parameters {err['params']:.2e}, EMA "
+        f"{err['ema']:.2e} ({STEP_RTOL}); rates {gpu['lrs']} (largest "
+        f"difference {err['lrs']}); losses {gpu['steps'][-1]}")
+    if not (same and err["losses"] <= LOSS_RTOL and err["grads"] <= GRAD_RTOL
+            and err["polys"] <= POLY_ATOL and err["scores"] <= SCORE_ATOL
+            and max(err["steps"], err["params"], err["ema"]) <= STEP_RTOL
+            and err["lrs"] == 0.0 and margin > 1e-5
+            and int(cpu["pred"]["valid"].sum()) > 10
+            and all(math.isfinite(v) for v in gpu["steps"][-1].values())):
+        raise AssertionError("narrow YOLO: CUDA and CPU differ")
+
+
+def lift_yolo_head(path, bias=1.0, seed=49):
+    """In the checkpoint at ``path``, every level's ``out{i}`` bias: the
+    objectness ``bias``, each class's N(0, 1) (seeded), so that a random
+    YOLO head's confidences pass its 0.25 threshold (a random head's are
+    near 0.25 everywhere) and its NMS sees a trained head's volume."""
+    import pickle
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    rng = np.random.RandomState(seed)
+    for i in range(3):
+        b = ckpt["model"][f"bbox_head.out{i}.bias"].reshape(3, -1)
+        b[:, 4] = bias
+        b[:, 5:] = rng.randn(3, b.shape[1] - 5)
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f)
+
+
+def named_digest(pairs):
+    """sha256 of (name, tensor) pairs' names and bytes, in order."""
+    h = hashlib.sha256()
+    for name, t in pairs:
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_breakdown(torch, runner, card):
+    """What sets a YOLO train task's step, after the task: the host
+    seconds of one batch from its dataset (the loader, in the runner's
+    thread), and on that batch on the card the whole ``train_step``, the
+    head's loss alone (forward, from the network's outputs) and the EMA
+    pass (with ``model.ema``), each the median host time of 3
+    synchronized calls. The extra steps move the runner's model."""
+    from rs_detection_tpu_torch.parallel.train_step import train_step
+
+    t0 = time.perf_counter()
+    images, tg, _ = next(iter(runner.train_dataset.batches(seed=0)))
+    t_batch = time.perf_counter() - t0
+    x = torch.as_tensor(images, device="cuda")
+    tgt = {k: torch.as_tensor(v, device="cuda") for k, v in tg.items()}
+    model, head = runner.model, runner.model.bbox_head
+    t_step, _ = timed_host(torch, lambda: train_step(
+        model, runner.optimizer, runner.scheduler, x, tgt, None, epoch=0.0,
+        ema=runner.ema, step=runner.iter))
+    with torch.no_grad():
+        raw = head(model.extract_feats(x), train=True)
+        t_loss, _ = timed_host(torch, lambda: head.loss(raw, tgt))
+    t_ema = None if runner.ema is None else timed_host(
+        torch, lambda: runner.ema.update(runner.iter))[0]
+    ema = "" if t_ema is None else (
+        f"; the EMA pass over {len(runner.ema.shadow)} tensors "
+        f"{1e3 * t_ema:.2f} ms")
+    log(f"    one batch of {images.shape[0]} from the dataset "
+        f"{1e3 * t_batch:.0f} ms host; on it train_step {1e3 * t_step:.1f} "
+        f"ms, the head's loss alone (forward: 3 levels x 5 offsets of "
+        f"gathers over {tgt['gt_mask'].shape[1]} slots) {1e3 * t_loss:.1f} "
+        f"ms{ema}; medians of 3 [{card}]")
+
+
+def run_tasks(torch, tmp, kernels, cfg, tasks):
+    """``run_net`` on ``cfg`` for each of ``tasks`` (a task name, or (name,
+    a function of the work directory run before it)), the wrappers'
+    launches counted over each task. Returns {task: (runner, launches,
+    seconds, peak bytes)}."""
+    from rs_detection_tpu_torch.tools import run_net
+
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for task in tasks:
+            task, before = task if isinstance(task, tuple) else (task, None)
+            if before is not None:
+                before()
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runner = run_net.main(["--config-file", cfg, "--task", task])
+            seconds = time.perf_counter() - t0
+            out[task] = (runner, {k: fn.launches for k, fn in kernels.items()},
+                         seconds, torch.cuda.max_memory_allocated())
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def phase_yolo_task(torch, tmp, kernels, card):
+    """``projects/yolo/configs/yolov5s_dota.py`` as written through
+    ``run_net``: YOLOv5S (width 0.5, depth 0.33, 15 classes, 7,060,084
+    parameters), the config's ``YoloDataset`` at 1024^2 and batch 8
+    (mosaic, HSV, flips), SGD with decay 5e-4, ``CosineAnnealingLR``
+    with its linear warmup, f32, over ``YOLO_TRAIN`` seeded 1024^2 tiles
+    with 42 boxes each in 512 slots (3 steps; the config gets
+    ``max_epoch`` 1). Then, from the checkpoint with the head's biases
+    lifted (``lift_yolo_head``), ``--task val`` over ``YOLO_VAL`` tiles
+    (a ``DOTADataset`` section, which the config lacks, pixels in [0,
+    1] as the ``YoloDataset`` serves them) and ``--task test`` over
+    ``YOLO_TEST`` scene tiles (an ``ImageDataset`` section) with the DOTA
+    merge. No kernel launches. Then one test tile's candidates and NMS.
+    Returns the train, val and test launches."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import make_targets
+
+    config = os.path.join(ROOT, "projects", "yolo", "configs",
+                          "yolov5s_dota.py")
+    t = make_targets(YOLO_TRAIN, TILE, MAX_GT,
+                     torch.Generator().manual_seed(49))
+    train = write_labelled(os.path.join(tmp, "yolo_train"),
+                           [f"y{i:02d}.png" for i in range(YOLO_TRAIN)],
+                           TILE, 49, t["rboxes"].numpy(), t["labels"].numpy())
+    v = make_targets(YOLO_VAL, TILE, MAX_GT, torch.Generator().manual_seed(50))
+    val = write_labelled(os.path.join(tmp, "yolo_val"),
+                         [f"v{i:02d}.png" for i in range(YOLO_VAL)], TILE, 50,
+                         v["rboxes"].numpy(), v["labels"].numpy())
+    tiles = os.path.join(tmp, "yolo_test")
+    write_tiles(tiles, [f"S0__1.0__{x}___{y}.png"
+                        for x, y in SCENE_OFFSETS[:YOLO_TEST]], TILE, 51)
+    work = os.path.join(tmp, "yolo_work")
+    cfg = write_config(
+        os.path.join(tmp, "yolo_chip.py"), _base_=config,
+        allow_random_init=True, max_epoch=1, log_interval=1,
+        checkpoint_interval=1, work_dir=work,
+        dataset=dict(
+            train=dict(dataset_dir=train),
+            val=dict(type="DOTADataset", dataset_dir=val, batch_size=8,
+                     transforms=[UNIT_PIXELS]),
+            test=dict(type="ImageDataset", images_dir=tiles,
+                      dataset_type="DOTA", batch_size=8,
+                      transforms=[UNIT_PIXELS])),
+        merge_cfg=dict(dataset_type="DOTA"))
+    ckpt = os.path.join(work, "checkpoints", "ckpt_1.pkl")
+    runs = run_tasks(torch, tmp, kernels, cfg, [
+        "train", ("val", lambda: lift_yolo_head(ckpt)), "test"])
+    launches = {k: r[1] for k, r in runs.items()}
+    none = dict.fromkeys(kernels, 0)
+    if any(x != none for x in launches.values()):
+        raise AssertionError(f"YOLO launches {launches}; expected none")
+    runner, _, t_train, peak = runs["train"]
+    model = runner.model
+    steps = YOLO_TRAIN // 8
+    step_ms = check_task_losses(runner, steps, ("box_loss", "obj_loss"),
+                                "YOLO train task")
+    n_params = sum(p.numel() for p in model.parameters())
+    med = step_ms[len(step_ms) // 2]
+    log(f"  run_net --task train, projects/yolo/configs/yolov5s_dota.py "
+        f"(YOLOv5S, 15 classes, {n_params:,} parameters, f32, SGD decay "
+        f"5e-4, CosineAnnealingLR; cut: {YOLO_TRAIN} seeded 1024^2 tiles, "
+        f"{MAX_GT} boxes each in 512 slots, {steps} steps of the config's "
+        f"batch 8, random weights): {t_train:.1f} s whole task; ms/step "
+        f"through the runner, median of steps 2-{steps}: {med:.1f} (min "
+        f"{step_ms[0]:.1f}, max {step_ms[-1]:.1f}) = {8e3 / med:.2f} "
+        f"images/s; loader wait {runner.train_stats['loader_wait_s']:.2f} s "
+        f"(mosaic, HSV, flips on the host); peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if n_params != 7060084 or runner.ema is not None:
+        raise AssertionError(f"yolov5s_dota.py: {n_params} parameters, "
+                             f"EMA {runner.ema}")
+    aps = runs["val"][0].val_aps
+    if "eval/0_meanAP" not in aps or not all(math.isfinite(x)
+                                             for x in aps.values()):
+        raise AssertionError(f"YOLO val task: {aps}")
+    log(f"  run_net --task val from ckpt_1.pkl (head lifted): {YOLO_VAL} "
+        f"tiles at batch 8 through DOTADataset.evaluate in "
+        f"{runs['val'][2]:.1f} s: mAP {aps['eval/0_meanAP']:.4f} (a random "
+        f"head)")
+    tester, _, t_test, _ = runs["test"]
+    with open(os.path.join(work, "test", "test_1.pkl"), "rb") as f:
+        results = __import__("pickle").load(f)
+    stats = tester.test_stats
+    if len(results) != YOLO_TEST or stats["detections"] == 0 or not all(
+            np.isfinite(p).all() and np.isfinite(s).all()
+            and ((lab >= 1) & (lab <= 15)).all()
+            for (p, s, lab), _ in results):
+        raise AssertionError(f"YOLO test task: bad results {stats}")
+    log(f"  run_net --task test: {YOLO_TEST} tiles at batch 8 in "
+        f"{stats['inference_s']:.3f} s = "
+        f"{YOLO_TEST / stats['inference_s']:.2f} tiles/s of inference; "
+        f"{stats['detections']} detections, labels 1-15; merge "
+        f"{stats.get('merge_s', 0.0):.1f} s; whole task {t_test:.1f} s "
+        f"[{card}]")
+    # one test tile's candidates and NMS on the test task's model
+    tm = tester.model.eval()
+    th = tm.bbox_head
+    images, _, _ = next(iter(tester.test_dataset.batches()))
+    with torch.no_grad():
+        raw = th(tm.extract_feats(torch.as_tensor(images[:1], device="cuda")))
+        t_cand, (boxes, scores) = timed_host(torch, lambda: th.candidates(
+            raw, 0))
+        t_nms, (out_s, _, _) = timed_host(torch, lambda: th.nms(boxes,
+                                                                scores))
+    kept = int(torch.isfinite(out_s).sum())
+    log(f"    one test tile: {boxes.shape[0]} candidates (the 1000 best a "
+        f"level) in {1e3 * t_cand:.2f} ms host, "
+        f"{int((scores.amax(1) > th.conf_thr).sum())} above {th.conf_thr}; "
+        f"class-aware greedy NMS {1e3 * t_nms:.1f} ms host, median of 3, "
+        f"{kept} kept [{card}]")
+    if boxes.shape[0] != 3000 or kept == 0:
+        raise AssertionError(f"YOLO NMS: {boxes.shape[0]} candidates, "
+                             f"{kept} kept")
+    step_breakdown(torch, runner, card)
+    return launches["train"], launches["val"], launches["test"]
+
+
+def phase_yolox_task(torch, tmp, kernels, card):
+    """``projects/yolo/configs/yolov5x_coco_12epoch_ema.py`` through
+    ``run_net``: YOLOv5X (86,749,405 parameters), 640^2, the config's
+    batch 16, nesterov SGD, ``CosineAnnealingLRGroup``, the YOLO
+    parameter-group generator (applied to nothing, as in JAX) and the
+    per-step EMA, f32, over ``YOLOX_TRAIN`` seeded 640^2 tiles with 42
+    boxes each in 512 slots (3 steps; ``max_epoch`` 1). The config's
+    dataset sections reach no dataset in either package (no
+    ``annotations_file``): the train section gets a ``dataset_dir``; the
+    val section becomes a ``COCODataset`` over ``YOLOX_VAL`` rendered
+    640^2 images. Then ``--task val`` in a fresh runner, which resumes
+    from the train task's checkpoint: its parameters and its EMA each
+    equal the trainer's by sha256 and differ from each other, val
+    predicts with the EMA and leaves the parameters as they were.
+    Returns the train and val launches."""
+    from test_torch_ssd_cuda import render_coco
+
+    from rs_detection_tpu_torch.flagship import make_targets
+
+    config = os.path.join(ROOT, "projects", "yolo", "configs",
+                          "yolov5x_coco_12epoch_ema.py")
+    t = make_targets(YOLOX_TRAIN, YOLOX_SIDE, MAX_GT,
+                     torch.Generator().manual_seed(52))
+    train = write_labelled(os.path.join(tmp, "yolox_train"),
+                           [f"x{i:02d}.png" for i in range(YOLOX_TRAIN)],
+                           YOLOX_SIDE, 52, t["rboxes"].numpy(),
+                           t["labels"].numpy())
+    img_dir, ann = render_coco(os.path.join(tmp, "yolox_val"), n=YOLOX_VAL,
+                               size=YOLOX_SIDE, seed=53, objects=6)
+    work = os.path.join(tmp, "yolox_work")
+    cfg = write_config(
+        os.path.join(tmp, "yolox_chip.py"), _base_=config,
+        max_epoch=1, log_interval=1, checkpoint_interval=1, work_dir=work,
+        dataset=dict(
+            train=dict(dataset_dir=train),
+            val=dict(_cover_=True, type="COCODataset", images_dir=img_dir,
+                     annotations_file=ann, img_size=YOLOX_SIDE,
+                     batch_size=YOLOX_VAL),
+            test=None))
+    def digests(runner):
+        return (named_digest(runner.model.named_parameters()),
+                named_digest(zip(runner.ema.names, runner.ema.shadow)))
+
+    train_run = run_tasks(torch, tmp, kernels, cfg, ["train"])["train"]
+    trainer = train_run[0]
+    steps = YOLOX_TRAIN // 16
+    step_ms = check_task_losses(trainer, steps, ("box_loss", "obj_loss"),
+                                "YOLOv5X train task")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    lrs = [r["lr"] for r in trainer.history]
+    trained = digests(trainer)
+    loader_wait = trainer.train_stats["loader_wait_s"]
+    step_breakdown(torch, trainer, card)
+    # the trainer freed before the val task builds its own model
+    del trainer
+    train_run = (None,) + train_run[1:]
+    torch.cuda.empty_cache()
+    runs = run_tasks(torch, tmp, kernels, cfg, ["val"])
+    evaluator = runs["val"][0]
+    got = digests(evaluator)
+    with evaluator.serving_weights():
+        served = named_digest(evaluator.model.named_parameters())
+    launches = dict(train=train_run[1], val=runs["val"][1])
+    none = dict.fromkeys(kernels, 0)
+    if any(x != none for x in launches.values()):
+        raise AssertionError(f"YOLOv5X launches {launches}; expected none")
+    med = step_ms[len(step_ms) // 2]
+    t_train, peak = train_run[2], train_run[3]
+    log(f"  run_net --task train, projects/yolo/configs/"
+        f"yolov5x_coco_12epoch_ema.py (YOLOv5X, 80 classes, {n_params:,} "
+        f"parameters, f32, nesterov SGD, CosineAnnealingLRGroup, the EMA; "
+        f"the train section given a dataset_dir; cut: {YOLOX_TRAIN} seeded "
+        f"640^2 tiles, {MAX_GT} boxes each in 512 slots, {steps} steps of "
+        f"the config's batch 16, random weights): {t_train:.1f} s whole "
+        f"task; ms/step through the runner, median of steps 2-{steps}: "
+        f"{med:.1f} (min {step_ms[0]:.1f}, max {step_ms[-1]:.1f}) = "
+        f"{16e3 / med:.2f} images/s; loader wait {loader_wait:.2f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB; rates {lrs} [{card}]")
+    aps = evaluator.val_aps
+    log(f"  run_net --task val in a fresh runner resumed from ckpt_1.pkl: "
+        f"iteration {evaluator.iter}; parameters sha256 "
+        f"{got[0][:12]}... (trainer {trained[0][:12]}...), EMA "
+        f"{got[1][:12]}... (trainer {trained[1][:12]}...), served "
+        f"weights {served[:12]}...; {YOLOX_VAL} COCO images in "
+        f"{runs['val'][2]:.1f} s, mAP {aps.get('eval/mAP', float('nan')):.4f}"
+        f" (a random head) [{card}]")
+    if not (n_params == 86749405 and got == trained
+            and got[0] != got[1] and served == got[1]
+            and evaluator.iter == steps and "eval/mAP" in aps
+            and named_digest(evaluator.model.named_parameters()) == got[0]):
+        raise AssertionError("YOLOv5X: the EMA did not come back apart and "
+                             "equal, or val did not serve it")
+    return launches["train"], launches["val"]
+
+
 def main():
     import torch
 
@@ -4551,8 +4927,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28, 31, 32, 35, 38, 40, 42, 44, 46 and 47 share the CPU
-    # tests' configs, tiles and datasets
+    # phases 25, 28, 31, 32, 35, 38, 40, 42, 44, 46-48 and 50 share the
+    # CPU tests' configs, tiles and datasets
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -4760,7 +5136,20 @@ def main():
             "ssd300_coco.py at full width, one step of ssd300_coco_test.py",
             lambda: phase_ssd_task(torch, tmp, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 47 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        run_phase(torch, 48, "narrow YOLO: losses, gradients, get_bboxes, 3 "
+                  "SGD steps with the EMA, CUDA vs CPU",
+                  lambda: phase_yolo_tiny(torch, dev))
+        yolo_train, yolo_val, yolo_test = run_phase(
+            torch, 49, "run_net --task train, val and test on "
+            "yolov5s_dota.py at full width",
+            lambda: phase_yolo_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        yolox_train, yolox_val = run_phase(
+            torch, 50, "run_net --task train on yolov5x_coco_12epoch_ema.py "
+            "at full width with the EMA, then --task val resumed",
+            lambda: phase_yolox_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 50 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -4854,6 +5243,11 @@ def main():
         k["ssd_train_task_launches"] = ssd_train[k["name"]]
         k["ssd_val_task_launches"] = ssd_val[k["name"]]
         k["ssd_test_task_launches"] = ssd_test[k["name"]]
+        k["yolo_train_task_launches"] = yolo_train[k["name"]]
+        k["yolo_val_task_launches"] = yolo_val[k["name"]]
+        k["yolo_test_task_launches"] = yolo_test[k["name"]]
+        k["yolox_train_task_launches"] = yolox_train[k["name"]]
+        k["yolox_val_task_launches"] = yolox_val[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -92,8 +92,11 @@ def _resize_axis(n_in: int, n_out: int, clamp: bool):
 
 
 def resize_linear(img, size):
-    """``cv2.resize(img, size)`` (``size`` = (w, h), ``INTER_LINEAR``)."""
+    """``cv2.resize(img, size)`` (``size`` = (w, h), ``INTER_LINEAR``); at
+    the image's own size a copy, as OpenCV's."""
     w, h = int(size[0]), int(size[1])
+    if (h, w) == img.shape[:2]:
+        return img.copy()
     x0, x1, a0, a1 = _resize_axis(img.shape[1], w, clamp=True)
     y0, y1, b0, b1 = _resize_axis(img.shape[0], h, clamp=False)
     src = img.astype(np.int64)

@@ -1,6 +1,5 @@
-"""The YOLO dataset and the COCO dataset on it (counterpart of
-``rs_detection_tpu/data/yolo.py``, all of it but ``LVISDataset``, which
-waits for the YOLO family, ROADMAP.md, Queue 1, item 11f): 4- and
+"""The YOLO dataset, the COCO dataset on it and the LVIS dataset on that
+(counterpart of ``rs_detection_tpu/data/yolo.py``): 4- and
 9-image mosaic, the YOLO random perspective warp with
 ``box_candidates``, beta(8, 8) mixup, cutout, letterbox, HSV jitter and
 flips; boxes are plain hbbs. Images decode through Pillow and every
@@ -22,6 +21,18 @@ not defined here), which the JAX method does not take, and ``evaluate``
 takes the runner's (detections, meta) pairs, where the JAX method
 unpacks three values an image and raises (ROADMAP.md, Queue 3).
 
+``LVISDataset`` is the JAX class: an LVIS v1 json (file names from
+``coco_url`` where it has no ``file_name``), the 1203 classes of
+``config/lvis_categories.py``, and ``evaluate`` on the LVIS protocol as
+JAX reads it: an image's detections of a class count only where the
+class is evaluable there (one of its labels, or one of its
+``neg_category_ids``; JAX compares the raw ids with the labels, which
+agree on LVIS v1's ids 1..1203), then ``COCODataset.evaluate`` and
+``eval/APr`` / ``APc`` / ``APf``, the mean AP50 of the rare, common and
+frequent classes. Like ``COCODataset.evaluate`` it takes the runner's
+(detections, meta) pairs, where the JAX method unpacks three values an
+image and raises.
+
 A letterboxed sample (no mosaic, perspective or flip) records the
 letterbox in its target, ``letterbox`` = (r, dw, dh): its boxes are the
 image's times r plus (dw, dh). ``Runner.postprocess_dense`` undoes it on
@@ -38,7 +49,7 @@ import pickle
 import numpy as np
 
 from ..ops.box_ops import rotated_box_to_bbox_np
-from ..utils.registry import DATASETS, register_unported
+from ..utils.registry import DATASETS
 from . import cv_ops
 from .collate import collate_batch
 from .devkits.voc_eval import voc_ap
@@ -447,7 +458,7 @@ class COCODataset(YoloDataset):
 
     def __init__(self, images_dir=None, annotations_file=None, **kw):
         with open(annotations_file) as f:
-            coco = json.load(f)
+            coco = self._prepare(json.load(f))
         imgs = {im["id"]: im for im in coco["images"]}
         cats = sorted(c["id"] for c in coco["categories"])
         cat_map = {cid: i + 1 for i, cid in enumerate(cats)}
@@ -482,6 +493,10 @@ class COCODataset(YoloDataset):
         self.stride = 32
         self.random_perspective = None
         self.mixup_prob = self.mosaic9_prob = self.cutout_prob = 0.0
+
+    def _prepare(self, coco):
+        """The parsed json as the constructor reads it."""
+        return coco
 
     def evaluate(self, results, work_dir=None, epoch=0, logger=None):
         """COCO-style hbb mAP without pycocotools: for each class and IoU
@@ -555,5 +570,53 @@ class COCODataset(YoloDataset):
         return out
 
 
-# LVIS (its 1203-category table and long-tail protocol) waits for 11f
-register_unported(DATASETS, ("LVISDataset",), "the dataset", "11f")
+@DATASETS.register_module()
+class LVISDataset(COCODataset):
+    """LVIS v1 (reference ``lvis.py``) on ``COCODataset``; the protocol in
+    the module's docstring."""
+
+    def __init__(self, images_dir=None, annotations_file=None, **kw):
+        from ..config.lvis_categories import LVIS_CLASSES, LVIS_V1_CATEGORIES
+
+        self.CLASSES = list(LVIS_CLASSES)
+        self.frequencies = [f for _, f in LVIS_V1_CATEGORIES]
+        super().__init__(images_dir=images_dir,
+                         annotations_file=annotations_file, **kw)
+
+    def _prepare(self, coco):
+        for im in coco["images"]:
+            if "file_name" not in im:
+                im["file_name"] = im["coco_url"].rsplit("/", 1)[-1]
+        self._neg_ids = {im["id"]: set(im.get("neg_category_ids", []))
+                         for im in coco["images"]}
+        self._img_ids = [im["id"] for im in coco["images"]]
+        return coco
+
+    def evaluate(self, results, work_dir=None, epoch=0, logger=None):
+        """``COCODataset.evaluate`` of ``results`` (the runner's
+        (detections, meta) pairs) with each image's detections of classes
+        not evaluable there dropped, plus ``eval/APr``, ``eval/APc`` and
+        ``eval/APf``."""
+        filtered = []
+        for ii, ((p, s, lab), meta) in enumerate(results):
+            p, s, lab = np.asarray(p), np.asarray(s), np.asarray(lab)
+            if ii < len(self._img_ids):
+                evaluable = set(int(c) for c in
+                                self.img_infos[ii]["ann"]["labels"])
+                evaluable |= self._neg_ids.get(self._img_ids[ii], set())
+                keep = np.asarray([int(c) in evaluable for c in lab], bool)
+                p, s, lab = p[keep], s[keep], lab[keep]
+            filtered.append(((p, s, lab), meta))
+        out = super().evaluate(filtered, work_dir, epoch, logger=None)
+        per_class = out["per_class_ap50"]
+        if len(self.frequencies) >= len(per_class):
+            groups = {"r": [], "c": [], "f": []}
+            for ci, ap in enumerate(per_class):
+                groups[self.frequencies[ci]].append(ap)
+            for g, name in (("r", "APr"), ("c", "APc"), ("f", "APf")):
+                if groups[g]:
+                    out[f"eval/{name}"] = float(np.mean(groups[g]))
+        if logger is not None:
+            logger.log({k: v for k, v in out.items()
+                        if not isinstance(v, list)})
+        return out

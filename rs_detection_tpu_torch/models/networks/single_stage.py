@@ -2,8 +2,8 @@
 ``rs_detection_tpu/models/networks/single_stage.py``): backbone -> neck
 -> dense head, ``loss`` the training forward and ``predict`` the
 inference one: ``S2ANet``, ``RetinaNet``, ``FCOS`` and ``SSD``. ``R3Det``
-builds on the class in ``r3det.py``. The YOLO names raise naming their
-ROADMAP item."""
+builds on the class in ``r3det.py``, ``YOLO`` and its variants in
+``yolo.py``."""
 
 from __future__ import annotations
 
@@ -12,8 +12,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ...utils.registry import (BACKBONES, HEADS, MODELS, NECKS,
-                               register_unported)
+from ...utils.registry import BACKBONES, HEADS, MODELS, NECKS
 from ..necks import ssd_neck  # noqa: F401  (registers SSDNeck)
 from ..necks.fpn import FPN
 from ..roi_heads import fcos_head  # noqa: F401  (registers FCOSHead)
@@ -102,6 +101,6 @@ class SSD(SingleStageDetector):
     sections build them too."""
 
 
-# the YOLOv5 networks (``projects/yolo``) wait for their family
-register_unported(MODELS, ("YOLO", "YOLOv5S", "YOLOv5M", "YOLOv5L",
-                           "YOLOv5X"), "the network", "11f")
+
+# the YOLOv5 networks (``projects/yolo``) build on the class above
+from . import yolo  # noqa: E402,F401  (registers YOLO and its variants)

@@ -1,7 +1,7 @@
-"""Parameter-group generators (counterpart of the ``NormalPrameter...`` and
-``YangXuePrameterGroupsGenerator`` of
-``rs_detection_tpu/models/param_generators.py``; the reference spelling
-is kept, since the configs name them so).
+"""Parameter-group generators (counterpart of the ``NormalPrameter...``,
+``YangXuePrameterGroupsGenerator`` and ``YoloParameterGroupsGenerator``
+of ``rs_detection_tpu/models/param_generators.py``; the reference
+spelling is kept, since the configs name them so).
 
 A generator is built from the config's ``parameter_groups_generator``
 section and returns ``wrap(optimizer, base_weight_decay)``, which links
@@ -19,13 +19,22 @@ A conv bias is a ``bias`` beside a 4-D ``weight`` (a ``Conv2d``'s; not a
 ``kernel``. ``freeze_prefix`` entries are dotted name prefixes;
 ``backbone.C1`` is the ResNet stem and ``backbone.C<k>`` its stage k - 1,
 as in the reference recipe. A prefix list that matches no parameter
-raises."""
+raises.
+
+``YoloParameterGroupsGenerator`` is the JAX class: called on the
+parameters it returns the decay mask (``weight_decay_mask``) and its
+``weight_decay``. It takes no ``base_weight_decay``, so the runner
+builds it and applies none of it, as the JAX runner does
+(``takes_base_weight_decay``): the COCO YOLO recipes train without
+weight decay, and ``yolov5s_dota.py`` with its SGD's decay on every
+parameter."""
 
 from __future__ import annotations
 
+import inspect
 import re
 
-from ..utils.registry import MODELS, register_unported
+from ..utils.registry import MODELS
 
 
 def conv_bias_params(named):
@@ -110,7 +119,36 @@ def YangXuePrameterGroupsGenerator(conv_bias_grad_muyilpy: float = 1.0,
     return wrap
 
 
-# YOLO's decay masks come with its family (ROADMAP.md, Queue 1, item 11f)
-register_unported(MODELS, ("YoloParameterGroupsGenerator",),
-                  "the parameter-group generator", "11f")
+def weight_decay_mask(named):
+    """{name: True where weight decay applies}: the conv and linear
+    weights, not biases, norm scales or any other 1-D parameter (the
+    JAX mask on the flax ``kernel`` / ``scale`` / ``bias`` names)."""
+    return {n: not (n.endswith(".bias") or p.ndim <= 1) for n, p in named}
+
+
+@MODELS.register_module()
+class YoloParameterGroupsGenerator:
+    """The reference's three YOLO groups as a decay mask: ``self(named)``
+    gives ``dict(decay_mask=weight_decay_mask(named), weight_decay=...)``.
+    ``batch_size`` and any other key are accepted and ignored."""
+
+    def __init__(self, weight_decay: float = 0.0005, **kw):
+        self.weight_decay = weight_decay
+
+    def __call__(self, params):
+        return dict(decay_mask=weight_decay_mask(params),
+                    weight_decay=self.weight_decay)
+
+
+def takes_base_weight_decay(gen) -> bool:
+    """Whether the runner links ``gen`` into its optimizer: a callable
+    with no ``decay_mask`` that takes ``base_weight_decay``, the JAX
+    runner's signature check (``rs_detection_tpu/runner/runner.py:
+    184-195``)."""
+    if not callable(gen) or hasattr(gen, "decay_mask"):
+        return False
+    try:
+        return "base_weight_decay" in inspect.signature(gen).parameters
+    except (TypeError, ValueError):
+        return False
 

@@ -1,7 +1,7 @@
 """Learning-rate schedules (counterparts of
-``rs_detection_tpu/optims/lr_scheduler.py:StepLR`` and
-``CosineAnnealingLR``): a per-iteration warmup times a per-epoch decay,
-as pure functions of (step, epoch)."""
+``rs_detection_tpu/optims/lr_scheduler.py:StepLR``, ``CosineAnnealingLR``
+and ``CosineAnnealingLRGroup``): a per-iteration warmup times a
+per-epoch decay, as pure functions of (step, epoch)."""
 
 from __future__ import annotations
 
@@ -72,3 +72,26 @@ class CosineAnnealingLR:
         lr = base_lr * (self.min_lr_ratio + (1.0 - self.min_lr_ratio) * cos)
         return lr * warmup_factor(step, self.warmup, self.warmup_iters,
                                   self.warmup_ratio)
+
+
+@SCHEDULERS.register_module()
+class CosineAnnealingLRGroup(CosineAnnealingLR):
+    """The YOLO recipes' schedule, as JAX's: ``CosineAnnealingLR`` (by
+    epoch over ``max_steps``, ``min_lr_ratio`` 0.2 by default) times the
+    warmup. ``max_steps`` (or ``max_epoch``) is required: without it the
+    cosine would fall to its floor after the first epoch. The reference's
+    per-group warmups (``warmup_init_lr_pg``) and the momentum warmup
+    (``warmup_initial_momentum``) are recorded and applied to nothing,
+    as in JAX."""
+
+    def __init__(self, warmup_init_lr_pg=None, warmup_initial_momentum=None,
+                 min_lr_ratio: float = 0.2, **kw):
+        max_epoch = kw.pop("max_epoch", None)
+        if "max_steps" not in kw:
+            if not max_epoch:
+                raise TypeError("CosineAnnealingLRGroup requires max_steps "
+                                "(or max_epoch), as in the reference")
+            kw["max_steps"] = max_epoch
+        super().__init__(min_lr_ratio=min_lr_ratio, **kw)
+        self.warmup_init_lr_pg = warmup_init_lr_pg
+        self.warmup_initial_momentum = warmup_initial_momentum

@@ -1,12 +1,55 @@
 """One training step on one device (counterpart of the step function of
 ``rs_detection_tpu/parallel/train_step.py:make_train_step``, without its
-mesh and EMA)."""
+mesh), with the per-step EMA of the parameters (``ParamEMA``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import math
+from typing import Dict, Optional
 
 import torch
+
+
+class ParamEMA:
+    """Per-step exponential moving average of a module's parameters (not
+    its buffers), the JAX ``TrainState.ema_params``: after step ``step``
+    (the count before it, from 0) ``e = d * e + (1 - d) * p`` with
+    ``d = decay * (1 - exp(-(step + 1) / ramp))``. The average starts as
+    a copy of the parameters, in their dtype and on their device;
+    ``update`` is one ``_foreach`` pass under ``no_grad`` with no host
+    sync. ``names`` are the parameters' names, ``shadow`` the averages in
+    that order."""
+
+    def __init__(self, model: torch.nn.Module, decay: float = 0.9999,
+                 ramp: float = 2000.0):
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.shadow = [p.detach().clone() for p in self.params]
+        self.decay, self.ramp = decay, ramp
+
+    @torch.no_grad()
+    def update(self, step: int) -> None:
+        d = self.decay * (1.0 - math.exp(-(step + 1.0) / self.ramp))
+        torch._foreach_mul_(self.shadow, d)
+        torch._foreach_add_(self.shadow, [p.detach() for p in self.params],
+                            alpha=1.0 - d)
+
+    def _swap(self) -> None:
+        for i, p in enumerate(self.params):
+            p.data, self.shadow[i] = self.shadow[i], p.data
+
+    @contextlib.contextmanager
+    def applied(self):
+        """The module's parameters hold the averages inside the block and
+        their own values again after it (the tensors are exchanged, not
+        copied)."""
+        self._swap()
+        try:
+            yield
+        finally:
+            self._swap()
 
 
 def zero_missing_grads(optimizer) -> None:
@@ -19,7 +62,8 @@ def zero_missing_grads(optimizer) -> None:
 
 
 def train_step(model, optimizer, scheduler, images, targets, generator,
-               epoch: float) -> Dict:
+               epoch: float, ema: Optional[ParamEMA] = None,
+               step: int = 0) -> Dict:
     """``model.loss`` -> backward -> ``optimizer.step`` at the scheduled
     learning rate. ``optimizer`` is one of ``optims.optimizer`` (one
     parameter group, its step count in ``iterations``); its base learning
@@ -33,7 +77,9 @@ def train_step(model, optimizer, scheduler, images, targets, generator,
     forward. A parameter the loss does not reach (a frozen ResNet stage,
     cut by ``detach``) gets a zero gradient, as ``jax.grad`` gives it, so
     the optimizer decays it and runs its momentum as the optax chain
-    does."""
+    does. With ``ema``, the average moves after the optimizer's step,
+    ``step`` being the run's step count before this one (the JAX
+    ``TrainState.step``)."""
     model.train()
     lr = scheduler(optimizer.defaults["lr"], optimizer.iterations, epoch)
     for group in optimizer.param_groups:
@@ -44,6 +90,8 @@ def train_step(model, optimizer, scheduler, images, targets, generator,
     total.backward()
     zero_missing_grads(optimizer)
     optimizer.step()
+    if ema is not None:
+        ema.update(step)
     out = {k: v.detach() for k, v in losses.items()}
     out["total_loss"] = total.detach()
     return out

@@ -15,8 +15,14 @@ config, and runs on the card (or on the CPU when the caller asks for it):
   tile merge -> submission), ``test_time`` and ``run_on_images``;
 * ``save`` / ``load``: the port's checkpoint pickle
   (``utils/checkpoint.py``), and resume (auto, or ``resume_path``) from
-  it or from the JAX runner's, with the epoch, the iteration and the
-  optimizer's state (AdamW's moments or SGD's momentum).
+  it or from the JAX runner's, with the epoch, the iteration, the
+  optimizer's state (AdamW's moments or SGD's momentum) and the EMA.
+
+With ``model.ema`` (the YOLO recipes) every training step moves a
+per-step EMA of the parameters (``parallel/train_step.py:ParamEMA``,
+decay ``model.ema_decay``, 0.9999 by default), and val, test and the
+other serving entry points read it (``serving_weights``), as the JAX
+runner does.
 
 The learning rate of a step is the schedule at the optimizer's own step
 count and that count in epochs, as the JAX runner's optax schedule reads
@@ -28,6 +34,7 @@ run trains as an unbroken one.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import random
@@ -45,6 +52,7 @@ from ..data.scene import SceneDataset
 from ..data.collate import collate_batch
 from ..flagship import init_weights, resolve_device
 from ..models import param_generators as _pg  # noqa: F401  (MODELS too)
+from ..models.param_generators import takes_base_weight_decay
 from ..models.networks import gliding_vertex as _gv  # noqa: F401  (as well)
 from ..models.networks import rcnn as _rcnn  # noqa: F401  (registers models)
 from ..models.networks import r3det as _r3det  # noqa: F401  (as well)
@@ -52,10 +60,11 @@ from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
 from ..models.networks import single_stage as _ss  # noqa: F401  (as well)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)
 from ..optims import optimizer as _optim  # noqa: F401  (OPTIMS)
-from ..parallel.train_step import train_step
-from ..utils.checkpoint import (FORMAT, load_model_arrays,
-                                load_optimizer_arrays, model_arrays,
-                                optimizer_arrays, read_checkpoint)
+from ..parallel.train_step import ParamEMA, train_step
+from ..utils.checkpoint import (FORMAT, ema_arrays, load_ema_arrays,
+                                load_model_arrays, load_optimizer_arrays,
+                                model_arrays, optimizer_arrays,
+                                read_checkpoint)
 from ..utils.general import build_file, check_interval, search_ckpt
 from ..utils.jax_weights import loss_state_names
 from ..utils.logger import RunLogger
@@ -95,10 +104,11 @@ class Runner:
         self.eval_interval = cfg.eval_interval
         self.log_interval = cfg.log_interval or 50
         self.swa_start_epoch = cfg.swa_start_epoch
-        if (cfg.model or {}).get("ema"):
-            raise NotImplementedError(
-                "model.ema (the per-step EMA of the YOLO configs) is not "
-                "ported yet (ROADMAP.md, Queue 1, item 11)")
+        # the per-step EMA (the YOLO recipes' ModelEMA), on from the model
+        # section's ``ema``, as the JAX runner reads it
+        mc = cfg.model if isinstance(cfg.model, dict) else {}
+        self._ema_enabled = bool(mc.get("ema"))
+        self._ema_decay = float(mc.get("ema_decay") or 0.9999)
 
         os.makedirs(self.work_dir, exist_ok=True)
         save_cfg(os.path.join(self.work_dir, "config.yaml"))
@@ -109,6 +119,7 @@ class Runner:
         self.model = build_from_cfg(cfg.model, MODELS)
         init_weights(self.model, torch.Generator().manual_seed(cfg.seed or 0))
         self.model.to(self.device)
+        self.ema = None
         datasets = cfg.dataset or {}
         self.train_dataset = build_from_cfg(datasets.get("train"), DATASETS)
         self.val_dataset = build_from_cfg(datasets.get("val"), DATASETS)
@@ -145,6 +156,8 @@ class Runner:
             self.load(cfg.pretrained_weights, model_only=True)
         else:
             self._check_pretrained_request()
+        if self._ema_enabled and self.ema is None:
+            self.ema = ParamEMA(self.model, self._ema_decay)
 
     def _check_pretrained_request(self):
         """``pretrained=True`` (on the backbone or the model) is never
@@ -187,7 +200,9 @@ class Runner:
         0.01, the JAX runner's default. ``parameter_groups_generator``
         links its groups into the main optimizer (not the SWA one), with
         the optimizer's ``weight_decay`` as the base, as the JAX runner
-        wraps ``tx``."""
+        wraps ``tx``; a generator that does not take
+        ``base_weight_decay`` (``YoloParameterGroupsGenerator``) is built
+        and applied to nothing, as in JAX."""
         cfg = self.cfg
         params = list(self.model.named_parameters())
         opt_cfg = dict(cfg.optimizer or dict(type="SGD"))
@@ -196,8 +211,9 @@ class Runner:
         pg = cfg.parameter_groups_generator
         if isinstance(pg, dict) and pg.get("type"):
             wrap = build_from_cfg(dict(pg), MODELS)
-            self.optimizer = wrap(self.optimizer, base_weight_decay=float(
-                opt_cfg.get("weight_decay", 0.0) or 0.0))
+            if takes_base_weight_decay(wrap):
+                self.optimizer = wrap(self.optimizer, base_weight_decay=float(
+                    opt_cfg.get("weight_decay", 0.0) or 0.0))
         self.scheduler = build_from_cfg(cfg.scheduler, SCHEDULERS) \
             or constant_lr
         self.optimizer_swa, self.scheduler_swa = None, constant_lr
@@ -220,6 +236,8 @@ class Runner:
         dtype = self.model.compute_dtype
         if dtype is not None and next(self.model.parameters()).dtype != dtype:
             self.model.to(dtype=dtype)
+            if self.ema is not None:
+                self.ema.shadow = [s.to(dtype) for s in self.ema.shadow]
             self._serving_cast = True
         self.model.eval()
 
@@ -288,7 +306,9 @@ class Runner:
                     self._start_profile()
                 losses = train_step(
                     self.model, self.optimizer, self.scheduler, x, tgt, gen,
-                    epoch=self.optimizer.iterations / self.steps_per_epoch)
+                    epoch=self.optimizer.iterations / self.steps_per_epoch,
+                    ema=self.ema if self._ema_enabled else None,
+                    step=self.iter)
                 lr = self.optimizer.param_groups[0]["lr"]
                 self.iter += 1
                 n_imgs += images.shape[0]
@@ -345,9 +365,10 @@ class Runner:
     def val(self):
         """mAP of the val dataset (``evaluate``'s dict, also logged; its
         scalars in ``val_aps``). The model serves its f32 master weights
-        in eval mode, its activations in the compute dtype, and goes back
-        to the mode it was in. ``evaluate`` is handed one (detections,
-        meta) pair an image, in the dataset's order."""
+        (the EMA's with ``model.ema``) in eval mode, its activations in
+        the compute dtype, and goes back to the mode and weights it had.
+        ``evaluate`` is handed one (detections, meta) pair an image, in
+        the dataset's order."""
         if self.val_dataset is None:
             self.logger.print_log({"msg": "no val dataset, skip"})
             return {}
@@ -355,11 +376,12 @@ class Runner:
         self.model.eval()
         results = []
         try:
-            for images, targets, metas in self.val_dataset.batches():
-                dets = self.postprocess_dense(self._forward(images, targets),
-                                              metas)
-                for det, meta in zip(dets, [m for m in metas if m]):
-                    results.append((det, meta))
+            with self.serving_weights():
+                for images, targets, metas in self.val_dataset.batches():
+                    dets = self.postprocess_dense(
+                        self._forward(images, targets), metas)
+                    for det, meta in zip(dets, [m for m in metas if m]):
+                        results.append((det, meta))
         finally:
             self.model.train(training)
         aps = self.val_dataset.evaluate(results, self.work_dir, self.epoch,
@@ -368,6 +390,15 @@ class Runner:
                         if not isinstance(v, list)}
         self.logger.log(self.val_aps)
         return aps
+
+    def serving_weights(self):
+        """A context in which the model holds the weights that val, test
+        and the other serving entry points read: the EMA's where there is
+        one (as the JAX runner's ``_variables(use_ema=True)``), else its
+        own; training goes on from its own after it."""
+        if self.ema is None:
+            return contextlib.nullcontext()
+        return self.ema.applied()
 
     # ------------------------------------------------------------------
 
@@ -431,15 +462,16 @@ class Runner:
         results = []
         modes = [None] + (["H", "V", "HV"] if flip_test else [])
         n_tiles, t0 = 0, time.perf_counter()
-        for mode in modes:
-            for images, targets, metas in self.test_dataset.batches(
-                    flip_mode=mode):
-                dets = self.postprocess_dense(self.predict(images, targets),
-                                              metas)
-                live = [m for m in metas if m]
-                n_tiles += len(live)
-                for det, meta in zip(dets, live):
-                    results.append((det, meta))
+        with self.serving_weights():
+            for mode in modes:
+                for images, targets, metas in self.test_dataset.batches(
+                        flip_mode=mode):
+                    dets = self.postprocess_dense(
+                        self.predict(images, targets), metas)
+                    live = [m for m in metas if m]
+                    n_tiles += len(live)
+                    for det, meta in zip(dets, live):
+                        results.append((det, meta))
         infer_s = time.perf_counter() - t0
         save_file = build_file(self.work_dir, f"test/test_{self.epoch}.pkl")
         with open(save_file, "wb") as f:
@@ -473,8 +505,9 @@ class Runner:
         for path in image_files:
             arr = load_rgb_array(path).astype(np.float32)
             images, targets = collate_batch([(arr, dict(scale_factor=1.0))])
-            dets = self.postprocess_dense(self.predict(images, targets),
-                                          [dict()])[0]
+            with self.serving_weights():
+                out = self.predict(images, targets)
+            dets = self.postprocess_dense(out, [dict()])[0]
             outputs.append((path, dets))
             if save_dir:
                 visualize_results([dets], None, [path], save_dir)
@@ -491,13 +524,14 @@ class Runner:
         sf = torch.as_tensor(targets["scale_factor"], device=self.device)
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else lambda: None)
-        for _ in range(warmup):
-            self.model.predict(x, sf)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            self.model.predict(x, sf)
-        sync()
+        with self.serving_weights():
+            for _ in range(warmup):
+                self.model.predict(x, sf)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self.model.predict(x, sf)
+            sync()
         fps = iters * images.shape[0] / (time.perf_counter() - t0)
         self.logger.print_log({"FPS": fps})
         return fps
@@ -506,7 +540,8 @@ class Runner:
 
     def save(self):
         """``checkpoints/ckpt_{epoch}.pkl`` in the port's format
-        (``utils/checkpoint.py``); returns its path."""
+        (``utils/checkpoint.py``): the parameters under ``model``, their
+        EMA apart under ``ema``; returns its path."""
         if self.cfg.use_orbax:
             raise NotImplementedError(
                 "use_orbax: orbax checkpoints are JAX-only; the port saves "
@@ -518,7 +553,7 @@ class Runner:
                       save_time=time.time(), config=self.cfg.dump()),
             model=model_arrays(self.model),
             opt_state=optimizer_arrays(self.optimizer, self.model),
-            ema=None)
+            ema=None if self.ema is None else ema_arrays(self.ema))
         with open(path, "wb") as f:
             pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
         self.logger.print_log({"msg": f"saved {path}"})
@@ -529,20 +564,25 @@ class Runner:
         without jax) or a bare flax variables pickle into the model. A
         resume (``model_only=False``) also takes the epoch and iteration
         from ``meta``, adopts the SWA optimizer when the checkpoint was
-        saved in the SWA phase, loads the optimizer state into the
-        optimizer in use, and serves the EMA weights where the
-        checkpoint has them, as the JAX runner evaluates."""
+        saved in the SWA phase and loads the optimizer state into the
+        optimizer in use. A resume loads the checkpoint's ``ema`` (where
+        it has one) into the EMA and its ``model`` into the parameters:
+        the port's pickle keeps the two apart, so a resume trains on as an
+        unbroken run; a JAX pickle holds the EMA in both (its ``save``
+        writes ``_variables()``), so the port resumes from it as the JAX
+        runner does. Without ``model.ema`` a loaded EMA is served and
+        never moved, as in JAX. Otherwise the EMA (with ``model.ema``)
+        starts as a copy of the loaded parameters."""
         if os.path.isdir(path):
             raise RuntimeError(
                 f"{path} is an orbax checkpoint directory; orbax is JAX-only. "
                 f"Save the checkpoint as a pickle with the JAX runner "
                 f"(use_orbax unset) to load it here")
         meta, arrays, opt_state, ema = read_checkpoint(path)
-        if not model_only and meta:
+        resume = not model_only and bool(meta)
+        if resume:
             self.epoch = int(meta.get("epoch", 0))
             self.iter = int(meta.get("iter", 0))
-            if ema is not None:
-                arrays = dict(arrays, **ema)
             if meta.get("swa_active") and self.optimizer_swa is not None:
                 self._adopt_swa()
             if opt_state is not None:
@@ -551,4 +591,10 @@ class Runner:
         load_model_arrays(self.model, arrays, optional=() if
                           meta.get("format") == FORMAT else
                           loss_state_names(self.model))
+        self.ema = None
+        if resume and ema is not None:
+            self.ema = ParamEMA(self.model, self._ema_decay)
+            load_ema_arrays(self.ema, ema)
+        elif self._ema_enabled:
+            self.ema = ParamEMA(self.model, self._ema_decay)
         self.logger.print_log({"msg": f"loaded {path}"})

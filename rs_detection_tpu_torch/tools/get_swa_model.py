@@ -23,10 +23,15 @@ from ..utils.checkpoint import FORMAT, read_checkpoint
 def average_checkpoints(paths):
     """{"meta", "model"}: the last checkpoint's meta (in the port's
     format) and the element-wise mean of every checkpoint's model
-    arrays, by name."""
+    arrays, by name. Where a checkpoint of the port holds an EMA, its
+    averages stand in for its parameters: the JAX runner's checkpoint of
+    an EMA run holds the EMA as its model, and that is what its tool
+    averages."""
     models, meta = [], {}
     for p in paths:
-        m, arrays, _, _ = read_checkpoint(p)
+        m, arrays, _, ema = read_checkpoint(p)
+        if ema is not None and m.get("format") == FORMAT:
+            arrays = dict(arrays, **ema)
         models.append(arrays)
         meta = m or meta
     names = set(models[0])

@@ -6,7 +6,9 @@ without jax: ``meta`` (epoch, iteration, ``swa_active``, the config, and
 in torch layout, BatchNorm counters left out), ``opt_state``
 ({"iterations", "state": {parameter name: the optimizer's state of it,
 ``STATE_KEYS`` of its class: "step", "exp_avg", "exp_avg_sq" for AdamW,
-"momentum_buffer" for SGD}}, or None) and ``ema`` (None).
+"momentum_buffer" for SGD}}, or None) and ``ema`` (the per-step EMA of
+the parameters, {parameter name: f32 numpy array}, apart from
+``model``; None without one).
 ``read_checkpoint`` gives every pickle the runner loads the same form:
 this one, the JAX runner's (flax trees of jax arrays; the state of its
 optax AdamW or SGD through ``jax_weights.jax_optimizer_state``), and a
@@ -56,6 +58,28 @@ def load_model_arrays(module: nn.Module, arrays: Mapping,
         for k, v in state.items():
             v.copy_(torch.from_numpy(np.array(arrays[k], np.float32)))
     return module
+
+
+def ema_arrays(ema) -> Dict[str, np.ndarray]:
+    """A ``ParamEMA``'s averages by parameter name, as f32 numpy arrays."""
+    return {n: s.detach().float().cpu().numpy()
+            for n, s in zip(ema.names, ema.shadow)}
+
+
+def load_ema_arrays(ema, arrays: Mapping) -> None:
+    """Copy ``arrays`` (``ema_arrays``' form) into a ``ParamEMA`` in
+    place; a missing, extra or misshapen name raises."""
+    missing = sorted(set(ema.names) - set(arrays))
+    unexpected = sorted(set(arrays) - set(ema.names))
+    if missing or unexpected:
+        raise ValueError(f"the checkpoint's EMA does not match the model: "
+                         f"missing {missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for n, s in zip(ema.names, ema.shadow):
+            if tuple(np.shape(arrays[n])) != tuple(s.shape):
+                raise ValueError(f"EMA of {n} has shape {np.shape(arrays[n])}"
+                                 f", not {tuple(s.shape)}")
+            s.copy_(torch.from_numpy(np.array(arrays[n], np.float32)))
 
 
 def optimizer_arrays(optimizer: torch.optim.Optimizer,
@@ -113,7 +137,8 @@ def read_checkpoint(path: str) -> Tuple[Dict, Dict[str, np.ndarray],
         return {}, jax_to_state_dict(data), None, None
     meta = dict(data.get("meta") or {})
     if meta.get("format") == FORMAT:
-        return meta, dict(data["model"]), data.get("opt_state"), None
+        return (meta, dict(data["model"]), data.get("opt_state"),
+                data.get("ema"))
     opt = data.get("opt_state")
     ema = data.get("ema")
     return (meta, jax_to_state_dict(data["model"]),

@@ -18,11 +18,13 @@ names, so the mapping is mechanical:
   EQLv2 heads, NamedTuples in a live tree, dicts by field in a saved one)
   maps by the same rule: ``_bbox_head/efl/pos_grad`` is the head's buffer
   ``bbox_head.efl.pos_grad``;
-* the detector's ``_backbone``, ``_neck``, ``_rpn``, ``_bbox_head`` and
-  R3Det's ``_frm`` and ``_refine_head`` (the names flax gives the
-  submodules a config builds in ``setup``) are the port's ``backbone``,
-  ``neck``, ``rpn``, ``bbox_head``, ``frm`` and ``refine_head``, the
-  names of submodules given to it as modules.
+* the detector's ``_backbone``, ``_neck``, ``_rpn``, ``_bbox_head``,
+  R3Det's ``_frm`` and ``_refine_head`` and YOLO's ``_head`` (the names
+  flax gives the submodules a config builds in ``setup``) are the port's
+  ``backbone``, ``neck``, ``rpn``, ``bbox_head``, ``frm``,
+  ``refine_head`` and ``bbox_head``, the names of submodules given to it
+  as modules. A JAX runner checkpoint's ``ema`` (a ``params`` tree) maps
+  by the same rule.
 
 Any name or shape that does not match, in either direction, raises:
 nothing is silently left at its init. The one exception is a tree with
@@ -58,7 +60,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
 _BUILT = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn",
           "_bbox_head": "bbox_head", "_frm": "frm",
-          "_refine_head": "refine_head"}
+          "_refine_head": "refine_head", "_head": "bbox_head"}
 
 
 def _node(v):

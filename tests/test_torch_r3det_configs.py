@@ -3,8 +3,8 @@ in the port against the JAX package: it loads to the same tree, its
 ``RRetinaHead`` section adapts as the JAX ``adapt_retina_like`` folds it
 and its first ``RRetinaRefineHead`` as ``adapt_refine_head``, and it
 builds at full width on the meta device with the JAX network's
-parameter count. Then the zoo as a whole: the 7 YOLO configs raise
-naming item 11f, and 69 of the 80 model configs build. CPU."""
+parameter count. Then the zoo as a whole: the 7 YOLO configs build
+(item 11f, ported since), and 76 of the 80 model configs build. CPU."""
 
 import glob
 import json
@@ -150,23 +150,35 @@ YOLO = sorted(p for p in glob.glob(os.path.join(REPO, "projects", "yolo",
               if not p.endswith("_base.py"))
 
 
+YOLO_PARAMS = {"yolo_test": 7235389, "yolov5s_coco128_300epoch_ema": 7235389,
+               "yolov5s_coco_12epoch_ema": 7235389,
+               "yolov5m_coco_12epoch_ema": 21190557,
+               "yolov5l_coco_12epoch_ema": 46563709,
+               "yolov5x_coco_12epoch_ema": 86749405,
+               "yolov5s_dota": 7060084}
+
+
 @pytest.mark.parametrize("path", YOLO, ids=lambda p: os.path.basename(p)[:-3])
 def test_yolo_configs_raise_with_their_item(path):
     """The 7 YOLO configs (``YOLO``, ``YOLOv5S`` / ``M`` / ``L`` / ``X``)
-    wait for item 11f: each raises naming it, never a bare ``KeyError``."""
+    waited for item 11f, which raised naming it; since it was ported
+    (the name is kept) each builds on the meta device with the JAX
+    network's parameter count (``tests/test_torch_yolo_configs.py``
+    checks them against the JAX package)."""
     assert len(YOLO) == 7
-    with torch.device("meta"), pytest.raises(NotImplementedError,
-                                             match="item 11f"):
-        reg.build_from_cfg(Config(path).model, reg.MODELS)
+    with torch.device("meta"):
+        model = reg.build_from_cfg(Config(path).model, reg.MODELS)
+    assert sum(p.numel() for p in model.parameters()) == \
+        YOLO_PARAMS[os.path.basename(path)[:-3]]
 
 
 def test_the_zoo_builds_67_of_80_model_configs():
     """Every model config under ``configs/`` and ``projects/*/configs/``
     (the preprocess configs and the 4 YOLO ``*_base.py`` fragments hold
-    none) on the meta device: 69 build since the SSD family (67 before
-    it, whence the name); of the 11 others, 8 raise naming their ROADMAP
-    item (7 YOLO, 1 ConvNeXt) and the 3 ``*_r2_*`` S2ANet configs raise
-    the ``KeyError`` they raise in JAX."""
+    none) on the meta device: 76 build since the YOLO family (67 after
+    R3Det, whence the name; 69 after SSD); of the 4 others, 1 raises
+    naming its ROADMAP item (ConvNeXt, 12) and the 3 ``*_r2_*`` S2ANet
+    configs raise the ``KeyError`` they raise in JAX."""
     paths = sorted(
         glob.glob(os.path.join(REPO, "configs", "**", "*.py"),
                   recursive=True)
@@ -187,6 +199,6 @@ def test_the_zoo_builds_67_of_80_model_configs():
         except KeyError:
             key_errors.append(os.path.basename(p))
     assert built + len(items) + len(key_errors) == 80
-    assert built == 69
-    assert sorted(items) == ["11f"] * 7 + ["12"]
+    assert built == 76
+    assert sorted(items) == ["12"]
     assert len(key_errors) == 3 and all("_r2_" in k for k in key_errors)

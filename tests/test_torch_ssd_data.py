@@ -359,7 +359,9 @@ def test_jax_coco_dataset_faults_are_pinned(coco, tmp_path):
     ``anno_file`` / ``root`` reach neither class, which open
     ``annotations_file`` None; its ``batches`` takes no ``flip_mode``,
     which the port takes as None for the runner's test task (and
-    refuses a flip). ``LVISDataset`` waits for item 11f in the port."""
+    refuses a flip). ``LVISDataset``, which waited for item 11f, builds
+    on the COCO json in both packages (``tests/test_torch_yolo_lvis.py``
+    holds it to JAX's)."""
     kw = dict(images_dir=coco[0], annotations_file=coco[1], img_size=64)
     with pytest.raises(AttributeError, match="stride"):
         jyolo.COCODataset(**kw)[0]
@@ -376,8 +378,8 @@ def test_jax_coco_dataset_faults_are_pinned(coco, tmp_path):
     assert len(next(port.batches(flip_mode=None))[2]) == 5
     with pytest.raises(ValueError, match="flip"):
         next(port.batches(flip_mode="H"))
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        DATASETS.get("LVISDataset")(annotations_file=coco[1])
+    lvis = DATASETS.get("LVISDataset")(**kw)
+    assert len(lvis.CLASSES) == 1203 and len(lvis) == len(port)
     assert sorted(DATASETS.modules) == sorted(JDATASETS.modules)
 
 
