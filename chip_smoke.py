@@ -298,6 +298,33 @@ Phases, each of which raises (exit code 1) on failure:
      the parameters and the EMA come back apart and equal by sha256, val
      serves the EMA; no kernel launches; prints ms/step, peak memory and
      the EMA pass's time
+ 51. the other backbones at narrow widths
+     (``tests/test_torch_other_backbones_cuda.py``): ConvNeXt, LSKNet,
+     Res2Net and SK2Res2Net (their default ``norm_eval``), Swin: each
+     one's training outputs, gradients and eval outputs on CUDA against
+     the CPU, f32, one seed; the tiny LSKNet Oriented R-CNN (K2 5 in its
+     predict) and ConvNeXt RoI-Transformer, ``predict`` and losses; K2 at
+     LSKNet-S's four MLP shapes at phase 52's batch (bf16) and K6 at
+     (k, d) = (7, 1) at ConvNeXt-XL's four stage shapes (f32, its first
+     design) against their plain versions, K6 timed beside the tap loop,
+     ``conv2d_weight`` and its bound
+ 52. Oriented R-CNN on LSKNet-S at full width: ``run_net --task train``
+     on ``configs/orcnn_van3_fair1m_1_5.py`` with the backbone section
+     ``dict(type="lsknet_s", pretrained=True)`` (bf16 compute, batch 8,
+     AdamW) over 24 seeded tiles (3 steps), then ``--task test`` with
+     flip-TTA and the DOTA merge over 2 tiles; K1 1 / K3 1 / K6 30 / K2 0
+     a step, K2 10 / K1 1 a test forward; prints ms/step, peak memory,
+     tiles/s
+ 53. the ConvNeXt-XL RoI-Transformer at full width: ``run_net --task
+     train`` on ``RoITrans_convnext_xlarge_5e-5.py`` with the backbone
+     section JAX can build (printed), f32, batch 2 (the config's 8,
+     cut), 4 tiles (2 steps), then ``--task test``; K1 1 / K3 1 / K6 36
+     a step, K1 1 a test forward; then the depthwise 7x7 forward at its
+     four stage shapes three ways (cuDNN NCHW as the path runs it,
+     ``F.conv2d`` in channels_last, K5), timed only
+ 54. Res2Net-101, SK2Res2Net-101 and Swin-L-384 at 1024^2, batch 2,
+     f32: a forward and a backward each; output shapes, finite
+     gradients, ms and peak memory
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -317,7 +344,10 @@ tasks, ``retinanet_*_launches``, phases 43 and 45's ``fcos_*`` and
 ``r3det_*_launches``, phase 47's SSD train, val and test tasks,
 ``ssd_*_launches``, phase 49's YOLO train, val and test tasks,
 ``yolo_*_launches``, and phase 50's train and val tasks,
-``yolox_*_launches``, all 0), the
+``yolox_*_launches``, all 0; phases 52-53's train and test tasks,
+``lsknet_*_launches`` and ``convnext_*_launches``; K6's time, plain
+time, bound and ``conv2d_weight`` time at ConvNeXt-XL's shapes, the
+``convnext_*`` keys of its entry), the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -361,6 +391,20 @@ YOLO_TEST = 4
 YOLOX_TRAIN = 48  # phase 50: 3 steps of the COCO config's batch 16
 YOLOX_VAL = 4
 YOLOX_SIDE = 640
+LSKNET_TILES = 24  # phase 52: 3 steps of batch 8
+LSKNET_BATCH = 8
+CONVNEXT_TILES = 4  # phase 53: 2 steps of batch 2 (the config's 8, cut)
+CONVNEXT_BATCH = 2
+OTHER_TEST_TILES = 2  # phases 52-53: test tiles
+# (H = W, C, blocks) of ConvNeXt-XL's stages at 1024^2 tiles
+CONVNEXT_STAGES = [(256, 256, 3), (128, 512, 3), (64, 1024, 27),
+                   (32, 2048, 3)]
+# phase 54: the three other backbones at 1024^2, batch 2, f32, with the
+# widths of their stage outputs (strides 4 to 32)
+OTHER_BACKBONES = {"res2net101_v1b": (256, 512, 1024, 2048),
+                   "sk2res2net101_v1b": (256, 512, 1024, 2048),
+                   "swin_large_patch4_window12_384_in22k": (192, 384, 768,
+                                                            1536)}
 # [0, 1] pixels, as a YoloDataset serves them, for the DOTA val and test
 # sections of phase 49
 UNIT_PIXELS = dict(type="Normalize", mean=[0.0, 0.0, 0.0],
@@ -4917,6 +4961,347 @@ def phase_yolox_task(torch, tmp, kernels, card):
     return launches["train"], launches["val"]
 
 
+def phase_other_tiny(torch, dev, card):
+    """The other backbones at narrow widths (``tests/
+    test_torch_other_backbones_cuda.py``): each tiny backbone's training
+    outputs, gradients and eval outputs on CUDA against the CPU, f32, from
+    one seed; the tiny LSKNet Oriented R-CNN and ConvNeXt RoI-Transformer,
+    ``predict`` and the losses (first-k sampling), CUDA against the CPU;
+    K2 at LSKNet-S's MLP shapes of phase 52 (batch 8, 1024^2, bf16)
+    against its plain version; K6 at (7, 1) at ConvNeXt-XL's four stage
+    shapes of phase 53 (batch 2, 1024^2, f32 NCHW: its first design)
+    against its plain version, timed beside it, ``conv2d_weight`` and its
+    bound. Returns K6's (max error, ms, plain ms, bound, library ms) over
+    one step's 36 blocks."""
+    from test_torch_other_backbones_cuda import (
+        GRAD_TOL, OUT_TOL, TINY_BACKBONES, TINY_NETWORKS, backbone_run,
+        network_run, rel_errors)
+    from test_torch_roitrans_cuda import first_k_sample, tiny_inputs
+
+    from rs_detection_tpu_torch.models.boxes.sampler import RandomSampler
+    from rs_detection_tpu_torch.ops import dw_conv as dwc
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.ops import van_mlp as vm
+
+    for name in sorted(TINY_BACKBONES):
+        errs = rel_errors(backbone_run(name, dev), backbone_run(name, "cpu"))
+        worst = {kind: max((e, k) for k, e in errs.items()
+                           if k.startswith(kind))
+                 for kind in ("train output", "grad", "eval output")}
+        log(f"  tiny {name} ({TINY_BACKBONES[name][0]['type']}), CUDA vs "
+            f"CPU, f32: " + "; ".join(
+                f"{kind} worst {e:.2e} ({k})" for kind, (e, k)
+                in worst.items())
+            + f" (tolerances {OUT_TOL:g} outputs, {GRAD_TOL:g} gradients, "
+            f"relative)")
+        bad = [k for k, e in errs.items()
+               if e > (GRAD_TOL if k.startswith("grad") else OUT_TOL)]
+        if bad:
+            raise AssertionError(f"tiny {name}: CUDA and CPU differ at "
+                                 f"{len(bad)} tensors, first {bad[:4]}")
+    tiles, targets = tiny_inputs()
+    sample = RandomSampler.sample
+    RandomSampler.sample = first_k_sample
+    try:
+        for kind in sorted(TINY_NETWORKS):
+            p_cpu, l_cpu = network_run(kind, "cpu", tiles, targets)
+            vm.van_mlp_cuda.launches = 0
+            ra.roi_align_rotated_pyramid_cuda.launches = 0
+            p_gpu, l_gpu = network_run(kind, dev, tiles, targets)
+            k2 = vm.van_mlp_cuda.launches
+            k1 = ra.roi_align_rotated_pyramid_cuda.launches
+            errs = {key: (p_gpu[key].cpu() - p_cpu[key]).abs().max().item()
+                    for key in ("polys", "scores")}
+            worst, where = max((abs(l_gpu[k] - v) / max(abs(v), 1e-6), k)
+                               for k, v in l_cpu.items())
+            log(f"  tiny {kind}, CUDA vs CPU: predict polys max_abs_err "
+                f"{errs['polys']:.3e} (atol 1e-2), scores "
+                f"{errs['scores']:.3e} (atol 1e-5); losses worst relative "
+                f"error {worst:.2e} ({where}; tolerance 1e-4); launches in "
+                f"the predict and the loss: K2 {k2}, K1 {k1}")
+            # K2 in the LSKNet predict's 5 blocks; K1 once in the predict,
+            # once in the loss
+            want_k2, want_k1 = (5 if kind == "lsknet_orcnn" else 0), 2
+            if not (torch.equal(p_cpu["valid"], p_gpu["valid"].cpu())
+                    and errs["polys"] <= 1e-2 and errs["scores"] <= 1e-5
+                    and worst <= 1e-4 and k2 == want_k2 and k1 == want_k1):
+                raise AssertionError(f"tiny {kind}: CUDA and CPU differ, or "
+                                     f"launches K2 {k2} K1 {k1}")
+    finally:
+        RandomSampler.sample = sample
+    g = torch.Generator(device=dev).manual_seed(51)
+    for h, c, ch, _ in STAGES:
+        args = mlp_inputs(torch, g, LSKNET_BATCH, h, h, c, ch, torch.bfloat16)
+        compare(f"K2 at LSKNet-S's stage shape [{LSKNET_BATCH},{h},{h},{c}] "
+                f"hidden {ch} bf16", vm.van_mlp_cuda(*args),
+                vm.van_mlp_reference(*args), "bfloat16")
+        del args
+    err_max, ms, plain_ms, lib_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
+    for h, c, blocks in CONVNEXT_STAGES:
+        x = torch.randn(CONVNEXT_BATCH, c, h, h, generator=g, device=dev)
+        gr = torch.randn(CONVNEXT_BATCH, c, h, h, generator=g, device=dev)
+        plan = dwc.wgrad_plan(x.shape, x.stride(), gr.stride(), 7, 1, 4)
+        err = compare(f"K6 k7d1 [{CONVNEXT_BATCH},{h},{h},{c}] NCHW f32 "
+                      f"({plan['design']} design)",
+                      dwc.dw_wgrad_cuda(x, gr, 7, 1),
+                      dwc.dw_wgrad_reference(x, gr, 7, 1), "float32",
+                      K6_TOL)
+        t_kernel = cuda_ms(lambda: dwc.dw_wgrad_cuda(x, gr, 7, 1), 10)
+        t_plain = cuda_ms(lambda: dwc.dw_wgrad_reference(x, gr, 7, 1), 2)
+        t_lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            x, (c, 1, 7, 7), gr, padding=3, groups=c), 3)
+        b = bound(nbytes(x, gr) + 4 * 49 * c, 0.0, 2.0 * 49 * x.numel())
+        log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, "
+            f"conv2d_weight {t_lib:.3f} ms, bound {b[0]:.3f} ms by {b[1]} "
+            f"(x{blocks} blocks per step) [{card}]")
+        err_max = max(err_max, err)
+        ms += blocks * t_kernel
+        plain_ms += blocks * t_plain
+        lib_ms += blocks * t_lib
+        bounds += [b] * blocks
+        del x, gr
+    b = add_bounds(bounds)
+    log(f"  K6 at (7, 1) per ConvNeXt-XL step (36 blocks, batch "
+        f"{CONVNEXT_BATCH}, f32): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, conv2d_weight {lib_ms:.3f} ms, bound {b[0]:.3f} ms by {b[1]} "
+        f"[{card}]")
+    return err_max, ms, plain_ms, b, lib_ms
+
+
+def other_task_checks(torch, runner, steps, want, launches, what):
+    """A train task's launches against ``want`` per step, its records and
+    its f32 master weights."""
+    want = {k: v * steps for k, v in want.items()}
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
+    dtypes = {p.dtype for p in runner.model.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{what}: master weights {dtypes}")
+
+
+def phase_lsknet_task(torch, tmp, kernels, card):
+    """``run_net --task train`` on ``configs/orcnn_van3_fair1m_1_5.py``
+    with the backbone section ``dict(type="lsknet_s", pretrained=True)``
+    (Oriented R-CNN on LSKNet-S, the DOTA detector of the LSKNet paper;
+    bf16 compute, f32 master weights, batch 8, AdamW) over 24 seeded
+    1024^2 tiles with 42 boxes each (3 steps), then ``--task test`` with
+    the DOTA merge from its checkpoint over 2 tiles with the config's
+    flip-TTA. Checks K1 1 / K3 1 / K6 30 / K2 0 launches a step and K2 10
+    / K1 1 a test forward. Returns (train launches, test launches)."""
+    import numpy as np
+
+    config = ("configs", "orcnn_van3_fair1m_1_5.py")
+    section = dict(type="lsknet_s", pretrained=True)
+    steps = LSKNET_TILES // LSKNET_BATCH
+    runner, launches, t_train, peak, _, cfg, work = train_task(
+        torch, tmp, kernels, config, LSKNET_TILES, OTHER_TEST_TILES, "lsk",
+        model=dict(backbone=section, compute_dtype="bfloat16"))
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=1,
+                roi_align_rotated_pyramid_bwd=1, dw_wgrad=30)
+    other_task_checks(torch, runner, steps, want, launches,
+                      "LSKNet-S train task")
+    step_ms = check_task_losses(runner, steps, ("loss_rpn_bbox",
+                                                "orcnn_bbox_loss"),
+                                "LSKNet-S train task", optimizer="AdamW")
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    log(f"  run_net --task train, Oriented R-CNN on LSKNet-S from "
+        f"configs/orcnn_van3_fair1m_1_5.py, backbone section {section} "
+        f"({n_params} parameters), bf16 compute, f32 master weights: "
+        f"{LSKNET_TILES} tiles of {TILE}^2 with {MAX_GT} boxes, batch "
+        f"{LSKNET_BATCH}, {steps} steps; {t_train:.1f} s whole task; "
+        f"ms/step through the runner, steps 2-{steps}: "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)}; loader "
+        f"wait {runner.train_stats['loader_wait_s']:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    log(f"  launches in the train task: {launches}")
+    del runner
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    forwards = OTHER_TEST_TILES * FLIPS
+    want = dict.fromkeys(kernels, 0)
+    want.update(van_mlp=10 * forwards, roi_align_rotated_pyramid=forwards)
+    if test_launches != want:
+        raise AssertionError(f"LSKNet-S test task launches {test_launches}, "
+                             f"expected {want}")
+    n_out = check_test_results(np, tester, work, forwards,
+                               "LSKNet-S test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl: {OTHER_TEST_TILES} tiles x "
+        f"{FLIPS} flips = {forwards} forwards in {stats['inference_s']:.3f} "
+        f"s = {OTHER_TEST_TILES / stats['inference_s']:.2f} tiles/s of "
+        f"inference; merge {stats['merge_s']:.3f} s; detections "
+        f"{stats['detections']} in, {n_out} after NMS; whole task "
+        f"{t_test:.1f} s; launches {test_launches} [{card}]")
+    return launches, test_launches
+
+
+def dw_forward_options(torch, card):
+    """The depthwise 7x7 forward at ConvNeXt-XL's four stage shapes (batch
+    2, 1024^2, f32), three ways: ``dw_conv``'s cuDNN NCHW call (the path's;
+    also with the block's layout copy from channels_last), ``F.conv2d``
+    with groups=C in channels_last, and K5's ``depthwise_conv2d`` (its
+    first design) on the NHWC tensor. Times only; no path changes."""
+    import torch.nn.functional as F
+
+    from rs_detection_tpu_torch.ops import dwconv as dw
+    from rs_detection_tpu_torch.ops.dw_conv import dw_conv
+
+    g = torch.Generator(device="cuda").manual_seed(53)
+    total = dict.fromkeys(("nchw", "nchw_copy", "channels_last", "k5"), 0.0)
+    with torch.no_grad():
+        for h, c, blocks in CONVNEXT_STAGES:
+            x = torch.randn(CONVNEXT_BATCH, c, h, h, generator=g,
+                            device="cuda").contiguous(
+                                memory_format=torch.channels_last)
+            w = torch.randn(c, 1, 7, 7, generator=g, device="cuda")
+            b = torch.randn(c, generator=g, device="cuda")
+            xc = x.contiguous()
+            xh = x.permute(0, 2, 3, 1)
+            ref = dw_conv(xc, w, b)
+            k5 = dw.depthwise_conv2d_cuda(xh, w.view(c, 49), 7, 1, b,
+                                          taps_last=True)
+            compare(f"K5 k7d1 [{CONVNEXT_BATCH},{h},{h},{c}] f32 vs cuDNN",
+                    k5, ref.permute(0, 2, 3, 1), "float32")
+            t = {"nchw": cuda_ms(lambda: dw_conv(xc, w, b), 10),
+                 "nchw_copy": cuda_ms(lambda: dw_conv(x.contiguous(), w, b),
+                                      10),
+                 "channels_last": cuda_ms(lambda: F.conv2d(
+                     x, w, b, padding=3, groups=c), 10),
+                 "k5": cuda_ms(lambda: dw.depthwise_conv2d_cuda(
+                     xh, w.view(c, 49), 7, 1, b, taps_last=True), 10)}
+            for k in total:
+                total[k] += blocks * t[k]
+            log(f"    dw 7x7 [{CONVNEXT_BATCH},{h},{h},{c}] f32: cuDNN NCHW "
+                f"{t['nchw']:.3f} ms ({t['nchw_copy']:.3f} with the layout "
+                f"copy), F.conv2d channels_last {t['channels_last']:.3f} ms, "
+                f"K5 (first design) {t['k5']:.3f} ms (x{blocks} blocks) "
+                f"[{card}]")
+            del x, xc, xh, ref, k5
+    log(f"  dw 7x7 forward per ConvNeXt-XL forward (36 blocks): cuDNN NCHW "
+        f"{total['nchw']:.3f} ms ({total['nchw_copy']:.3f} with the layout "
+        f"copies), F.conv2d channels_last {total['channels_last']:.3f} ms, "
+        f"K5 {total['k5']:.3f} ms [{card}]")
+    return total
+
+
+def phase_convnext_task(torch, tmp, kernels, card):
+    """``run_net --task train`` on ``projects/roi_transformer/configs/
+    RoITrans_convnext_xlarge_5e-5.py`` with its backbone section replaced
+    by ``dict(type="convnext_xlarge", pretrained=True)``, the section JAX
+    can build (f32 as written, SGD, the legacy cascade head; batch 2, the
+    config's 8 cut) over 4 seeded tiles (2 steps), then ``--task test``
+    with the DOTA merge over 2 tiles from its checkpoint; K1 1 / K3 1 / K6
+    36 launches a step and K1 1 a test forward; then the dw forward's
+    options at its shapes (``dw_forward_options``). Returns (train
+    launches, test launches)."""
+    import numpy as np
+
+    from rs_detection_tpu_torch.config.config import Config
+
+    config = ("projects", "roi_transformer", "configs",
+              "RoITrans_convnext_xlarge_5e-5.py")
+    section = dict(type="convnext_xlarge", pretrained=True)
+    written = Config(os.path.join(ROOT, *config)).model["backbone"]
+    log(f"  the config's backbone section {written} replaced by {section}: "
+        f"'Convnext_xlarge' is registered in neither package, and "
+        f"ConvNeXt takes no frozen_stages or return_stages (ROADMAP, Queue "
+        f"3); cut: batch 8 -> {CONVNEXT_BATCH}, {CONVNEXT_TILES} tiles")
+    steps = CONVNEXT_TILES // CONVNEXT_BATCH
+    runner, launches, t_train, peak, _, cfg, work = train_task(
+        torch, tmp, kernels, config, CONVNEXT_TILES, OTHER_TEST_TILES, "cnx",
+        train=dict(batch_size=CONVNEXT_BATCH),
+        model=dict(backbone=dict(section, _cover_=True)))
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=1,
+                roi_align_rotated_pyramid_bwd=1, dw_wgrad=36)
+    other_task_checks(torch, runner, steps, want, launches,
+                      "ConvNeXt-XL train task")
+    step_ms = check_task_losses(
+        runner, steps, ("loss_rpn_bbox", "rbbox_reg_loss_1",
+                        "rbbox_reg_loss_2"), "ConvNeXt-XL train task")
+    if runner.model.compute_dtype:
+        raise AssertionError("ConvNeXt-XL train task: not f32")
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    log(f"  run_net --task train, RoI-Transformer on ConvNeXt-XL ({n_params} "
+        f"parameters, f32, SGD): {CONVNEXT_TILES} tiles of {TILE}^2 with "
+        f"{MAX_GT} boxes, batch {CONVNEXT_BATCH}, {steps} steps; "
+        f"{t_train:.1f} s whole task; ms/step through the runner, step 2: "
+        f"{step_ms[-1]:.1f}; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    log(f"  launches in the train task: {launches}")
+    del runner
+    tester, test_launches, t_test = test_task(torch, tmp, kernels, cfg)
+    forwards = -(-OTHER_TEST_TILES // tester.test_dataset.batch_size)
+    want = dict.fromkeys(kernels, 0)
+    want.update(roi_align_rotated_pyramid=forwards)
+    if test_launches != want:
+        raise AssertionError(f"ConvNeXt-XL test task launches "
+                             f"{test_launches}, expected {want}")
+    n_out = check_test_results(np, tester, work, OTHER_TEST_TILES,
+                               "ConvNeXt-XL test task")
+    stats = tester.test_stats
+    log(f"  run_net --task test from ckpt_1.pkl: {OTHER_TEST_TILES} tiles in "
+        f"{stats['inference_s']:.3f} s = "
+        f"{OTHER_TEST_TILES / stats['inference_s']:.2f} tiles/s of "
+        f"inference; merge {stats['merge_s']:.3f} s; detections "
+        f"{stats['detections']} in, {n_out} after NMS; whole task "
+        f"{t_test:.1f} s; launches {test_launches} [{card}]")
+    del tester
+    dw_forward_options(torch, card)
+    return launches, test_launches
+
+
+def phase_other_backbones(torch, card):
+    """Res2Net-101, SK2Res2Net-101 and Swin-L-384 (``OTHER_BACKBONES``) at
+    1024^2, batch 2, f32, seeded random weights, in training mode (the
+    Res2Nets' norms in eval, as ``norm_eval`` says; Swin's drop path at
+    its 0.2): a warm-up and a timed forward + backward of a seeded
+    projection of the outputs; checks the four outputs' strides and
+    widths and that every gradient is finite and not all zero; prints ms
+    and peak memory."""
+    from rs_detection_tpu_torch.flagship import init_weights
+    from rs_detection_tpu_torch.utils import registry as reg
+
+    g = torch.Generator(device="cuda").manual_seed(54)
+    x = torch.randn(CONVNEXT_BATCH, TILE, TILE, 3, generator=g, device="cuda")
+    for name, widths in OTHER_BACKBONES.items():
+        model = reg.build_from_cfg(dict(type=name, pretrained=True),
+                                   reg.BACKBONES)
+        init_weights(model, torch.Generator().manual_seed(54))
+        model.to("cuda").train()
+        n_params = sum(p.numel() for p in model.parameters())
+        want = [(CONVNEXT_BATCH, TILE // s, TILE // s, c)
+                for s, c in zip((4, 8, 16, 32), widths)]
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            outs = model(x)
+            shapes = [tuple(o.shape) for o in outs]
+            sum((o * (i + 1)).mean() for i, o in enumerate(outs)).backward()
+            return shapes
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shapes = step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = [p.grad for p in model.parameters()]
+        finite = all(gr is not None and bool(torch.isfinite(gr).all())
+                     for gr in grads)
+        nonzero = sum(int(gr is not None and bool(gr.any())) for gr in grads)
+        log(f"  {name} ({n_params} parameters), {CONVNEXT_BATCH} x "
+            f"{TILE}^2 f32, forward + backward: {ms:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; outputs "
+            f"{shapes}; gradients finite {finite}, {nonzero} of "
+            f"{len(grads)} tensors nonzero [{card}]")
+        if shapes != want or not finite or nonzero < len(grads) // 2:
+            raise AssertionError(f"{name}: outputs {shapes} (want {want}), "
+                                 f"finite {finite}, nonzero {nonzero}")
+        del model, grads
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4927,8 +5312,8 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (rs_detection_tpu_torch/ is missing)")
     sys.path.insert(0, ROOT)
-    # phases 25, 28, 31, 32, 35, 38, 40, 42, 44, 46-48 and 50 share the
-    # CPU tests' configs, tiles and datasets
+    # phases 25, 28, 31, 32, 35, 38, 40, 42, 44, 46-48, 50 and 51 share
+    # the CPU tests' configs, tiles and datasets
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from rs_detection_tpu_torch.flagship import (build_flagship,
                                                  make_targets, normalize)
@@ -5149,7 +5534,26 @@ def main():
             "at full width with the EMA, then --task val resumed",
             lambda: phase_yolox_task(torch, tmp, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 50 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        k6_cnx = run_phase(
+            torch, 51, "the other backbones at narrow widths, the tiny "
+            "LSKNet Oriented R-CNN and ConvNeXt RoI-Transformer: CUDA vs "
+            "CPU; K2 at LSKNet-S's and K6 at ConvNeXt-XL's shapes",
+            lambda: phase_other_tiny(torch, dev, card))
+        lsk_train, lsk_test = run_phase(
+            torch, 52, "run_net --task train and --task test on "
+            "configs/orcnn_van3_fair1m_1_5.py with LSKNet-S at full width",
+            lambda: phase_lsknet_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        cnx_train, cnx_test = run_phase(
+            torch, 53, "run_net --task train and --task test on "
+            "RoITrans_convnext_xlarge_5e-5.py with convnext_xlarge at full "
+            "width; the dw 7x7 forward's options",
+            lambda: phase_convnext_task(torch, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        run_phase(torch, 54, "Res2Net-101, SK2Res2Net-101 and Swin-L-384 at "
+                  "1024^2: forward and backward",
+                  lambda: phase_other_backbones(torch, card))
+    log(f"all 54 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -5209,7 +5613,12 @@ def main():
               roitrans_bound_ms=k3_rt[2][0]),
         entry("dw_wgrad", "dw_wgrad.cu", jops + "pallas_dw_wgrad.py:41",
               train_launches["dw_wgrad"], k6, k6[4],
-              train_task_launches=train_task_launches["dw_wgrad"]),
+              train_task_launches=train_task_launches["dw_wgrad"],
+              convnext_ms=k6_cnx[1], convnext_plain_ms=k6_cnx[2],
+              convnext_bound_ms=k6_cnx[3][0],
+              convnext_bound_by=k6_cnx[3][1],
+              convnext_library_ms=k6_cnx[4],
+              convnext_max_abs_err=k6_cnx[0]),
         entry("van_attn", "van_attn_wgmma.cu", jops + "pallas_van_attn.py:89",
               fused_launches["van_attn"], k4),
         entry("van_mlp_residual", "van_mlp_wgmma.cu",
@@ -5248,6 +5657,10 @@ def main():
         k["yolo_test_task_launches"] = yolo_test[k["name"]]
         k["yolox_train_task_launches"] = yolox_train[k["name"]]
         k["yolox_val_task_launches"] = yolox_val[k["name"]]
+        k["lsknet_train_task_launches"] = lsk_train[k["name"]]
+        k["lsknet_test_task_launches"] = lsk_test[k["name"]]
+        k["convnext_train_task_launches"] = cnx_train[k["name"]]
+        k["convnext_test_task_launches"] = cnx_test[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

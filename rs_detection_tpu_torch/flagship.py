@@ -66,8 +66,9 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
     shared FCs, N(0, 0.01) / N(0, 0.001) cls / reg FCs, zero biases; a
     head with its own ``init_weights(g)`` (the single-stage heads, R3Det's
     ``frm`` and ``refine_head``) draws its layers after the generic
-    pass. BN, LayerNorm and layer scales keep their
-    constructor values."""
+    pass; Swin's relative position bias tables N(0, 0.02). BN,
+    LayerNorm and layer scales keep their constructor values. A bare
+    backbone takes the generic pass."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
@@ -79,7 +80,11 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=g)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            table = getattr(m, "relative_position_bias_table", None)
+            if table is not None:  # Swin's, flax's normal(0.02)
+                table.normal_(0.0, 0.02, generator=g)
         rpn = getattr(model, "rpn", None)
         if rpn is not None:
             for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
@@ -89,7 +94,8 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
                 getattr(model, part).init_weights(g)
         # every stage's cls / reg FCs, in the order the head holds them
         std = {"fc_cls": 0.01, "fc_reg": 0.001}
-        for name, m in model.bbox_head.named_modules():
+        head = getattr(model, "bbox_head", None)
+        for name, m in (head.named_modules() if head is not None else ()):
             if name.split(".")[-1] in std:
                 m.weight.normal_(0.0, std[name.split(".")[-1]], generator=g)
 

@@ -1,13 +1,12 @@
-"""The port's backbones; importing the package registers them (VAN and
-``van_b0``-``van_b3``; ``ResNet``, ``Resnet{18,26,34,38,50,101,152}`` and
-``Resnet{50,101}_v1d``; SSD's ``SSDVGG`` and ``SSD_VGG16``). The
-ConvNeXt names (the JAX package's, and the ``Convnext_xlarge`` of
-``projects/roi_transformer``) raise, naming their ROADMAP item."""
+"""The port's backbones; importing the package registers them, in the
+JAX package's order: ConvNeXt (``convnext_tiny`` .. ``convnext_xlarge``),
+the jimm scope (``van_tiny`` .. ``van_large``, the two Swin-384 forms,
+the unported jimm names, which raise), LSKNet (``lsknet_t``,
+``lsknet_s``), ``Res2Net`` (``res2net{50,101}_v1b``), ResNet
+(``Resnet{18,26,34,38,50,101,152}``, ``Resnet{50,101}_v1d``),
+``SK2Res2Net`` (``sk2res2net101_v1b``), SSD's ``SSDVGG`` and
+``SSD_VGG16``, Swin (``swin_tiny``, ``swin_small``, ``swin_base``) and
+VAN (``van_b0`` .. ``van_b3``)."""
 
-from ...utils.registry import BACKBONES, register_unported
-from . import resnet, ssd_vgg, van  # noqa: F401
-
-register_unported(BACKBONES, (
-    "ConvNeXt", "convnext_tiny", "convnext_small", "convnext_base",
-    "convnext_large", "convnext_xlarge", "Convnext_xlarge"),
-    "the backbone", "12")
+from . import (convnext, jimm_scope, lsknet, res2net, resnet,  # noqa: F401
+               sk2res2net, ssd_vgg, swin, van)

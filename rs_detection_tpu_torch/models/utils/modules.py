@@ -1,7 +1,7 @@
 """Shared layers (counterpart of ``rs_detection_tpu/models/utils/
-modules.py``): the flax-semantics BatchNorm, DropPath, conv / linear
-calls that run a module in its input's dtype, and the conv call of the
-int8 serving mode.
+modules.py``): the flax-semantics BatchNorm, DropPath, conv / linear /
+LayerNorm calls that run a module in its input's dtype, and the conv
+call of the int8 serving mode.
 
 Training keeps f32 master weights and computes in the input's dtype
 (bf16 on the card), as the JAX model with ``compute_dtype`` does:
@@ -44,6 +44,12 @@ def maybe_int8_conv2d(m: nn.Conv2d, x, int8: bool):
 def linear(m: nn.Linear, x):
     """``m(x)`` with ``m``'s weights in x's dtype."""
     return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
+
+
+def layer_norm(m: nn.LayerNorm, x):
+    """``m(x)`` over the last axis with ``m``'s weights in x's dtype."""
+    return F.layer_norm(x, m.normalized_shape, m.weight.to(x.dtype),
+                        m.bias.to(x.dtype), m.eps)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

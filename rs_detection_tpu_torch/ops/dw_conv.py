@@ -128,17 +128,18 @@ def _memory_format(t):
 
 def dw_wgrad_reference(x, g, k: int, dilation: int = 1):
     """Plain tap loop: x, g [N, C, H, W] -> [k*k, C] f32 (taps row-major),
-    products in f32, sums in f32."""
+    products in f32, sums in f32 (f64 for f64 inputs)."""
     n, c, h, w = x.shape
     p = dilation * (k - 1) // 2
     xp = F.pad(x, (p, p, p, p))
-    gf = g.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    gf = g.to(acc)
     taps = []
     for ky in range(k):
         for kx in range(k):
             sl = xp[:, :, ky * dilation:ky * dilation + h,
                     kx * dilation:kx * dilation + w]
-            taps.append((sl.float() * gf).sum(dim=(0, 2, 3)))
+            taps.append((sl.to(acc) * gf).sum(dim=(0, 2, 3)))
     return torch.stack(taps)
 
 

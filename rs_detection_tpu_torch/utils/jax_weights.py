@@ -13,7 +13,14 @@ names, so the mapping is mechanical:
   an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``, and
   ORConv2d's rank-3 ARF kernel ``(out, in / nOr, nOr * k * k)`` keeps its
   layout (the port's parameter has it);
-* every other leaf (``bias``, ``layer_scale_*``) keeps its name;
+* every other leaf (``bias``, ``layer_scale_*``, ConvNeXt's ``gamma``,
+  SK2Res2Net's ``sk/alpha``, Swin's ``relative_position_bias_table``)
+  keeps its name; the automatic flax names (``Conv_k``, ``Norm_k``,
+  ``LayerNorm_0``, ``Dense_k``) are the port's module names too;
+* a Swin ``relative_position_bias_table`` that flax made for a window
+  smaller than the block's (a stage whose map is smaller than the window)
+  goes to the rows of the port's whole-window table that window reads
+  (``embed_bias_table``), the rows it never reads set to 0;
 * the ``loss_state`` collection (the running statistics of the EFL and
   EQLv2 heads, NamedTuples in a live tree, dicts by field in a saved one)
   maps by the same rule: ``_bbox_head/efl/pos_grad`` is the head's buffer
@@ -107,6 +114,23 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def embed_bias_table(small: np.ndarray, rows: int) -> np.ndarray:
+    """A Swin bias table of a (2w - 1)^2-row window as the ``rows`` =
+    (2W - 1)^2 rows of a W >= w window's table: offset (dy, dx) moves
+    from row (dy + w - 1) * (2w - 1) + dx + w - 1 to (dy + W - 1) *
+    (2W - 1) + dx + W - 1; the offsets beyond w are 0."""
+    side, big = round(small.shape[0] ** 0.5), round(rows ** 0.5)
+    if side * side != small.shape[0] or big * big != rows or side > big \
+            or side % 2 == 0 or big % 2 == 0:
+        raise ValueError(f"no bias table of {rows} rows holds one of "
+                         f"{small.shape[0]}")
+    out = np.zeros((big, big) + small.shape[1:], small.dtype)
+    lo = (big - side) // 2
+    out[lo:lo + side, lo:lo + side] = small.reshape(
+        (side, side) + small.shape[1:])
+    return out.reshape((rows,) + small.shape[1:])
+
+
 def loss_state_names(module: nn.Module):
     """The state_dict names of ``module``'s buffers that hold a JAX
     ``loss_state`` variable (``LossState`` of the head variants)."""
@@ -126,6 +150,10 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     if "loss_state" not in variables:
         state = {k: v for k, v in state.items()
                  if k not in loss_state_names(module)}
+    for k, a in arrays.items():
+        if k.endswith("relative_position_bias_table") and k in state \
+                and a.shape != tuple(state[k].shape):
+            arrays[k] = embed_bias_table(a, state[k].shape[0])
     missing = sorted(set(state) - set(arrays))
     unexpected = sorted(set(arrays) - set(state))
     if missing or unexpected:

@@ -176,15 +176,16 @@ def test_the_zoo_builds_67_of_80_model_configs():
     """Every model config under ``configs/`` and ``projects/*/configs/``
     (the preprocess configs and the 4 YOLO ``*_base.py`` fragments hold
     none) on the meta device: 76 build since the YOLO family (67 after
-    R3Det, whence the name; 69 after SSD); of the 4 others, 1 raises
-    naming its ROADMAP item (ConvNeXt, 12) and the 3 ``*_r2_*`` S2ANet
-    configs raise the ``KeyError`` they raise in JAX."""
+    R3Det, whence the name; 69 after SSD); the 4 others raise the
+    ``KeyError`` they raise in JAX: the 3 ``*_r2_*`` S2ANet configs and
+    the ConvNeXt RoI-Transformer (``Convnext_xlarge``, which neither
+    package registers). None raises "not ported"."""
     paths = sorted(
         glob.glob(os.path.join(REPO, "configs", "**", "*.py"),
                   recursive=True)
         + glob.glob(os.path.join(REPO, "projects", "*", "configs", "**",
                                  "*.py"), recursive=True))
-    built, items, key_errors = 0, [], []
+    built, key_errors = 0, []
     for p in paths:
         if p.endswith("_base.py") or "/preprocess/" in p:
             continue
@@ -194,11 +195,10 @@ def test_the_zoo_builds_67_of_80_model_configs():
             with torch.device("meta"):
                 reg.build_from_cfg(m, reg.MODELS)
             built += 1
-        except NotImplementedError as e:
-            items.append(str(e).split("item ")[-1].rstrip(")"))
         except KeyError:
             key_errors.append(os.path.basename(p))
-    assert built + len(items) + len(key_errors) == 80
+    assert built + len(key_errors) == 80
     assert built == 76
-    assert sorted(items) == ["12"]
-    assert len(key_errors) == 3 and all("_r2_" in k for k in key_errors)
+    assert len(key_errors) == 4
+    assert sorted(k for k in key_errors if "_r2_" not in k) == [
+        "RoITrans_convnext_xlarge_5e-5.py"]

@@ -7,8 +7,8 @@ normalize to the same kwargs, each builds at full width with its values
 in the modules (on the meta device), and each config's tiny form
 (Resnet18, 32-wide FPN and heads, the config's anchors, coders, classes
 and stages) predicts as the JAX one from the same weights. The ConvNeXt
-config raises, naming its ROADMAP item; the 6 Gliding Vertex configs
-build (``tests/test_torch_gliding_configs.py``). CPU, f32."""
+config raises the ``KeyError`` it raises in JAX; the 6 Gliding Vertex
+configs build (``tests/test_torch_gliding_configs.py``). CPU, f32."""
 
 import copy
 import glob
@@ -189,9 +189,17 @@ CONVNEXT = os.path.join(PROJECTS, "roi_transformer", "configs",
 @pytest.mark.parametrize("path", [CONVNEXT],
                          ids=lambda p: os.path.basename(p)[:-3])
 def test_unported_configs_raise_with_their_item(path):
-    """ConvNeXt waits for item 12: its config raises naming the item,
-    never builds something else. The Gliding Vertex configs build
+    """The ConvNeXt config names ``Convnext_xlarge``, which neither
+    package registers (JAX has ``convnext_xlarge``): it raises the same
+    ``KeyError`` in both, never builds something else (ROADMAP, Queue 3;
+    item 12 ported ConvNeXt). The Gliding Vertex configs build
     (``tests/test_torch_gliding_configs.py``)."""
-    with torch.device("meta"), pytest.raises(NotImplementedError,
-                                             match="item 12"):
+    with pytest.raises(KeyError, match="'Convnext_xlarge' is not "
+                       "registered in registry 'backbones'"):
+        jax.eval_shape(lambda: jreg.build_from_cfg(
+            JConfig(path).model, jreg.MODELS).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    with torch.device("meta"), pytest.raises(
+            KeyError, match="'Convnext_xlarge' is not registered in "
+            "registry 'backbones'"):
         reg.build_from_cfg(Config(path).model, reg.MODELS)
