@@ -325,6 +325,27 @@ Phases, each of which raises (exit code 1) on failure:
  54. Res2Net-101, SK2Res2Net-101 and Swin-L-384 at 1024^2, batch 2,
      f32: a forward and a backward each; output shapes, finite
      gradients, ms and peak memory
+ 55. data parallel, an NCCL group of one (``parallel/dist.py``), in a
+     child process with ``CUBLAS_WORKSPACE_CONFIG`` under deterministic
+     algorithms: phase 10's VAN-b3 step at batch 8, 1024^2, 42 boxes a
+     tile, from one set of weights without a group and in the group:
+     losses, parameters and BN statistics bit for bit; K1 1 / K3 1 / K6
+     114 a step; one ``make_eval_step`` call bit for bit as ``predict``
+     (K2 38 / K1 1); ms of both steps and of the eval step
+ 56. data parallel, two gloo ranks sharing the card (NCCL refuses two
+     ranks on one device), spawned with a time limit: the tiny config's
+     AdamW step on 4 images (samplers drawing a subset, DropPath 0.2)
+     and ``make_eval_step`` on 3 against one process on the card, to the
+     stated tolerances; the ranks' parameters bit for bit
+ 57. data parallel at full width: two gloo ranks sharing the card,
+     spawned with a time limit, each running phase 55's VAN-b3 bf16
+     step (DropPath 0.1) on 4 of the 8 images, against one process on
+     the 8 and a control on 4 alone, to ``TWO_RANKS_TOL``: losses,
+     gradients, parameters (the RPN's tightly: no proposal reaches it),
+     BN statistics; K1 1 / K3 1 / K6 114 a rank
+     in the grouped step; ``make_eval_step`` on 7 images (one rank pads)
+     bit for bit as ``predict`` on the rank's rows (K2 38 / K1 1); the
+     ranks' parameters bit for bit
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -347,9 +368,11 @@ tasks, ``retinanet_*_launches``, phases 43 and 45's ``fcos_*`` and
 ``yolox_*_launches``, all 0; phases 52-53's train and test tasks,
 ``lsknet_*_launches`` and ``convnext_*_launches``; K6's time, plain
 time, bound and ``conv2d_weight`` time at ConvNeXt-XL's shapes, the
-``convnext_*`` keys of its entry), the
-card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+``convnext_*`` keys of its entry; every kernel's launches in phase 55's
+grouped step and eval step, ``data_parallel_train_launches`` and
+``data_parallel_eval_launches``, and in phase 57's (rank 0's),
+``data_parallel_two_ranks_*_launches``), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2679,6 +2702,561 @@ def phase_overfit(torch, dev, tmp, card):
     if f"sha256 {digest}" not in proc.stdout:
         raise AssertionError("the loaded runner is not the child's")
     return runner, ds_dir, saved_cfg
+
+
+GROUP_CHILD = "--group-of-one-child"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def torchrun_env(rank, world, port):
+    """The variables torchrun gives a rank on one host, all on card 0."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def group_of_one_child():
+    """Phase 55 in a process of its own (``CUBLAS_WORKSPACE_CONFIG`` set
+    by the parent, ``deterministic``): the full-width VAN-b3 training
+    step of phase 10 from one set of weights, first with no process
+    group, then in an NCCL group of one (``parallel/dist.py``); losses,
+    updated parameters and BN statistics bit for bit, then one
+    ``make_eval_step`` call against ``predict``. Prints its lines and a
+    last ``group_of_one {json}`` line of launches and times."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rs_detection_tpu_torch.flagship import (build_flagship,
+                                                 make_targets, normalize)
+    from rs_detection_tpu_torch.ops import dw_conv as dwc
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.ops import van_mlp as vm
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import AdamW
+    from rs_detection_tpu_torch.parallel import dist
+    from rs_detection_tpu_torch.parallel import train_step as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    counted = {"roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
+               "roi_align_rotated_pyramid_bwd":
+                   ra.roi_align_rotated_pyramid_bwd_cuda,
+               "dw_wgrad": dwc.dw_wgrad_cuda, "van_mlp": vm.van_mlp_cuda}
+    model = build_flagship(tiny=False, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0),
+                           train=True)
+    sched = StepLR([7, 10], warmup="linear", warmup_iters=500,
+                   warmup_ratio=1.0 / 3)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    images = normalize(torch.randint(0, 256, (BATCH, TILE, TILE, 3),
+                                     generator=gen, device=dev,
+                                     dtype=torch.uint8))
+    targets = make_targets(BATCH, TILE, MAX_GT, gen)
+    start = copy.deepcopy(model.state_dict())
+
+    def step_from_start():
+        model.load_state_dict(start)
+        opt = AdamW(model.parameters(), lr=1e-4, weight_decay=0.05,
+                    grad_clip=dict(max_norm=35))
+        torch.manual_seed(7)
+        losses = train_mod.train_step(
+            model, opt, sched, images, targets,
+            torch.Generator(device=dev).manual_seed(13), epoch=0)
+        torch.cuda.synchronize()
+        return losses
+
+    def timed(n=5):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step_from_start()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[len(times) // 2]
+
+    def snapshot(losses):
+        return ({k: v.clone() for k, v in losses.items()},
+                {k: v.detach().clone() for k, v in model.state_dict().items()})
+
+    with deterministic(torch):
+        step_from_start()  # warm-up: cuDNN's choices, the allocator
+        plain = snapshot(step_from_start())
+        plain_ms = timed()
+        dist.init_process_group(device=dev)  # NCCL, torchrun's environment
+        try:
+            for fn in counted.values():
+                fn.launches = 0
+            grouped = snapshot(step_from_start())
+            train_launches = {k: fn.launches for k, fn in counted.items()}
+            grouped_ms = timed()
+            bad = [k for k in plain[0] if not torch.equal(plain[0][k],
+                                                          grouped[0][k])]
+            bad += [k for k in plain[1] if not torch.equal(plain[1][k],
+                                                           grouped[1][k])]
+            if bad:
+                raise AssertionError(f"the group of one differs from the "
+                                     f"plain step in {bad[:8]}")
+            want = {"roi_align_rotated_pyramid": 1,
+                    "roi_align_rotated_pyramid_bwd": 1,
+                    "dw_wgrad": 3 * sum(st[3] for st in STAGES),
+                    "van_mlp": 0}
+            if train_launches != want:
+                raise AssertionError(f"launches {train_launches}, expected "
+                                     f"{want}")
+            model.to(torch.bfloat16).eval()
+            sf = torch.ones(BATCH, device=dev)
+            with torch.no_grad():
+                ref = model.predict(images, sf)
+                torch.cuda.synchronize()
+                for fn in counted.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                got = train_mod.make_eval_step(model)(images, sf)
+                torch.cuda.synchronize()
+                eval_ms = 1e3 * (time.perf_counter() - t0)
+            eval_launches = {k: fn.launches for k, fn in counted.items()}
+            bad = [k for k in ref if not torch.equal(ref[k], got[k])]
+            if bad or set(ref) != set(got):
+                raise AssertionError(f"make_eval_step differs from predict "
+                                     f"in {bad}")
+        finally:
+            dist.destroy_process_group()
+    vals = {k: float(v) for k, v in grouped[0].items()}
+    log(f"  VAN-b3 Oriented R-CNN, batch {BATCH}, {TILE}^2, bf16 compute, "
+        f"{MAX_GT} boxes a tile: plain step {plain_ms:.1f} ms, NCCL group "
+        f"of one {grouped_ms:.1f} ms (median of 5, each from the same "
+        f"weights, deterministic algorithms); losses, "
+        f"{len(grouped[1])} parameters and buffers (BN statistics among "
+        f"them) bit for bit; losses " + ", ".join(
+            f"{k} {v:.4f}" for k, v in vals.items())
+        + f"; launches of the grouped step {train_launches}; one "
+        f"make_eval_step call {eval_ms:.1f} ms, equal to predict bit for "
+        f"bit, launches {eval_launches}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+    print("group_of_one " + json.dumps(dict(
+        train_launches=train_launches, eval_launches=eval_launches,
+        plain_ms=plain_ms, grouped_ms=grouped_ms, eval_ms=eval_ms)),
+        flush=True)
+
+
+def phase_group_of_one(torch, card):
+    """Phase 55: ``group_of_one_child`` in a process of its own (the NCCL
+    group and ``CUBLAS_WORKSPACE_CONFIG`` stay out of this one); returns
+    its ``group_of_one`` record."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               **torchrun_env(0, 1, free_port()))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           GROUP_CHILD], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    record = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("group_of_one "):
+            record = json.loads(line[len("group_of_one "):])
+        else:
+            log(line)
+    if proc.returncode != 0 or record is None:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise AssertionError(f"the group-of-one child exited "
+                             f"{proc.returncode}")
+    return record
+
+
+def phase_gloo_two_ranks(torch, dev, tmp, card):
+    """Phase 56: the tiny Oriented R-CNN's AdamW step with its samplers
+    drawing a subset and DropPath at 0.2, on 4 images: two ranks of 2
+    images each, spawned children sharing the card over gloo (NCCL
+    refuses two ranks on one device), against this process on the 4
+    (``tests/torch_dp_children.py``, the CPU tests' tasks); then
+    ``make_eval_step`` on 3 images (one rank pads). The card's atomics
+    and the collectives' order leave rounding: losses and gradients to
+    1e-4 of their scale, parameters within 2 lr (1e-5 where the gradient
+    is not noise), BN statistics 1e-4, eval outputs 1e-4 px / 1e-5."""
+    import numpy as np
+
+    import torch_dp_children as children
+
+    step_kw = dict(n=4, drop_path=0.2, take_all=False, device="cuda:0")
+    t0 = time.perf_counter()
+    one = children.orcnn_step(**step_kw)
+    one_eval = children.orcnn_eval(n=3, device="cuda:0")
+    one_s = time.perf_counter() - t0
+    root = os.path.join(tmp, "gloo_two_ranks")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    two = [dict(zip(["orcnn_step", "orcnn_eval"], r))
+           for r in children.run_world("several", 2, dict(calls=[
+               ("orcnn_step", step_kw),
+               ("orcnn_eval", dict(n=3, device="cuda:0"))]), root,
+               timeout=300)]
+    two_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / max(
+            float(np.abs(b).max()), 1e-12)
+
+    worst = {}
+    for r, out in enumerate(two):
+        got = out["orcnn_step"]
+        for k, v in one["losses"].items():
+            e = abs(got["losses"][k] - v) / max(abs(v), 1.0)
+            worst["losses"] = max(worst.get("losses", 0.0), e)
+        for k, g in one["grads"].items():
+            if _before_bn(k):
+                continue
+            worst["grads"] = max(worst.get("grads", 0.0),
+                                 rel(got["grads"][k], g))
+        lr = got["lr"]
+        for k, p in one["params"].items():
+            diff = np.abs(got["params"][k] - p)
+            g = one["grads"][k]
+            sure = np.abs(g) > 1e-3 * max(np.abs(g).max(), 1e-12)
+            if diff.max() > 2 * lr + 1e-5 or (
+                    not _before_bn(k) and sure.any()
+                    and diff[sure].max() > 1e-5):
+                raise AssertionError(f"rank {r}: parameter {k} moved "
+                                     f"{diff.max():.3e} from one process's")
+        for k, v in one["stats"].items():
+            e = float(np.abs(got["stats"][k] - v).max()) / max(
+                float(np.abs(v).max()), 1.0)
+            worst["stats"] = max(worst.get("stats", 0.0), e)
+        for k, v in one_eval.items():
+            if v.dtype == bool:
+                if not np.array_equal(out["orcnn_eval"][k], v):
+                    raise AssertionError(f"rank {r}: eval {k} differs")
+                continue
+            e = float(np.abs(out["orcnn_eval"][k] - v).max())
+            worst[f"eval_{k}"] = max(worst.get(f"eval_{k}", 0.0), e)
+    tol = dict(losses=1e-4, grads=1e-4, stats=1e-4, eval_polys=1e-4,
+               eval_scores=1e-5)
+    over = {k: v for k, v in worst.items() if v > tol[k]}
+    if over:
+        raise AssertionError(f"two gloo ranks against one process: {over} "
+                             f"past {tol}")
+    for k in one["params"]:
+        if not np.array_equal(two[0]["orcnn_step"]["params"][k],
+                              two[1]["orcnn_step"]["params"][k]):
+            raise AssertionError(f"the ranks' {k} differ")
+    log(f"  tiny Oriented R-CNN, 2 gloo ranks x 2 images on one card "
+        f"against one process on 4 ({one_s:.1f} s here, {two_s:.1f} s for "
+        f"the two children): worst relative errors " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (tolerances {tol}); the ranks' parameters bit for bit; gloo "
+        f"took the card's tensors for all_reduce and all_gather [{card}]")
+
+
+TWO_RANKS_CHILD = "--two-ranks-child"
+# phase 57: two ranks' bf16 step against one process's (PERF.md, PR 21):
+# losses relative to max(|l|, 1); gradients as the relative L2 norm of the
+# difference; BN running statistics relative to max(|v|, 1) a leaf; of the
+# parameter elements whose gradient is over 1e-1 of its leaf's largest, the
+# share that stepped otherwise (an AdamW first step moves each by about
+# lr * sign(g)). "_rpn": the RPN's losses and its head's parameters, which
+# no proposal reaches. The rest of the step follows the proposals, whose
+# top-k order bf16 rounding reorders among near ties at random weights; a
+# proposal that moves shifts the slots, and with them the sampler's draws,
+# of all below it, so the RoI head trains on other RoIs: those measures
+# are held loosely (the flips of all parameters only reported), the RPN's
+# and the BN statistics (the backbone sees no proposal) tightly
+TWO_RANKS_TOL = dict(losses=1e-2, grads=5e-2, losses_rpn=1e-3,
+                     grads_rpn=5e-2, sure_flips_rpn=1e-2, stats=1e-3)
+TWO_RANKS_DROP_PATH = 0.1
+TWO_RANKS_EVAL = BATCH - 1  # images of the eval step: rank 1 pads one
+
+
+def two_ranks_child(out_dir):
+    """Phase 57's rank ``RANK`` of 2, sharing card 0 over gloo (NCCL
+    refuses two ranks on one device), ``CUBLAS_WORKSPACE_CONFIG`` set by
+    the parent, deterministic: phase 55's VAN-b3 step (bf16, 1024^2, 42
+    boxes a tile, the real samplers) with DropPath at 0.1 in every
+    block, on its 4 of the 8 images. Rank 0 first runs the step in one
+    process on all 8 (the reference) and on its own 4 alone (the
+    control: what a step without the global batch gives), then joins.
+    The counts are set to 0 just before the grouped step and read just
+    after it. Then ``make_eval_step`` on 7 images against ``predict`` on
+    the rank's rows (rank 1's padded with a copy of the last image), bit
+    for bit. Writes ``rank{r}.json``: launches, times, the parameters'
+    sha256 and, on rank 0, the errors against the reference."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rs_detection_tpu_torch.flagship import (build_flagship,
+                                                 make_targets, normalize)
+    from rs_detection_tpu_torch.models.utils.modules import DropPath
+    from rs_detection_tpu_torch.ops import dw_conv as dwc
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.ops import van_mlp as vm
+    from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+    from rs_detection_tpu_torch.optims.optimizer import AdamW
+    from rs_detection_tpu_torch.parallel import dist
+    from rs_detection_tpu_torch.parallel import train_step as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", 0)
+    counted = {"roi_align_rotated_pyramid": ra.roi_align_rotated_pyramid_cuda,
+               "roi_align_rotated_pyramid_bwd":
+                   ra.roi_align_rotated_pyramid_bwd_cuda,
+               "dw_wgrad": dwc.dw_wgrad_cuda, "van_mlp": vm.van_mlp_cuda}
+    model = build_flagship(tiny=False, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0),
+                           train=True)
+    n_drop = 0
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = TWO_RANKS_DROP_PATH
+            n_drop += 1
+    sched = StepLR([7, 10], warmup="linear", warmup_iters=500,
+                   warmup_ratio=1.0 / 3)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    images = normalize(torch.randint(0, 256, (BATCH, TILE, TILE, 3),
+                                     generator=gen, device=dev,
+                                     dtype=torch.uint8))
+    targets = make_targets(BATCH, TILE, MAX_GT, gen)
+    start = copy.deepcopy(model.state_dict())
+    half = BATCH // 2
+
+    def step(rows=slice(None)):
+        model.load_state_dict(start)
+        opt = AdamW(model.parameters(), lr=1e-4, weight_decay=0.05,
+                    grad_clip=dict(max_norm=35))
+        torch.manual_seed(7)
+        losses = train_mod.train_step(
+            model, opt, sched, images[rows],
+            {k: v[rows] for k, v in targets.items()},
+            torch.Generator(device=dev).manual_seed(13), epoch=0)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in losses.items()},
+                opt.param_groups[0]["lr"])
+
+    def timed(rows, n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step(rows)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[len(times) // 2]
+
+    def state():
+        return dict(
+            grads={k: (torch.zeros_like(p) if p.grad is None
+                       else p.grad.detach().clone())
+                   for k, p in model.named_parameters()},
+            params={k: p.detach().clone()
+                    for k, p in model.named_parameters()},
+            stats={k: v.detach().clone()
+                   for k, v in model.state_dict().items()
+                   if k.endswith(("running_mean", "running_var"))})
+
+    def errors(losses, got, lr, ref_losses, ref):
+        """Each measure of ``TWO_RANKS_TOL`` of (losses, got) against
+        the reference."""
+        rel = {k: abs(losses[k] - v) / max(abs(v), 1.0)
+               for k, v in ref_losses.items()}
+        e = dict(losses=max(rel.values()),
+                 losses_rpn=max(v for k, v in rel.items() if "rpn" in k))
+        sums = {}  # group -> [diff^2, ref^2, flips, sure elements]
+        moved = 0.0
+        for k, g in ref["grads"].items():
+            d = (got["params"][k] - ref["params"][k]).abs()
+            moved = max(moved, float(d.max()))
+            if _before_bn(k):
+                continue
+            sure = g.abs() > 0.1 * g.abs().max().clamp(min=1e-12)
+            part = [float((got["grads"][k].double() - g.double()).pow(2)
+                          .sum()), float(g.double().pow(2).sum()),
+                    int((d[sure] > lr / 2).sum()), int(sure.sum())]
+            for group in ("", "_rpn") if k.startswith("rpn.") else ("",):
+                acc = sums.setdefault(group, [0.0, 0.0, 0, 0])
+                for i, v in enumerate(part):
+                    acc[i] += v
+        for group, (num, den, flips, sure_n) in sums.items():
+            e["grads" + group] = (num / max(den, 1e-30)) ** 0.5
+            e["sure_flips" + group] = flips / max(sure_n, 1)
+        e["stats"] = max(float((got["stats"][k] - v).abs().max())
+                         / max(float(v.abs().max()), 1.0)
+                         for k, v in ref["stats"].items())
+        e["moved_max"] = moved
+        e["moved_bound"] = 2 * lr + 1e-6
+        return e
+
+    out = dict(rank=rank, drop_path_modules=n_drop)
+    with deterministic(torch):
+        if rank == 0:
+            step()  # warm-up: cuDNN's choices, the allocator
+            ref_losses, lr = step()
+            ref = state()
+            out["plain_ms"] = timed(slice(None))
+            ctrl_losses, _ = step(slice(0, half))
+            out["control"] = errors(ctrl_losses, state(), lr, ref_losses,
+                                    ref)
+            out["plain_losses"] = ref_losses
+            out["plain_peak_gib"] = torch.cuda.max_memory_allocated(
+                dev) / 2**30
+        dist.init_process_group(device=dev, backend="gloo")
+        try:
+            mine = slice(rank * half, (rank + 1) * half)
+            step(mine)  # warm-up at the rank's batch
+            for fn in counted.values():
+                fn.launches = 0
+            losses, lr = step(mine)
+            out["train_launches"] = {k: fn.launches
+                                     for k, fn in counted.items()}
+            got = state()
+            out["grouped_ms"] = timed(mine)
+            out["losses"] = losses
+            if rank == 0:
+                out["errors"] = errors(losses, got, lr, ref_losses, ref)
+                del ref
+            out["params_sha256"] = hashlib.sha256(b"".join(
+                got["params"][k].cpu().numpy().tobytes()
+                for k in sorted(got["params"]))).hexdigest()
+            del got
+            model.to(torch.bfloat16).eval()
+            n = TWO_RANKS_EVAL
+            sf = torch.ones(n, device=dev)
+            pad = -n % 2
+            own = torch.cat([images[:n], images[n - 1:n].expand(
+                pad, *images.shape[1:])])[rank * (n + pad) // 2:
+                                          (rank + 1) * (n + pad) // 2]
+            with torch.no_grad():
+                ref_eval = model.predict(own, torch.ones(own.shape[0],
+                                                         device=dev))
+                torch.cuda.synchronize()
+                for fn in counted.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                got_eval = train_mod.make_eval_step(model)(images[:n], sf)
+                torch.cuda.synchronize()
+                out["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+            out["eval_launches"] = {k: fn.launches
+                                    for k, fn in counted.items()}
+            lo = rank * (n + pad) // 2
+            keep = min(n - lo, own.shape[0])
+            out["eval_equal"] = sorted(got_eval) == sorted(ref_eval) and all(
+                torch.equal(got_eval[k][lo:lo + keep], v[:keep])
+                for k, v in ref_eval.items())
+            out["eval_shapes"] = {k: list(v.shape)
+                                  for k, v in got_eval.items()}
+        finally:
+            dist.destroy_process_group()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_two_ranks_full(torch, tmp, card):
+    """Phase 57: ``two_ranks_child`` as two processes on the card with a
+    time limit (a rank's failure, or the limit, fails the phase; both
+    are killed); the reference, the control and the ranks' figures
+    against ``TWO_RANKS_TOL``. Returns the launches of the grouped step
+    and eval step (rank 0's; the ranks' must agree)."""
+    root = os.path.join(tmp, "two_ranks_full")
+    os.makedirs(root)
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   **torchrun_env(r, 2, port))
+        log_f = open(os.path.join(root, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), TWO_RANKS_CHILD,
+             root], env=env, cwd=ROOT, stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    deadline = time.time() + 600
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    secs = time.perf_counter() - t0
+    outs = []
+    for r, (p, _) in enumerate(procs):
+        path = os.path.join(root, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                sys.stderr.write(f.read()[-20000:])
+            raise AssertionError(f"two ranks at full width: rank {r} "
+                                 f"exited {p.returncode}")
+        with open(path) as f:
+            outs.append(json.load(f))
+    zero, one = outs
+    err, ctrl = zero["errors"], zero["control"]
+    fmt = ", ".join
+    log(f"  VAN-b3 Oriented R-CNN, batch {BATCH} = 2 gloo ranks x "
+        f"{BATCH // 2} on one card, {TILE}^2, bf16 compute, {MAX_GT} boxes "
+        f"a tile, DropPath {TWO_RANKS_DROP_PATH} in "
+        f"{zero['drop_path_modules']} blocks, deterministic: plain step "
+        f"{zero['plain_ms']:.1f} ms (one process, {BATCH} images), grouped "
+        f"step "
+        f"{zero['grouped_ms']:.1f} / {one['grouped_ms']:.1f} ms (ranks 0 / "
+        f"1, median of 3, both ranks on the one card); errors against the "
+        f"plain step " + fmt(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; the control (one process on rank 0's {BATCH // 2} images) "
+        + fmt(f"{k} {v:.3e}" for k, v in ctrl.items())
+        + f"; tolerances {TWO_RANKS_TOL}; losses plain "
+        + fmt(f"{k} {v:.4f}" for k, v in zero["plain_losses"].items())
+        + ", grouped " + fmt(f"{k} {v:.4f}" for k, v in
+                              zero["losses"].items())
+        + f"; launches of the grouped step {zero['train_launches']} / "
+        f"{one['train_launches']}; make_eval_step on {TWO_RANKS_EVAL} "
+        f"images {zero['eval_ms']:.1f} / {one['eval_ms']:.1f} ms, launches "
+        f"{zero['eval_launches']} / {one['eval_launches']}, equal to "
+        f"predict on the rank's rows: {zero['eval_equal']} / "
+        f"{one['eval_equal']}; peaks {zero['plain_peak_gib']:.2f} GiB "
+        f"(plain), {zero['peak_gib']:.2f} / {one['peak_gib']:.2f} GiB; "
+        f"{secs:.1f} s for the two children [{card}]")
+    over = {k: v for k, v in err.items() if k in TWO_RANKS_TOL
+            and v > TWO_RANKS_TOL[k]}
+    if over:
+        raise AssertionError(f"two ranks against one process: {over} past "
+                             f"{TWO_RANKS_TOL}")
+    if err["moved_max"] > err["moved_bound"]:
+        raise AssertionError(f"a parameter moved {err['moved_max']:.3e} "
+                             f"from one process's (bound 2 lr)")
+    blind = [k for k in ("losses_rpn", "stats")
+             if ctrl[k] <= TWO_RANKS_TOL[k]]
+    if blind:
+        raise AssertionError(f"the control is within the tolerance in "
+                             f"{blind}: the check cannot tell the global "
+                             f"batch")
+    if zero["params_sha256"] != one["params_sha256"]:
+        raise AssertionError("the ranks' parameters differ")
+    if not (zero["eval_equal"] and one["eval_equal"]):
+        raise AssertionError("make_eval_step differs from predict on the "
+                             "ranks' rows")
+    want = {"roi_align_rotated_pyramid": 1,
+            "roi_align_rotated_pyramid_bwd": 1,
+            "dw_wgrad": 3 * sum(st[3] for st in STAGES), "van_mlp": 0}
+    want_eval = {"roi_align_rotated_pyramid": 1,
+                 "roi_align_rotated_pyramid_bwd": 0, "dw_wgrad": 0,
+                 "van_mlp": sum(st[3] for st in STAGES)}
+    for o in outs:
+        if o["train_launches"] != want:
+            raise AssertionError(f"rank {o['rank']}: launches "
+                                 f"{o['train_launches']}, expected {want}")
+    for o in outs:
+        if o["eval_launches"] != want_eval:
+            raise AssertionError(f"rank {o['rank']}: eval launches "
+                                 f"{o['eval_launches']}, expected "
+                                 f"{want_eval}")
+    return zero["train_launches"], zero["eval_launches"]
 
 
 def compare_tile_dirs(a, b):
@@ -5553,7 +6131,19 @@ def main():
         run_phase(torch, 54, "Res2Net-101, SK2Res2Net-101 and Swin-L-384 at "
                   "1024^2: forward and backward",
                   lambda: phase_other_backbones(torch, card))
-    log(f"all 54 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        dp = run_phase(torch, 55, "data parallel, an NCCL group of one: the "
+                       "VAN-b3 training step at full width bit for bit as "
+                       "the plain step, make_eval_step as predict",
+                       lambda: phase_group_of_one(torch, card))
+        run_phase(torch, 56, "data parallel, two gloo ranks on the card: "
+                  "the tiny config's step and eval step against one process",
+                  lambda: phase_gloo_two_ranks(torch, dev, tmp, card))
+        dp2_train, dp2_eval = run_phase(
+            torch, 57, "data parallel, two gloo ranks on the card at full "
+            "width: the VAN-b3 bf16 step at batch 4 + 4 against one process "
+            "on 8, make_eval_step on 7 images",
+            lambda: phase_two_ranks_full(torch, tmp, card))
+    log(f"all 57 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -5661,6 +6251,14 @@ def main():
         k["lsknet_test_task_launches"] = lsk_test[k["name"]]
         k["convnext_train_task_launches"] = cnx_train[k["name"]]
         k["convnext_test_task_launches"] = cnx_test[k["name"]]
+        k["data_parallel_train_launches"] = dp["train_launches"].get(
+            k["name"], 0)
+        k["data_parallel_eval_launches"] = dp["eval_launches"].get(
+            k["name"], 0)
+        k["data_parallel_two_ranks_train_launches"] = dp2_train.get(
+            k["name"], 0)
+        k["data_parallel_two_ranks_eval_launches"] = dp2_eval.get(
+            k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5671,5 +6269,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == [OVERFIT_CHILD]:
         overfit_child(sys.argv[2])
+    elif sys.argv[1:2] == [GROUP_CHILD]:
+        group_of_one_child()
+    elif sys.argv[1:2] == [TWO_RANKS_CHILD]:
+        two_ranks_child(sys.argv[2])
     else:
         main()

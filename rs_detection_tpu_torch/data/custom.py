@@ -49,6 +49,9 @@ class CustomDataset:
         self.filter_empty_gt = filter_empty_gt
         self.max_gt = max_gt
         self._pool = None
+        # (rank, world) of a data-parallel run: with workers, ``batches``
+        # yields the rank's rows of each global batch (set by the runner)
+        self.shard = None
 
         with open(self.annotations_file, "rb") as f:
             self.img_infos = pickle.load(f)
@@ -101,7 +104,14 @@ class CustomDataset:
         augmentations from generators of that seed (``own_draws``), so a
         seeded epoch gives the same batches whatever the threads' order.
         With no workers the samples draw from the global generators, in
-        the JAX package's order."""
+        the JAX package's order.
+
+        With workers and ``shard`` = (rank, world) a batch is the rank's
+        rows of the global batch: the rank reads only its samples, the
+        seeds drawn for the whole batch (so each sample draws what it
+        draws in one process), and collates them to their own largest
+        image (the runner pads them to the global batch's shape). The
+        world size must divide every batch, the last one too."""
         order = np.arange(self.total_len)
         if self.shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -113,14 +123,27 @@ class CustomDataset:
             if len(idxs) == 0:
                 break
             if pool is not None:
+                mine = self._shard_rows(len(idxs))
                 seeds = np.random.randint(2**31, size=len(idxs))
-                items = list(pool.map(self._own_draws_item, idxs, seeds))
+                items = list(pool.map(self._own_draws_item, idxs[mine],
+                                      seeds[mine]))
             else:
                 items = [self[int(i)] for i in idxs]
             samples = [(np.asarray(img, np.float32), tgt)
                        for img, tgt in items]
             images, targets = collate_batch(samples, self.max_gt)
             yield images, targets, [tgt for _, tgt in items]
+
+    def _shard_rows(self, n: int) -> slice:
+        """The rank's rows of a batch of ``n``."""
+        if self.shard is None:
+            return slice(None)
+        rank, world = self.shard
+        if n % world:
+            raise ValueError(f"a batch of {n} does not split over a world "
+                             f"of {world} processes")
+        k = n // world
+        return slice(rank * k, (rank + 1) * k)
 
     def _own_draws_item(self, idx, seed):
         with own_draws(int(seed)):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 from typing import Optional
 
 import torch
@@ -23,6 +24,7 @@ from torch import nn
 
 from .models.networks.rcnn import RCNN, OrientedRCNN
 from .ops import box_ops as B
+from .parallel import dist
 from .utils.registry import MODELS, build_from_cfg
 
 # on-device input normalization of the competition config (to_bgr=False)
@@ -44,12 +46,15 @@ NUM_CLASSES = 10
 def resolve_device(device=None) -> torch.device:
     """``device``, or the CUDA card when None (an error where there is
     none: the port runs on the card unless the caller asks for the
-    CPU)."""
+    CPU); under a process group of more than one rank, the rank's card
+    ``cuda:LOCAL_RANK``."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card by "
                            "default; pass device='cpu' to run on the CPU")
+    if dist.world() > 1:
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     return torch.device("cuda")
 
 

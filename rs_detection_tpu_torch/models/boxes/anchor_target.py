@@ -28,7 +28,8 @@ class AnchorTargetResult(NamedTuple):
 @torch.no_grad()
 def anchor_target_single(anchors, inside_mask, gt_bboxes, gt_mask,
                          gt_labels, assigner, sampler, encode_fn, generator,
-                         pos_weight: float = -1.0, gt_bboxes_encode=None):
+                         pos_weight: float = -1.0, gt_bboxes_encode=None,
+                         gt_bboxes_ignore=None, gt_ignore_mask=None):
     """anchors [A, D] shared by the batch or [B, A, D] one set an image
     (S2ANet's refined anchors), hbbs or obbs as the assigner reads them;
     inside_mask [A] or [B, A]; gt_bboxes [B, G, D] (assignment boxes),
@@ -38,9 +39,13 @@ def anchor_target_single(anchors, inside_mask, gt_bboxes, gt_mask,
     encodes the obb). ``encode_fn(anchors, gts) -> deltas`` decides the
     targets' width. ``sampler.sample(assigned, generator)``: a
     ``RandomSampler`` draws from ``generator``, a ``PseudoSampler`` keeps
-    every positive and negative and takes None."""
+    every positive and negative and takes None. ``gt_bboxes_ignore`` [B,
+    I, D] and ``gt_ignore_mask`` [B, I]: ignore regions, read by an
+    assigner with ``ignore_iof_thr > 0``."""
     assigned, _ = assigner.assign(anchors, gt_bboxes, gt_mask,
-                                  anchor_mask=inside_mask)
+                                  anchor_mask=inside_mask,
+                                  gt_bboxes_ignore=gt_bboxes_ignore,
+                                  gt_ignore_mask=gt_ignore_mask)
     pos, neg = sampler.sample(assigned, generator)
     enc = gt_bboxes if gt_bboxes_encode is None else gt_bboxes_encode
     matched = (assigned - 1).clamp(0, enc.shape[1] - 1)

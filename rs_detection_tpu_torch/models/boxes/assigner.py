@@ -63,15 +63,14 @@ def assign_wrt_overlaps(overlaps, gt_mask, pos_iou_thr: float, neg_iou_thr,
 class MaxIoUAssigner:
     """Assigner built from a config dict (reference ``assigner.py``):
     hbb IoU, or rotated IoU when ``iou_calculator`` names a rotated one.
-    ``ignore_iof_thr`` (ignore regions) is not ported: no config of the
-    port sets it."""
+    Ignore regions: with ``ignore_iof_thr > 0`` and ``gt_bboxes_ignore``
+    given, an anchor covered by an ignore box beyond ``ignore_iof_thr``
+    (intersection over the anchor's area) is ignored (-1), as in JAX."""
 
     def __init__(self, pos_iou_thr, neg_iou_thr, min_pos_iou=0.0,
                  gt_max_assign_all=True, ignore_iof_thr=-1,
                  match_low_quality=True, iou_calculator=None, **_):
-        if ignore_iof_thr > 0:
-            raise NotImplementedError("MaxIoUAssigner: ignore regions "
-                                      "(ignore_iof_thr > 0) are not ported")
+        self.ignore_iof_thr = ignore_iof_thr
         self.pos_iou_thr = pos_iou_thr
         self.neg_iou_thr = (tuple(neg_iou_thr)
                             if isinstance(neg_iou_thr, (list, tuple))
@@ -82,19 +81,32 @@ class MaxIoUAssigner:
         kind = (iou_calculator or {}).get("type", "")
         self.rotated = "rotated" in kind.lower()
 
-    def overlaps(self, bboxes, gt_bboxes):
+    def overlaps(self, bboxes, gt_bboxes, mode="iou"):
         if self.rotated:
-            return box_iou_rotated(bboxes[..., :5], gt_bboxes[..., :5])
-        return bbox_overlaps_hbb(bboxes[..., :4], gt_bboxes[..., :4])
+            return box_iou_rotated(bboxes[..., :5], gt_bboxes[..., :5],
+                                   mode=mode)
+        return bbox_overlaps_hbb(bboxes[..., :4], gt_bboxes[..., :4],
+                                 mode=mode)
 
     @torch.no_grad()
-    def assign(self, bboxes, gt_bboxes, gt_mask, anchor_mask=None):
+    def assign(self, bboxes, gt_bboxes, gt_mask, anchor_mask=None,
+               gt_bboxes_ignore=None, gt_ignore_mask=None):
         """bboxes [..., A, D] against gt_bboxes [..., G, D] -> (assigned
-        [..., A], max IoU [..., A])."""
-        return assign_wrt_overlaps(
+        [..., A], max IoU [..., A]). ``gt_bboxes_ignore`` [..., I, D] with
+        its validity ``gt_ignore_mask`` [..., I] (all valid when None):
+        the ignore regions."""
+        assigned, max_overlaps = assign_wrt_overlaps(
             self.overlaps(bboxes, gt_bboxes), gt_mask, self.pos_iou_thr,
             self.neg_iou_thr, self.min_pos_iou, self.match_low_quality,
             self.gt_max_assign_all, anchor_mask=anchor_mask)
+        if self.ignore_iof_thr > 0 and gt_bboxes_ignore is not None:
+            iof = self.overlaps(bboxes, gt_bboxes_ignore, mode="iof")
+            if gt_ignore_mask is not None:
+                iof = torch.where(gt_ignore_mask[..., None, :].bool(), iof,
+                                  0.0)
+            ignore = iof.amax(dim=-1) > self.ignore_iof_thr
+            assigned = torch.where(ignore, -1, assigned)
+        return assigned, max_overlaps
 
 
 @BOXES.register_module()

@@ -1,11 +1,15 @@
 """Detection losses with weight masks and an ``avg_factor`` (counterpart
 of ``rs_detection_tpu/models/losses/common.py``): every loss takes dense
-predictions and targets, a weight per element, and sums over
-``max(avg_factor, 1)`` when one is given, else averages. The JAX
-functions' ``reduction="none"/"sum"`` is not ported: no caller uses it.
-``FocalLoss``, ``SmoothL1Loss``, ``L1Loss``, ``CrossEntropyLoss`` (softmax,
-or sigmoid with ``use_sigmoid`` / ``use_bce``), ``CrossEntropyLossForRcnn``
-and ``BinaryCrossEntropyLoss`` are the registered config forms; the heads
+predictions and targets, a weight per element, and with the default
+``reduction="mean"`` sums over ``max(avg_factor, 1)`` when one is given,
+else averages; "sum" sums and "none" gives the weighted elements, as the
+JAX functions' ``reduction``. Under a process group an ``avg_factor`` is
+a count over the global batch (``parallel/dist.py:divide_by_count``) and
+a sum is scaled by the world size, so that the ranks' mean is the global
+loss; a plain mean over equal shards needs nothing. ``FocalLoss``,
+``SmoothL1Loss``, ``L1Loss``, ``CrossEntropyLoss`` (softmax, or sigmoid
+with ``use_sigmoid`` / ``use_bce``), ``CrossEntropyLossForRcnn`` and
+``BinaryCrossEntropyLoss`` are the registered config forms; the heads
 call the functions."""
 
 from __future__ import annotations
@@ -13,22 +17,30 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...parallel import dist
 from ...utils.registry import LOSSES
 
 
-def weight_reduce_loss(loss, weight=None, avg_factor=None):
+def weight_reduce_loss(loss, weight=None, avg_factor=None,
+                       reduction="mean"):
+    """``reduction`` "none", "sum", or anything else for the mean, as
+    JAX reads it."""
     if weight is not None:
         loss = loss * weight
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum() * dist.world()
     if avg_factor is None:
         return loss.mean()
-    avg = torch.as_tensor(avg_factor, dtype=loss.dtype, device=loss.device)
-    return loss.sum() / avg.clamp(min=1.0)
+    return dist.divide_by_count(loss.sum(), avg_factor)
 
 
-def binary_cross_entropy(pred, label, weight=None, avg_factor=None):
+def binary_cross_entropy(pred, label, weight=None, avg_factor=None,
+                         reduction="mean"):
     """Sigmoid BCE on logits."""
     loss = F.binary_cross_entropy_with_logits(pred, label, reduction="none")
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def sigmoid_bce(logits, labels):
@@ -39,7 +51,8 @@ def sigmoid_bce(logits, labels):
 
 
 def sigmoid_focal_loss(pred, target_onehot, weight=None, gamma: float = 2.0,
-                       alpha: float = 0.25, avg_factor=None):
+                       alpha: float = 0.25, avg_factor=None,
+                       reduction="mean"):
     """Sigmoid focal loss (reference ``focal_loss.py:36-75``): pred [N, C]
     logits, target_onehot [N, C] in {0, 1} (a background row all zero),
     weight [N] or [N, C]."""
@@ -50,53 +63,51 @@ def sigmoid_focal_loss(pred, target_onehot, weight=None, gamma: float = 2.0,
     loss = alpha_t * ((1 - p_t) ** gamma) * ce
     if weight is not None and weight.dim() == 1:
         weight = weight[:, None]
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def smooth_l1_loss(pred, target, weight=None, beta: float = 1.0,
-                   avg_factor=None):
+                   avg_factor=None, reduction="mean"):
     """0.5 d^2 / beta below beta, d - beta / 2 above."""
     loss = F.smooth_l1_loss(pred, target, reduction="none", beta=beta)
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
-def l1_loss(pred, target, weight=None, avg_factor=None):
-    return weight_reduce_loss(torch.abs(pred - target), weight, avg_factor)
+def l1_loss(pred, target, weight=None, avg_factor=None, reduction="mean"):
+    return weight_reduce_loss(torch.abs(pred - target), weight, avg_factor,
+                              reduction)
 
 
 def softmax_cross_entropy(pred, label, weight=None, avg_factor=None,
-                          ignore_index: int = -1):
+                          ignore_index: int = -1, reduction="mean"):
     """Softmax CE over integer labels; ``ignore_index`` rows count 0."""
     loss = F.cross_entropy(pred, label, reduction="none",
                            ignore_index=ignore_index)
-    return weight_reduce_loss(loss, weight, avg_factor)
-
-
-def require_mean(name, reduction):
-    """Raise unless ``reduction`` is the mean, the one the port keeps."""
-    if reduction != "mean":
-        raise NotImplementedError(f"{name}: only reduction='mean'")
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 @LOSSES.register_module()
 class FocalLoss:
     """The config form of ``sigmoid_focal_loss`` on integer labels (0 =
-    background, k > 0 = channel k - 1). Sigmoid only, as in JAX."""
+    background, k > 0 = channel k - 1). Sigmoid only: JAX asserts
+    ``use_sigmoid``."""
 
     def __init__(self, use_sigmoid=True, gamma=2.0, alpha=0.25,
                  reduction="mean", loss_weight=1.0):
-        if not use_sigmoid or reduction != "mean":
+        if not use_sigmoid:
             raise NotImplementedError("FocalLoss: only use_sigmoid=True, "
-                                      "reduction='mean'")
+                                      "as in the JAX package")
         self.gamma = gamma
         self.alpha = alpha
+        self.reduction = reduction
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
         classes = torch.arange(1, pred.shape[-1] + 1, device=pred.device)
         onehot = (target[..., None] == classes).to(pred.dtype)
         return self.loss_weight * sigmoid_focal_loss(
-            pred, onehot, weight, self.gamma, self.alpha, avg_factor)
+            pred, onehot, weight, self.gamma, self.alpha, avg_factor,
+            self.reduction)
 
 
 @LOSSES.register_module()
@@ -104,13 +115,13 @@ class SmoothL1Loss:
     """The config form of ``smooth_l1_loss``."""
 
     def __init__(self, beta=1.0, reduction="mean", loss_weight=1.0):
-        require_mean("SmoothL1Loss", reduction)
         self.beta = beta
+        self.reduction = reduction
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
-        return self.loss_weight * smooth_l1_loss(pred, target, weight,
-                                                 self.beta, avg_factor)
+        return self.loss_weight * smooth_l1_loss(
+            pred, target, weight, self.beta, avg_factor, self.reduction)
 
 
 @LOSSES.register_module()
@@ -118,11 +129,12 @@ class L1Loss:
     """The config form of ``l1_loss``."""
 
     def __init__(self, reduction="mean", loss_weight=1.0):
-        require_mean("L1Loss", reduction)
+        self.reduction = reduction
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
-        return self.loss_weight * l1_loss(pred, target, weight, avg_factor)
+        return self.loss_weight * l1_loss(pred, target, weight, avg_factor,
+                                          self.reduction)
 
 
 @LOSSES.register_module()
@@ -133,17 +145,18 @@ class CrossEntropyLoss:
 
     def __init__(self, use_sigmoid=False, use_bce=False, reduction="mean",
                  loss_weight=1.0, ignore_index=-1):
-        require_mean(type(self).__name__, reduction)
         self.use_sigmoid = use_sigmoid or use_bce
+        self.reduction = reduction
         self.loss_weight = loss_weight
         self.ignore_index = ignore_index
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
         if self.use_sigmoid:
-            loss = binary_cross_entropy(pred, target, weight, avg_factor)
+            loss = binary_cross_entropy(pred, target, weight, avg_factor,
+                                        self.reduction)
         else:
             loss = softmax_cross_entropy(pred, target, weight, avg_factor,
-                                         self.ignore_index)
+                                         self.ignore_index, self.reduction)
         return self.loss_weight * loss
 
 
@@ -157,9 +170,9 @@ class BinaryCrossEntropyLoss:
     """The config form of ``binary_cross_entropy`` on logits."""
 
     def __init__(self, reduction="mean", loss_weight=1.0):
-        require_mean("BinaryCrossEntropyLoss", reduction)
+        self.reduction = reduction
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
-        return self.loss_weight * binary_cross_entropy(pred, target, weight,
-                                                       avg_factor)
+        return self.loss_weight * binary_cross_entropy(
+            pred, target, weight, avg_factor, self.reduction)

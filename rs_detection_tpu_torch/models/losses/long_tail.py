@@ -18,7 +18,9 @@ from typing import NamedTuple
 
 import torch
 
+from ...parallel import dist
 from ...utils.registry import LOSSES
+from .common import weight_reduce_loss
 
 
 def _one_hot(labels, n: int, dtype):
@@ -28,17 +30,10 @@ def _one_hot(labels, n: int, dtype):
 
 
 def _reduce(loss, weight=None, reduction="mean", avg_factor=None):
-    """The JAX ``weight_reduce_loss``, with its ``reduction``."""
-    if weight is not None:
-        loss = loss * weight
-    if reduction == "none":
-        return loss
-    if reduction == "sum":
-        return loss.sum()
-    if avg_factor is None:
-        return loss.mean()
-    avg = torch.as_tensor(avg_factor, dtype=loss.dtype, device=loss.device)
-    return loss.sum() / avg.clamp(min=1.0)
+    """The JAX ``weight_reduce_loss``, with its argument order
+    (``common.weight_reduce_loss``: a count over the global batch under a
+    process group)."""
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def sigmoid_bce(logits, labels):
@@ -118,15 +113,15 @@ class SeesawLoss:
         cls_sc, obj_sc = self.split_cls_score(cls_score)
         pos = labels < self.num_classes
         obj_labels = (labels == self.num_classes).long()
-        counts = _one_hot(labels, self.num_classes + 2, torch.float32).sum(0)
+        counts = dist.global_count(
+            _one_hot(labels, self.num_classes + 2, torch.float32).sum(0))
         new_state = SeesawState(state.cum_samples + counts)
         posf = pos.float() * (1.0 if weight is None else weight)
         loss_cls = seesaw_ce_loss(
             cls_sc, torch.where(pos, labels, 0), posf,
             new_state.cum_samples, self.num_classes, self.p, self.q,
             self.eps, self.reduction,
-            avg_factor if avg_factor is not None
-            else pos.sum().clamp(min=1))
+            avg_factor if avg_factor is not None else pos.sum())
         loss_obj = _reduce(_nll(obj_sc, obj_labels), weight, self.reduction,
                            avg_factor)
         return self.loss_weight * (loss_cls + loss_obj), new_state
@@ -143,12 +138,14 @@ class EQLv2State(NamedTuple):
 
 def _gradient_sums(cls_score, target, w=None):
     """The detached |dBCE/dlogit| of each element, times ``w``, summed
-    over the rows for the positive and the negative targets."""
+    over the rows (of the global batch under a process group) for the
+    positive and the negative targets."""
     prob = torch.sigmoid(cls_score.detach())
     grad = (target * (prob - 1) + (1 - target) * prob).abs()
     if w is not None:
         grad = grad * w.detach()
-    return (grad * target).sum(0), (grad * (1 - target)).sum(0)
+    return (dist.global_count((grad * target).sum(0)),
+            dist.global_count((grad * (1 - target)).sum(0)))
 
 
 @LOSSES.register_module()

@@ -21,9 +21,10 @@ ported as functions that no config reaches (the JAX
 ``adapt_cascade_head`` maps only KFIoU, so the GWD and KLD configs train
 smooth L1 there and here).
 
-Each loss weights its per-box loss and averages it (over ``avg_factor``
-when given); the JAX ``reduction="none"/"sum"`` is not ported, as in
-``common.py``: no caller uses it."""
+Each loss weights its per-box loss and reduces it as ``common.py``'s
+``weight_reduce_loss`` does: the mean (over ``avg_factor`` when given,
+a count over the global batch under a process group), or with
+``reduction`` "sum" / "none" as the JAX functions do."""
 
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from ...ops.box_ops import bbox2type, get_bbox_areas
 from ...ops.convex_sort import convex_sort
 from ...utils.registry import LOSSES
-from .common import require_mean, weight_reduce_loss
+from .common import weight_reduce_loss
 
 
 def shoelace(pts):
@@ -104,17 +105,17 @@ def _quads(pred, target, eps):
 
 
 def poly_iou_loss(pred, target, linear: bool = False, eps: float = 1e-6,
-                  weight=None, avg_factor=None):
+                  weight=None, avg_factor=None, reduction="mean"):
     """-log IoU (``linear``: 1 - IoU) of aligned boxes [B, 5] (or hbbs,
     quads), the IoU clipped below at ``eps``."""
     areas1, areas2, _, _, overlap = _quads(pred, target, eps)
     ious = torch.clamp(overlap / (areas1 + areas2 - overlap + eps), min=eps)
     loss = (1 - ious) if linear else -torch.log(ious)
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def poly_giou_loss(pred, target, eps: float = 1e-6, weight=None,
-                   avg_factor=None):
+                   avg_factor=None, reduction="mean"):
     """1 - GIoU of aligned boxes, the enclosing area that of all eight
     vertices in their angular order (as in JAX)."""
     areas1, areas2, p, t, overlap = _quads(pred, target, eps)
@@ -124,7 +125,7 @@ def poly_giou_loss(pred, target, eps: float = 1e-6, weight=None,
     enclose = convex_areas(enc_pts, torch.ones(
         enc_pts.shape[:2], dtype=torch.bool, device=enc_pts.device))
     gious = ious - (enclose - union) / torch.clamp(enclose, min=eps)
-    return weight_reduce_loss(1 - gious, weight, avg_factor)
+    return weight_reduce_loss(1 - gious, weight, avg_factor, reduction)
 
 
 @LOSSES.register_module()
@@ -134,7 +135,7 @@ class PolyIoULoss:
 
     def __init__(self, linear=False, eps=1e-6, reduction="mean",
                  loss_weight=1.0):
-        require_mean("PolyIoULoss", reduction)
+        self.reduction = reduction
         self.linear = linear
         self.eps = eps
         self.loss_weight = loss_weight
@@ -143,7 +144,8 @@ class PolyIoULoss:
         if weight is not None and weight.ndim > 1:
             weight = weight.mean(-1)
         return self.loss_weight * poly_iou_loss(
-            pred, target, self.linear, self.eps, weight, avg_factor)
+            pred, target, self.linear, self.eps, weight, avg_factor,
+            self.reduction)
 
 
 @LOSSES.register_module()
@@ -151,7 +153,7 @@ class PolyGIoULoss:
     """The config form of ``poly_giou_loss``."""
 
     def __init__(self, eps=1e-6, reduction="mean", loss_weight=1.0):
-        require_mean("PolyGIoULoss", reduction)
+        self.reduction = reduction
         self.eps = eps
         self.loss_weight = loss_weight
 
@@ -159,7 +161,7 @@ class PolyGIoULoss:
         if weight is not None and weight.ndim > 1:
             weight = weight.mean(-1)
         return self.loss_weight * poly_giou_loss(
-            pred, target, self.eps, weight, avg_factor)
+            pred, target, self.eps, weight, avg_factor, self.reduction)
 
 
 def xy_wh_r_2_xy_sigma(xywhr):
@@ -195,7 +197,7 @@ def _trace2(m):
 
 
 def gwd_loss(pred, target, fun: str = "sqrt", tau: float = 2.0, weight=None,
-             avg_factor=None):
+             avg_factor=None, reduction="mean"):
     """Gaussian Wasserstein distance loss of decoded boxes."""
     xy_p, sp = xy_wh_r_2_xy_sigma(pred)
     xy_t, st = xy_wh_r_2_xy_sigma(target)
@@ -211,11 +213,11 @@ def gwd_loss(pred, target, fun: str = "sqrt", tau: float = 2.0, weight=None,
     else:
         scale = torch.clamp(2 * torch.sqrt(torch.sqrt(det_sqrt)), min=1e-7)
         loss = torch.log1p(torch.sqrt(dis) / scale)
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def kld_loss(pred, target, fun: str = "log1p", tau: float = 1.0, weight=None,
-             avg_factor=None):
+             avg_factor=None, reduction="mean"):
     """Kullback-Leibler divergence loss of decoded boxes."""
     xy_p, sp = xy_wh_r_2_xy_sigma(pred)
     xy_t, st = xy_wh_r_2_xy_sigma(target)
@@ -229,12 +231,12 @@ def kld_loss(pred, target, fun: str = "log1p", tau: float = 1.0, weight=None,
         loss = 1 - 1 / (tau + torch.sqrt(dis))
     else:
         loss = 1 - 1 / (tau + torch.log1p(dis))
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 def kfiou_loss(pred, target, pred_decode=None, targets_decode=None, fun=None,
                beta: float = 1.0 / 9.0, eps: float = 1e-6, weight=None,
-               avg_factor=None):
+               avg_factor=None, reduction="mean"):
     """Kalman-filter IoU loss: smooth L1 of the centre deltas plus a term
     of the overlap of the decoded boxes' Gaussians (``fun`` "ln", "exp",
     else 1 - KFIoU). Degenerate boxes make the covariance singular and
@@ -257,7 +259,7 @@ def kfiou_loss(pred, target, pred_decode=None, targets_decode=None, fun=None,
     else:
         kf = 1 - kfiou
     loss = torch.clamp(xy_loss + kf, min=0)
-    return weight_reduce_loss(loss, weight, avg_factor)
+    return weight_reduce_loss(loss, weight, avg_factor, reduction)
 
 
 @LOSSES.register_module()
@@ -271,7 +273,7 @@ class GDLoss:
         if loss_type not in self.BAG:
             raise ValueError(f"GDLoss: loss_type {loss_type!r}, not one of "
                              f"{sorted(self.BAG)}")
-        require_mean("GDLoss", reduction)
+        self.reduction = reduction
         self.loss_type = loss_type
         self.fun = fun
         self.tau = tau
@@ -286,8 +288,10 @@ class GDLoss:
         if self.loss_type == "kfiou":
             loss = fn(pred, target, pred_decode=pred_decode,
                       targets_decode=targets_decode, fun=self.fun,
-                      weight=weight, avg_factor=avg_factor, **self.kwargs)
+                      weight=weight, avg_factor=avg_factor,
+                      reduction=self.reduction, **self.kwargs)
         else:
             loss = fn(pred, target, fun=self.fun, tau=self.tau,
-                      weight=weight, avg_factor=avg_factor)
+                      weight=weight, avg_factor=avg_factor,
+                      reduction=self.reduction)
         return self.loss_weight * loss

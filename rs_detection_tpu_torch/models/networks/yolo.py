@@ -39,6 +39,7 @@ from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import bbox_overlaps_hbb, greedy_suppress_mask, top_k
+from ...parallel import dist
 from ...utils.registry import BACKBONES, HEADS, MODELS, NECKS
 from ..losses.common import sigmoid_bce
 from ..utils.modules import conv2d
@@ -366,8 +367,11 @@ class YOLOv5Head(nn.Module):
                     include_self=True).view(b, h, wd, self.na)
             obj_bce = sigmoid_bce(p[..., 4], obj_t)
             total_obj = total_obj + obj_bce.mean() * self.balance[lvl]
-            total_box = total_box + box_loss / n_pos
-            total_cls = total_cls + cls_loss / n_pos
+            # n_pos over the global batch under a process group (with no
+            # positive the sums are 0, so the clamp at 1 changes nothing)
+            total_box = total_box + dist.divide_by_count(box_loss, n_pos)
+            total_cls = total_cls + dist.divide_by_count(cls_loss, n_pos)
+        bsz = dist.global_rows(bsz)
         return dict(box_loss=total_box * self.box_w * bsz,
                     obj_loss=total_obj * self.obj_w * bsz,
                     cls_loss=total_cls * self.cls_w * bsz)

@@ -225,7 +225,9 @@ class FCOSHead(nn.Module):
 
         flat_labels = labels.reshape(-1)
         pos = flat_labels < nc
-        num_pos = pos.sum().clamp(min=1).float()
+        # counts over the batch, clamped at 1 in the losses (over the
+        # global batch under a process group)
+        num_pos = pos.sum().float()
         classes = torch.arange(nc, device=dev)
         onehot = (flat_labels[:, None] == classes).to(cls.dtype)
         loss_cls = sigmoid_focal_loss(
@@ -243,7 +245,7 @@ class FCOSHead(nn.Module):
         loss_bbox = poly_iou_loss(
             B.distance2obb(pts_all, reg.reshape(-1, 5)),
             B.distance2obb(pts_all, flat_targets), linear=False,
-            weight=ctr_targets, avg_factor=ctr_targets.sum().clamp(min=1e-6))
+            weight=ctr_targets, avg_factor=ctr_targets.sum())
         loss_centerness = binary_cross_entropy(
             ctr.reshape(-1).float(), ctr_targets, weight=pos.float(),
             avg_factor=num_pos)

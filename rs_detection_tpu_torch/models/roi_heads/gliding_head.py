@@ -145,7 +145,7 @@ class GlidingHead(nn.Module):
         n = float(b * s)
         return dict(
             gliding_cls_loss=softmax_cross_entropy(
-                cls, labels, lw, avg_factor=(lw > 0).sum().clamp(min=1)),
+                cls, labels, lw, avg_factor=(lw > 0).sum()),
             gliding_bbox_loss=smooth_l1_loss(
                 reg, bbox_t.reshape(-1, 4), posf, avg_factor=n),
             gliding_fix_loss=smooth_l1_loss(

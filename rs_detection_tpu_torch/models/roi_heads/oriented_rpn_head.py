@@ -19,6 +19,7 @@ from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import greedy_suppress_mask, overlap_gt_mask_hbb, top_k
+from ...parallel import dist
 from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGenerator
 from ..boxes.anchor_target import anchor_target_single
@@ -119,9 +120,8 @@ class OrientedRPNHead(nn.Module):
             sizes, (sizes[0][0] * s0, sizes[0][1] * s0)))).to(dev)
         rboxes = targets["rboxes"].float()
         gt_obb = torch.cat([rboxes[..., :4], -rboxes[..., 4:]], dim=-1)
-        # fixed-size tiles: one border for the whole batch
-        img_h = targets["img_hw"][:, 0].max()
-        img_w = targets["img_hw"][:, 1].max()
+        # one border for the whole (global) batch, as in JAX
+        img_h, img_w = dist.global_max(targets["img_hw"].max(0).values)
         border = self.allowed_border
         inside = (valid & (anchors[:, 0] >= -border)
                   & (anchors[:, 1] >= -border)

@@ -21,6 +21,7 @@ from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import greedy_suppress_mask, overlap_gt_mask_hbb, top_k
+from ...parallel import dist
 from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGenerator
 from ..boxes.anchor_target import anchor_target_single
@@ -97,8 +98,7 @@ class RPNHead(nn.Module):
         dev = cls_scores[0].device
         anchors = torch.from_numpy(
             np.concatenate(self.anchor_gen.grid_anchors(sizes))).to(dev)
-        img_h = targets["img_hw"][:, 0].max()
-        img_w = targets["img_hw"][:, 1].max()
+        img_h, img_w = dist.global_max(targets["img_hw"].max(0).values)
         border = self.allowed_border
         inside = ((anchors[:, 0] >= -border) & (anchors[:, 1] >= -border)
                   & (anchors[:, 2] < img_w + border)

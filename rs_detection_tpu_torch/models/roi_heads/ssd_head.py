@@ -29,6 +29,7 @@ from torch import nn
 
 from ...ops import box_ops as B
 from ...ops.nms import bbox_overlaps_hbb, greedy_suppress_mask, top_k
+from ...parallel import dist
 from ...utils.registry import HEADS
 from ..boxes.anchor_generator import SSDAnchorGenerator
 from ..boxes.anchor_target import anchor_target_single
@@ -128,14 +129,18 @@ class SSDHead(nn.Module):
         """[B, A] bool: the ``neg_pos_ratio * num_pos`` negatives of the
         whole batch with the largest cross-entropy ``ce``, ranked by one
         stable descending sort (ties to the lower flat index, as the JAX
-        ``argsort`` of the negated losses)."""
-        neg_ce = torch.where(pos | (label_weights == 0), -torch.inf, ce)
+        ``argsort`` of the negated losses). Under a process group the batch
+        is the global one: the ranks' losses are gathered, ranked together
+        and cut back to the rank's rows."""
+        neg_ce = dist.all_gather_rows(
+            torch.where(pos | (label_weights == 0), -torch.inf, ce))
         flat = neg_ce.reshape(-1)
         order = torch.sort(flat, descending=True, stable=True).indices
         rank = torch.empty_like(order)
         rank[order] = torch.arange(flat.numel(), device=flat.device)
         budget = (self.neg_pos_ratio * num_pos).long()
-        return (rank < budget).reshape(ce.shape) & torch.isfinite(neg_ce)
+        return dist.rows((rank < budget).reshape(neg_ce.shape)
+                         & torch.isfinite(neg_ce))
 
     def loss(self, outs, targets):
         """The mined softmax cross-entropy and the smooth-L1 loss of
@@ -150,15 +155,16 @@ class SSDHead(nn.Module):
                          for c in cls_scores], 1).float()
         reg = torch.cat([r.reshape(b, -1, 4) for r in bbox_preds], 1).float()
         pos = res.labels > 0
-        num_pos = pos.sum().clamp(min=1).float()
+        n_pos = pos.sum().float()
         ce = -F.log_softmax(cls, dim=-1).gather(
             -1, res.labels[..., None])[..., 0]
         neg = self.hard_negatives(ce.detach(), pos, res.label_weights,
-                                  num_pos)
-        loss_cls = (torch.where(pos, ce, 0.0).sum()
-                    + torch.where(neg, ce, 0.0).sum()) / num_pos
+                                  dist.global_count(n_pos).clamp(min=1))
+        loss_cls = dist.divide_by_count(
+            torch.where(pos, ce, 0.0).sum() + torch.where(neg, ce, 0.0).sum(),
+            n_pos)
         loss_bbox = smooth_l1_loss(reg, res.bbox_targets, res.bbox_weights,
-                                   beta=1.0, avg_factor=num_pos)
+                                   beta=1.0, avg_factor=n_pos)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
     def nms(self, boxes, scores):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.quant import int8_conv
+from ...parallel import dist
 
 
 def conv2d(m: nn.Conv2d, x):
@@ -63,7 +64,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     ``update_stats`` is cleared by ``frozen_stats`` while
     ``torch.utils.checkpoint`` runs a block's forward again for its
-    backward, so one step moves the statistics once."""
+    backward, so one step moves the statistics once.
+
+    Under a process group of W > 1 (``parallel/dist.py``) training
+    normalizes with the global batch's mean and biased variance, as the
+    JAX mesh computes them: the per-channel sums of x and of (x - mean)^2
+    are summed over ranks differentiably, so the backward is the global
+    batch's too, and the running statistics move toward the global
+    values. A recomputed forward issues the same collectives again, in
+    the same order on every rank."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
@@ -72,6 +81,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if dist.world() > 1:
+            return self._global_forward(x)
         y = F.batch_norm(x, None, None, self.weight.to(x.dtype),
                          self.bias.to(x.dtype), True, 0.0, self.eps)
         if self.update_stats:
@@ -87,6 +98,24 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return y
+
+    def _global_forward(self, x):
+        dims = (0, 2, 3)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(acc)
+        count = dist.global_rows(x.numel() // x.shape[1])
+        mean = dist.all_reduce_sum(xs.sum(dim=dims)) / count
+        d = xs - mean[None, :, None, None]
+        var = dist.all_reduce_sum(d.square().sum(dim=dims)) / count
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = d * scale[None, :, None, None] + self.bias.to(acc)[
+            None, :, None, None]
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        return y.to(x.dtype)
 
     def folded_affine(self):
         """The eval-mode norm as an affine ``y = a * x + b`` over the
@@ -114,7 +143,10 @@ class DropPath(nn.Module):
     """Stochastic depth: in training, zero a sample's residual branch
     with probability ``rate`` and scale the kept ones by 1 / (1 - rate).
     The mask comes from torch's global generator, which
-    ``torch.utils.checkpoint`` restores for the recomputed forward."""
+    ``torch.utils.checkpoint`` restores for the recomputed forward. Under
+    a process group it is drawn at the global batch's shape and cut to
+    the rank's rows (``dist.rand_rows``): with every rank's generator
+    seeded alike for the step, the ranks drop what one process drops."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -125,5 +157,5 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = dist.rand_rows(shape, device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)

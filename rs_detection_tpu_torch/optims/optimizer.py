@@ -1,9 +1,11 @@
-"""SGD, AdamW and GradMutilpySGD with global-norm gradient clipping
-(counterparts of ``rs_detection_tpu/optims/optimizer.py:SGD``, ``AdamW``
-and ``GradMutilpySGD``, the optax chains ``clip_by_global_norm(max_norm)``
--> ``add_decayed_weights`` -> ``sgd``, ``clip_by_global_norm(max_norm)``
--> ``adamw``, and ``clip_by_global_norm(max_norm)`` -> the per-name
-gradient multipliers -> ``add_decayed_weights`` -> ``sgd``).
+"""SGD, AdamW, Adam and GradMutilpySGD with global-norm gradient
+clipping (counterparts of ``rs_detection_tpu/optims/optimizer.py:SGD``,
+``AdamW``, ``Adam`` and ``GradMutilpySGD``, the optax chains
+``clip_by_global_norm(max_norm)`` -> ``add_decayed_weights`` -> ``sgd``,
+``clip_by_global_norm(max_norm)`` -> ``adamw``,
+``clip_by_global_norm(max_norm)`` -> [``add_decayed_weights`` ->]
+``adam``, and ``clip_by_global_norm(max_norm)`` -> the per-name gradient
+multipliers -> ``add_decayed_weights`` -> ``sgd``).
 
 Each holds one parameter group, clips ahead of each step and counts its
 steps in ``iterations``, the step the learning-rate schedule reads. Like
@@ -142,6 +144,28 @@ class AdamW(_Linked, torch.optim.AdamW):
     def __init__(self, params: Iterable, lr: float = 1e-4,
                  betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.05, grad_clip: Optional[dict] = None):
+        names, params = _named(params)
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         weight_decay=weight_decay)
+        self._init_links(names, grad_clip)
+
+
+@OPTIMS.register_module()
+class Adam(_Linked, torch.optim.Adam):
+    """``torch.optim.Adam`` over one parameter group, with optax's
+    global-norm clip ahead of each step (``grad_clip=dict(max_norm=...)``,
+    None for no clip).
+
+    The weight decay is added to the (clipped) gradient before the Adam
+    moments, ``g + weight_decay * p`` (optax ``add_decayed_weights`` ->
+    ``adam``), not decoupled as in ``AdamW``: ``torch.optim.Adam``'s
+    ``weight_decay`` is that coupled form."""
+
+    STATE_KEYS = ("step", "exp_avg", "exp_avg_sq")
+
+    def __init__(self, params: Iterable, lr: float = 1e-3,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, grad_clip: Optional[dict] = None):
         names, params = _named(params)
         super().__init__(params, lr=lr, betas=betas, eps=eps,
                          weight_decay=weight_decay)

@@ -28,8 +28,21 @@ The learning rate of a step is the schedule at the optimizer's own step
 count and that count in epochs, as the JAX runner's optax schedule reads
 it. Step ``i`` samples with a generator seeded from (``seed``, i), and
 epoch ``e`` draws its augmentations from Python's and numpy's global
-generators seeded from (``seed``, e) (``seed_host_rngs``), so a resumed
-run trains as an unbroken one.
+generators seeded from (``seed``, e) (``seed_host_rngs``), and torch's
+global generators (DropPath's) are seeded from (``seed``, i, 1) before
+step ``i``, so a resumed run trains as an unbroken one.
+
+Data parallel (``torchrun --nproc_per_node W``, ``parallel/dist.py``):
+every rank builds the same model from the config's seed and holds its
+rows of each global batch (a ``CustomDataset`` reads only those, with
+workers; another dataset is read whole and cut), the steps' seeds are
+the same on every rank, and ``train_step`` averages the gradients, so
+the ranks train as one process on the global batch. ``val`` and
+``test`` go through ``make_eval_step`` (each rank its rows, gathered).
+Rank 0 alone logs, writes the work directory (config, checkpoints,
+results), reads checkpoints (handed to the others) and evaluates. The
+world size must divide the batch size (the JAX runner instead uses
+fewer devices).
 """
 
 from __future__ import annotations
@@ -60,7 +73,8 @@ from ..models.networks import roi_transformer as _rt  # noqa: F401  (as well)
 from ..models.networks import single_stage as _ss  # noqa: F401  (as well)
 from ..optims import lr_scheduler as _sched  # noqa: F401  (SCHEDULERS)
 from ..optims import optimizer as _optim  # noqa: F401  (OPTIMS)
-from ..parallel.train_step import ParamEMA, train_step
+from ..parallel import dist
+from ..parallel.train_step import ParamEMA, make_eval_step, train_step
 from ..utils.checkpoint import (FORMAT, ema_arrays, load_ema_arrays,
                                 load_model_arrays, load_optimizer_arrays,
                                 model_arrays, optimizer_arrays,
@@ -90,10 +104,32 @@ def seed_host_rngs(seed: int, epoch: int) -> None:
     np.random.seed(s)
 
 
+class _SilentLogger(RunLogger):
+    """The logger of a rank other than 0: it writes and prints nothing."""
+
+    def __init__(self):
+        super().__init__("", enabled=False)
+
+    @staticmethod
+    def print_log(data):
+        pass
+
+
+def take_rows(images, targets, metas):
+    """The rank's rows of a collated global batch."""
+    rows = dist.rows(torch.arange(images.shape[0])).numpy()
+    n = images.shape[0]
+    return (images[rows],
+            {k: v[rows] if getattr(v, "ndim", 0) and v.shape[0] == n else v
+             for k, v in targets.items()},
+            [metas[i] for i in rows])
+
+
 class Runner:
     def __init__(self, device=None):
         """``device``: where the model runs; None is the CUDA card (an
-        error where there is none)."""
+        error where there is none; the rank's card under a process
+        group)."""
         cfg = get_cfg()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -110,9 +146,12 @@ class Runner:
         self._ema_enabled = bool(mc.get("ema"))
         self._ema_decay = float(mc.get("ema_decay") or 0.9999)
 
-        os.makedirs(self.work_dir, exist_ok=True)
-        save_cfg(os.path.join(self.work_dir, "config.yaml"))
-        self.logger = RunLogger(self.work_dir)
+        if dist.is_main():
+            os.makedirs(self.work_dir, exist_ok=True)
+            save_cfg(os.path.join(self.work_dir, "config.yaml"))
+            self.logger = RunLogger(self.work_dir)
+        else:
+            self.logger = _SilentLogger()
 
         # the weights are drawn on the CPU from the config's seed, so one
         # config gives the same model on every device
@@ -131,6 +170,16 @@ class Runner:
             self.test_dataset.device = self.device
         self.steps_per_epoch = 1 if self.train_dataset is None else max(
             1, len(self.train_dataset) // self.train_dataset.batch_size)
+        if self.train_dataset is not None and dist.world() > 1:
+            bs = self.train_dataset.batch_size
+            if bs % dist.world():
+                raise ValueError(
+                    f"the world size {dist.world()} does not divide the "
+                    f"train batch size {bs}")
+            if (hasattr(self.train_dataset, "shard")
+                    and getattr(self.train_dataset, "num_workers", 0) > 0):
+                self.train_dataset.shard = (dist.rank(), dist.world())
+        self._eval_step = make_eval_step(self.model)
         self.epoch = 0
         self.iter = 0
         self._swa_active = False
@@ -146,8 +195,9 @@ class Runner:
 
         self._build_optimizers()
 
-        # auto-resume
-        ckpt = search_ckpt(self.work_dir)
+        # auto-resume (the path rank 0 finds)
+        ckpt = dist.broadcast_object(search_ckpt(self.work_dir)
+                                     if dist.is_main() else None)
         if cfg.resume_path:
             self.load(cfg.resume_path, model_only=False)
         elif ckpt:
@@ -297,11 +347,19 @@ class Runner:
                 self.train_stats["loader_wait_s"] += time.perf_counter() - t0
                 if item is None:
                     break
-                images, targets, _ = item
+                images, targets, metas = item
+                sharded = getattr(self.train_dataset, "shard",
+                                  None) is not None
+                if dist.world() > 1 and not sharded:
+                    images, targets, metas = take_rows(images, targets,
+                                                       metas)
                 x = self._to_device(images)
+                if sharded:
+                    x = dist.pad_to_global_shape(x)
                 tgt = {k: self._to_device(v) for k, v in targets.items()}
                 gen = torch.Generator(device=self.device).manual_seed(
                     seed_of(seed, self.iter))
+                torch.manual_seed(seed_of(seed, self.iter, 1))
                 if profile_at is not None and self.iter == profile_at:
                     self._start_profile()
                 losses = train_step(
@@ -311,7 +369,7 @@ class Runner:
                     step=self.iter)
                 lr = self.optimizer.param_groups[0]["lr"]
                 self.iter += 1
-                n_imgs += images.shape[0]
+                n_imgs += dist.global_rows(images.shape[0])
                 if self._profiler is not None and self.iter == profile_at + 3:
                     self._stop_profile()
                 if check_interval(self.iter - 1, self.log_interval):
@@ -357,10 +415,11 @@ class Runner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._profiler.stop()
-        path = build_file(self.work_dir, "profile/trace.json")
-        self._profiler.export_chrome_trace(path)
+        if dist.is_main():
+            path = build_file(self.work_dir, "profile/trace.json")
+            self._profiler.export_chrome_trace(path)
+            self.logger.print_log({"msg": f"profiler trace -> {path}"})
         self._profiler = None
-        self.logger.print_log({"msg": f"profiler trace -> {path}"})
 
     def val(self):
         """mAP of the val dataset (``evaluate``'s dict, also logged; its
@@ -368,7 +427,9 @@ class Runner:
         (the EMA's with ``model.ema``) in eval mode, its activations in
         the compute dtype, and goes back to the mode and weights it had.
         ``evaluate`` is handed one (detections, meta) pair an image, in
-        the dataset's order."""
+        the dataset's order. Under a process group every rank serves its
+        rows of each batch; rank 0 evaluates and hands the APs to the
+        others."""
         if self.val_dataset is None:
             self.logger.print_log({"msg": "no val dataset, skip"})
             return {}
@@ -384,8 +445,9 @@ class Runner:
                         results.append((det, meta))
         finally:
             self.model.train(training)
-        aps = self.val_dataset.evaluate(results, self.work_dir, self.epoch,
-                                        self.logger)
+        aps = dist.broadcast_object(
+            self.val_dataset.evaluate(results, self.work_dir, self.epoch,
+                                      self.logger) if dist.is_main() else None)
         self.val_aps = {k: float(v) for k, v in aps.items()
                         if not isinstance(v, list)}
         self.logger.log(self.val_aps)
@@ -411,7 +473,7 @@ class Runner:
         return self._forward(images, targets)
 
     def _forward(self, images, targets: Dict) -> Dict:
-        out = self.model.predict(
+        out = self._eval_step(
             torch.as_tensor(images, device=self.device),
             torch.as_tensor(targets["scale_factor"], device=self.device))
         return {k: v.cpu().numpy() for k, v in out.items()}
@@ -473,6 +535,8 @@ class Runner:
                     for det, meta in zip(dets, live):
                         results.append((det, meta))
         infer_s = time.perf_counter() - t0
+        if not dist.is_main():
+            return results
         save_file = build_file(self.work_dir, f"test/test_{self.epoch}.pkl")
         with open(save_file, "wb") as f:
             pickle.dump(results, f)
@@ -509,7 +573,7 @@ class Runner:
                 out = self.predict(images, targets)
             dets = self.postprocess_dense(out, [dict()])[0]
             outputs.append((path, dets))
-            if save_dir:
+            if save_dir and dist.is_main():
                 visualize_results([dets], None, [path], save_dir)
         return outputs
 
@@ -546,6 +610,9 @@ class Runner:
             raise NotImplementedError(
                 "use_orbax: orbax checkpoints are JAX-only; the port saves "
                 "its own pickle (leave use_orbax unset)")
+        if not dist.is_main():
+            return os.path.join(self.work_dir,
+                                f"checkpoints/ckpt_{self.epoch}.pkl")
         path = build_file(self.work_dir, f"checkpoints/ckpt_{self.epoch}.pkl")
         data = dict(
             meta=dict(format=FORMAT, epoch=self.epoch, iter=self.iter,
@@ -578,7 +645,8 @@ class Runner:
                 f"{path} is an orbax checkpoint directory; orbax is JAX-only. "
                 f"Save the checkpoint as a pickle with the JAX runner "
                 f"(use_orbax unset) to load it here")
-        meta, arrays, opt_state, ema = read_checkpoint(path)
+        meta, arrays, opt_state, ema = dist.broadcast_object(
+            read_checkpoint(path) if dist.is_main() else None)
         resume = not model_only and bool(meta)
         if resume:
             self.epoch = int(meta.get("epoch", 0))

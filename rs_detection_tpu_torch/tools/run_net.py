@@ -15,6 +15,12 @@ per-class files and the submission under the work directory
 draws the detections on the images of the config's ``vis_test_dir``.
 The model runs on the CUDA card (an error where there is none) unless
 ``--cpu`` is passed.
+
+Data parallel: ``torchrun --nproc_per_node N -m
+rs_detection_tpu_torch.tools.run_net ...`` runs one process a card,
+joined by NCCL (with ``--cpu``: N host processes joined by gloo); the
+config's batch size is the global batch, which N must divide. A plain
+``python -m`` run is one process, as is ``torchrun --nproc_per_node 1``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from ..config import get_cfg, init_cfg, update_cfg
+    from ..parallel import dist
     from ..runner import Runner
     from ..utils.general import list_images
 
@@ -44,17 +51,26 @@ def main(argv=None):
     if args.save_dir:
         update_cfg({"work_dir": args.save_dir})
 
-    runner = Runner(device="cpu" if args.cpu else None)
-    if args.task == "train":
-        runner.run()
-    elif args.task == "val":
-        runner.val()
-    elif args.task == "test":
-        runner.test(flip_test=args.flip_test or bool(get_cfg().flip_test))
-    else:
-        imgs = list_images(get_cfg().vis_test_dir or ".")
-        runner.run_on_images(imgs, save_dir=os.path.join(runner.work_dir,
-                                                         "vis"))
+    device = "cpu" if args.cpu else None
+    grouped = dist.env_world() > 1 and not dist.world() > 1
+    if grouped:
+        device = dist.init_process_group(device=device)
+    try:
+        runner = Runner(device=device)
+        if args.task == "train":
+            runner.run()
+        elif args.task == "val":
+            runner.val()
+        elif args.task == "test":
+            runner.test(flip_test=args.flip_test
+                        or bool(get_cfg().flip_test))
+        else:
+            imgs = list_images(get_cfg().vis_test_dir or ".")
+            runner.run_on_images(imgs, save_dir=os.path.join(
+                runner.work_dir, "vis"))
+    finally:
+        if grouped:
+            dist.destroy_process_group()
     return runner
 
 

@@ -47,7 +47,7 @@ goes the other way for the flax-named layers of ``TileScreen``, so a
 screen checkpoint of the port loads in the JAX package.
 ``jax_optimizer_state`` carries that checkpoint's ``opt_state`` over to
 the port's optimizer:
-an optax AdamW chain through ``jax_adamw_state`` (``count`` -> ``step``
+an optax AdamW or Adam chain through ``jax_adamw_state`` (``count`` -> ``step``
 and ``iterations``, ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``), an
 optax SGD chain through ``jax_sgd_state`` (``trace`` -> the momentum
 buffers, the schedule's ``count`` -> ``iterations``), each leaf in the
@@ -237,13 +237,14 @@ def _adam_states(tree):
 
 def jax_optimizer_state(opt_state: Mapping) -> Dict:
     """A JAX runner checkpoint's ``opt_state`` -> the port's optimizer
-    state: AdamW (``jax_adamw_state``) or SGD (``jax_sgd_state``)."""
+    state: AdamW or Adam (``jax_adamw_state``) or SGD
+    (``jax_sgd_state``)."""
     if _adam_states(opt_state):
         return jax_adamw_state(opt_state)
     if _states(opt_state, ("trace",)):
         return jax_sgd_state(opt_state)
-    raise ValueError("the checkpoint's opt_state is neither an AdamW nor an "
-                     "SGD chain; no other optimizer carries over")
+    raise ValueError("the checkpoint's opt_state is neither an Adam(W) nor "
+                     "an SGD chain; no other optimizer carries over")
 
 
 def jax_sgd_state(opt_state: Mapping) -> Dict:
@@ -265,14 +266,15 @@ def jax_sgd_state(opt_state: Mapping) -> Dict:
 
 def jax_adamw_state(opt_state: Mapping) -> Dict:
     """A JAX runner checkpoint's ``opt_state`` (``flax.serialization``
-    state dict of the optax chain ``[clip_by_global_norm ->] adamw``) ->
-    the port's optimizer state: {"iterations": count, "state": {parameter
-    name: {"step", "exp_avg", "exp_avg_sq"}}}. Any other optimizer's
-    state raises."""
+    state dict of the optax chain ``[clip_by_global_norm ->] adamw`` or
+    ``[clip_by_global_norm ->] [add_decayed_weights ->] adam``, whose
+    decay link holds no state) -> the state of the port's ``AdamW`` or
+    ``Adam``: {"iterations": count, "state": {parameter name: {"step",
+    "exp_avg", "exp_avg_sq"}}}. Any other optimizer's state raises."""
     found = _adam_states(opt_state)
     if len(found) != 1:
         raise ValueError(f"the checkpoint's opt_state holds {len(found)} "
-                         f"Adam states; only an AdamW chain carries over")
+                         f"Adam states; only an Adam(W) chain carries over")
     adam = found[0]
     count = int(np.asarray(adam["count"]))
     mu = jax_to_state_dict({"params": adam["mu"]})

@@ -26,6 +26,7 @@ from rs_detection_tpu_torch.models.networks import \
     single_stage  # noqa: F401  (registers the networks)
 from rs_detection_tpu_torch.models.roi_heads.fcos_head import FCOSHead
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(

@@ -123,8 +123,6 @@ def test_registered_poly_losses_match_jax():
             jnp.asarray(pred), jnp.asarray(target), jnp.asarray(w),
             avg_factor=10.0)
         assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
-    with pytest.raises(NotImplementedError, match="mean"):
-        poly.PolyIoULoss(reduction="sum")
 
 
 def test_registered_common_losses_match_jax():

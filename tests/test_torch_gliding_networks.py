@@ -40,6 +40,7 @@ from rs_detection_tpu_torch.utils.jax_weights import (load_jax_checkpoint,
 from test_torch_port_slice import perturb
 from test_torch_roitrans_cuda import first_k_sample
 from test_torch_roitrans_modules import _first_k_jax
+from torch_one_thread import _one_thread  # noqa: F401
 
 IMG = 64
 

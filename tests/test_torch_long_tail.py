@@ -24,6 +24,7 @@ from rs_detection_tpu_torch.utils.checkpoint import (load_model_arrays,
 from rs_detection_tpu_torch.utils.jax_weights import (jax_to_state_dict,
                                                       load_jax_variables)
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 N = 24
 C = 5

@@ -21,6 +21,7 @@ from rs_detection_tpu_torch.config.config import Config
 from rs_detection_tpu_torch.models.backbones import jimm_scope
 from rs_detection_tpu_torch.runner import runner  # noqa: F401  (registries)
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONVNEXT_CFG = os.path.join(REPO, "projects", "roi_transformer", "configs",

@@ -30,6 +30,7 @@ from rs_detection_tpu_torch.optims.lr_scheduler import CosineAnnealingLR
 from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ZOO = sorted(glob.glob(os.path.join(REPO, "configs", "orcnn_van3_*.py")))
@@ -133,10 +134,8 @@ def _tiny_cfg(**changes):
     ({"compute_dtype": "int32"}, ValueError),
     ({"rpn.anchor_generator.octave_base_scale": 4}, TypeError),
     ({"bbox_head.bbox_roi_extractor.impl": "pallas"}, TypeError),
-    ({"rpn.sampler.neg_pos_ub": 3}, NotImplementedError),
 ], ids=["reg_per_class", "fpn_extra_convs", "rpn_classes", "rpn_reg_dim",
-        "legacy_section", "int_dtype", "anchor_octaves", "extractor_impl",
-        "neg_pos_ub"])
+        "legacy_section", "int_dtype", "anchor_octaves", "extractor_impl"])
 def test_unsupported_config_values_raise(changes, error):
     """A value the JAX package honours and the port cannot is refused,
     never dropped (and an extra-conv mode neither knows is refused)."""

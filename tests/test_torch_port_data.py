@@ -26,6 +26,7 @@ from rs_detection_tpu_torch.data.image import ImageDataset
 from rs_detection_tpu_torch.data.io import load_rgb_array
 from rs_detection_tpu_torch.ops import box_ops
 from rs_detection_tpu_torch.ops import nms_poly
+from torch_one_thread import _one_thread  # noqa: F401
 
 NORM = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
             std=[58.395, 57.12, 57.375], to_bgr=False)

@@ -37,6 +37,7 @@ from rs_detection_tpu_torch.ops.van_mlp import (van_mlp_reference,
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_kernels import _jax_layout, _mlp_inputs
 from test_torch_port_slice import jax_tiny, perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORDER = ("a1", "b1", "wp1", "bp1", "wdw5", "bdw5", "wdw7", "bdw7", "wc1",

@@ -52,6 +52,7 @@ from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_kernels import _jax_layout, _mlp_inputs
 from test_torch_port_modules import ANCHORS, _init, _j, _nhwc, _t
 from test_torch_port_slice import jax_tiny, perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 DIMS = (16, 32, 40, 64)
 

@@ -29,6 +29,7 @@ from rs_detection_tpu_torch.ops.roi_align import (
     map_roi_levels,
     roi_align_rotated_pyramid_reference,
     roi_align_rotated_pyramid_rows_reference)
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRIDES = (4, 8, 16, 32)

@@ -20,6 +20,7 @@ from rs_detection_tpu_torch.ops.dwconv import H100_SMEM, dw_plan
 from rs_detection_tpu_torch.ops.roi_align import (
     _bwd_records, k3_vec, roi_align_rotated_pyramid_bwd_reference,
     roi_align_rotated_pyramid_bwd_sorted_reference)
+from torch_one_thread import _one_thread  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 # (H = W, C) of VAN-b3's four attention stages at 1024^2 tiles

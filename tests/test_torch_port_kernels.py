@@ -21,6 +21,7 @@ from rs_detection_tpu_torch.ops.roi_align import (
 from rs_detection_tpu_torch.ops.van_attn import sa_core
 from rs_detection_tpu_torch.ops.van_mlp import (van_mlp, van_mlp_cuda,
                                                 van_mlp_reference)
+from torch_one_thread import _one_thread  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 

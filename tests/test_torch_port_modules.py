@@ -27,6 +27,7 @@ from rs_detection_tpu_torch.models.roi_heads.oriented_head import \
 from rs_detection_tpu_torch.models.roi_heads.oriented_rpn_head import \
     OrientedRPNHead
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
+from torch_one_thread import _one_thread  # noqa: F401
 
 ANCHORS = dict(scales=[8], ratios=[0.125, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0],
                strides=[4, 8, 16, 32, 64])

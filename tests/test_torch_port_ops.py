@@ -18,6 +18,7 @@ from rs_detection_tpu_torch.models.boxes import coder as tcoder
 from rs_detection_tpu_torch.ops import box_ops as tbox
 from rs_detection_tpu_torch.ops import nms as tnms
 from rs_detection_tpu_torch.ops.activations import exact_gelu as tgelu
+from torch_one_thread import _one_thread  # noqa: F401
 
 # f32 elementwise math on both sides; box coordinates are O(100) px,
 # so 1e-4 px absolute is a few float ulps there

@@ -19,6 +19,7 @@ from rs_detection_tpu_torch.ops.van_attn import attn_plan
 from rs_detection_tpu_torch.ops.van_mlp import (kernel_plan,
                                                 pack_int8_weights,
                                                 unpack_int8_weights)
+from torch_one_thread import _one_thread  # noqa: F401
 
 # (H = W, C, Ch) of VAN-b3's four stages at 1024^2 tiles, batch 8
 STAGES = [(256, 64, 512), (128, 128, 1024), (64, 320, 1280), (32, 512, 2048)]

@@ -29,6 +29,7 @@ from rs_detection_tpu_torch.config import get_cfg
 from rs_detection_tpu_torch.flagship import flagship_cfg
 from rs_detection_tpu_torch.runner import Runner
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILES = ["P0007__1.0__0___0.png", "P0007__1.0__72___0.png"]
@@ -243,11 +244,11 @@ def test_pretrained_request_is_loud(served, tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    # the optimizers of item 8 the port still lacks (GradMutilpySGD, which
-    # this case named until it was ported, builds:
-    # tests/test_torch_retinanet_configs.py)
-    "sgd": (dict(optimizer=dict(type="Adam", lr=0.01)), None,
-            KeyError, "Adam"),
+    # an optimizer neither package registers (GradMutilpySGD and Adam,
+    # which this case named until they were ported, build:
+    # tests/test_torch_retinanet_configs.py, tests/test_torch_optims.py)
+    "sgd": (dict(optimizer=dict(type="Lamb", lr=0.01)), None,
+            KeyError, "Lamb"),
     "orbax_save": (dict(use_orbax=True), "save", NotImplementedError,
                    "orbax"),
     "orbax_load": ({}, "load_dir", RuntimeError, "orbax"),
@@ -258,8 +259,8 @@ UNPORTED = {
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_tasks_and_formats_raise(served, tmp_path, monkeypatch,
                                           case):
-    """What the port does not do raises: an optimizer of ROADMAP item 8
-    (``Adam``), orbax checkpoints (JAX-only), and training without a train
+    """What the port does not do raises: an optimizer outside the
+    registry, orbax checkpoints (JAX-only), and training without a train
     dataset. (The per-step EMA and YOLO's parameter groups, which raised
     here until item 11f ported them: ``tests/test_torch_yolo_runner.py``,
     ``tests/test_torch_yolo_configs.py``.)"""
@@ -296,7 +297,11 @@ def test_test_time_and_run_on_images(served, tmp_path):
 
 
 def _subprocess(code_or_args, cwd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # torch's intra-op thread count as this process's (the module runs on
+    # one): a CPU conv's sums split by thread, and the CSV is compared byte
+    # for byte with the one served here
+    env = dict(os.environ, PYTHONPATH=REPO,
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
     env.pop("RS_ALLOW_RANDOM_INIT", None)
     proc = subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=600)

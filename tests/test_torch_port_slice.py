@@ -21,6 +21,7 @@ from rs_detection_tpu.models.roi_heads.oriented_rpn_head import OrientedRPNHead
 from rs_detection_tpu_torch.flagship import build_flagship, normalize
 from rs_detection_tpu_torch.utils.jax_weights import (jax_to_state_dict,
                                                       load_jax_variables)
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,7 @@ from rs_detection_tpu_torch.data import dota, transforms
 from rs_detection_tpu_torch.data.custom import CustomDataset
 from rs_detection_tpu_torch.data.devkits import voc_eval
 from rs_detection_tpu_torch.ops import box_ops
+from torch_one_thread import _one_thread  # noqa: F401
 
 NORM = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
             std=[58.395, 57.12, 57.375], to_bgr=False)

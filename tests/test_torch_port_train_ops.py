@@ -46,6 +46,7 @@ from rs_detection_tpu_torch.ops.roi_align import (
     roi_align_rotated_pyramid_bwd_reference)
 from rs_detection_tpu_torch.ops.rotated_iou import box_iou_rotated
 from rs_detection_tpu_torch.optims.lr_scheduler import StepLR
+from torch_one_thread import _one_thread  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 t = torch.from_numpy
@@ -339,17 +340,24 @@ def test_step_lr_matches_jax_over_600_iterations():
     assert got_s(1e-4, 500, 0) == 1e-4
 
 
-@pytest.mark.parametrize("build", [
-    lambda: StepLR([7], warmup="exp", warmup_iters=500),
-    lambda: RandomSampler(num=256, pos_fraction=0.5, neg_pos_ub=3),
-    lambda: MaxIoUAssigner(pos_iou_thr=0.5, neg_iou_thr=0.4,
-                           ignore_iof_thr=0.5)],
+@pytest.mark.parametrize("build,jbuild,read", [
+    (lambda: StepLR([7], warmup="exp", warmup_iters=500),
+     lambda: JStepLR([7], warmup="exp", warmup_iters=500),
+     lambda s: [float(s(1e-4, i, 0)) for i in (0, 250, 499, 500)]),
+    (lambda: RandomSampler(num=256, pos_fraction=0.5, neg_pos_ub=3),
+     lambda: JSampler(num=256, pos_fraction=0.5, neg_pos_ub=3),
+     lambda s: s.neg_pos_ub),
+    (lambda: MaxIoUAssigner(pos_iou_thr=0.5, neg_iou_thr=0.4,
+                            ignore_iof_thr=0.5),
+     lambda: JAssigner(pos_iou_thr=0.5, neg_iou_thr=0.4, ignore_iof_thr=0.5),
+     lambda s: s.ignore_iof_thr)],
     ids=["exp_warmup", "neg_pos_ub", "ignore_iof_thr"])
-def test_unported_options_raise(build):
-    """Options no config of the repository sets are refused, never
-    silently ignored."""
-    with pytest.raises(NotImplementedError):
-        build()
+def test_unported_options_raise(build, jbuild, read):
+    """Options no config of the repository sets, refused until they were
+    ported: they now build and keep JAX's values (their behaviour against
+    JAX: ``tests/test_torch_optims.py``,
+    ``tests/test_torch_optims_train_options.py``)."""
+    np.testing.assert_allclose(read(build()), read(jbuild()), rtol=1e-6)
 
 
 # ---------------------------------------------------------------- K6

@@ -49,6 +49,7 @@ from rs_detection_tpu_torch.runner import Runner
 from rs_detection_tpu_torch.runner.runner import seed_host_rngs
 from rs_detection_tpu_torch.utils.jax_weights import jax_to_state_dict
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 3

@@ -34,6 +34,7 @@ from rs_detection_tpu_torch.parallel.train_step import train_step
 from rs_detection_tpu_torch.utils.jax_weights import (jax_to_state_dict,
                                                       load_jax_variables)
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 IMG = 64
 MAX_GT = 4

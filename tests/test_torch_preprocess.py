@@ -39,6 +39,7 @@ from rs_detection_tpu_torch.data.devkits import fair_to_dota as fair
 from rs_detection_tpu_torch.data.devkits import img_split
 from rs_detection_tpu_torch.data.devkits import ssdd_to_dota as ssdd
 from rs_detection_tpu_torch.tools import merge_results, preprocess
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREPROCESS_CONFIGS = sorted(

@@ -27,6 +27,7 @@ from rs_detection_tpu_torch.models.networks.r3det import (
 from rs_detection_tpu_torch.models.roi_heads.retina_head import RetinaHead
 from rs_detection_tpu_torch.runner import runner  # noqa: F401  (registries)
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R3DET = os.path.join(REPO, "projects", "r3det", "configs",

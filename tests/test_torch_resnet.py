@@ -28,6 +28,7 @@ from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import (jax_to_state_dict,
                                                       load_jax_variables)
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 FORMS = [dict(type=f"Resnet{d}") for d in (18, 26, 34, 38, 50, 101, 152)] \
     + [dict(type="Resnet50_v1d"), dict(type="Resnet101_v1d"),

@@ -38,6 +38,7 @@ from rs_detection_tpu_torch.utils.jax_weights import jax_to_state_dict
 from test_map_pipeline import render_dataset
 from test_torch_overfit_map import tiny_cfg
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 # >= the 4092 anchors of a 128^2 tile (3 ratios); nms_post + max_gt
 RPN_TAKE_ALL = 4096

@@ -29,6 +29,7 @@ from rs_detection_tpu_torch.models.networks import \
 from rs_detection_tpu_torch.models.roi_heads.retina_head import RetinaHead
 from rs_detection_tpu_torch.optims import optimizer  # noqa: F401  (OPTIMS)
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "projects", "retinanet",

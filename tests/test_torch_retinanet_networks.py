@@ -36,6 +36,7 @@ from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import (load_jax_checkpoint,
                                                       load_jax_variables)
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 IMG = 128
 NECK = dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,

@@ -53,6 +53,7 @@ from rs_detection_tpu_torch.utils.jax_weights import (jax_to_state_dict,
                                                       load_jax_variables)
 from test_torch_port_modules import _init, _j, _nhwc, _t
 from test_torch_roitrans_cuda import first_k_sample
+from torch_one_thread import _one_thread  # noqa: F401
 
 jloss = importlib.import_module("rs_detection_tpu.models.losses.poly_iou_loss")
 

@@ -38,6 +38,7 @@ from rs_detection_tpu_torch.models.roi_heads.ssd_head import SSDHead
 from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALL = ([os.path.join(REPO, "configs", "s2anet_r50_fpn_1x_dota.py")]

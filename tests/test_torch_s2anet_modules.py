@@ -36,6 +36,7 @@ from rs_detection_tpu_torch.models.roi_heads.s2anet_head import (
 from rs_detection_tpu_torch.utils import registry as reg
 from rs_detection_tpu_torch.utils.jax_weights import load_jax_variables
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 RTOL = 1e-4      # f32 through a few 3x3 convs and a deformable gather
 

@@ -24,6 +24,7 @@ from rs_detection_tpu_torch.ops import orn
 from rs_detection_tpu_torch.ops.deform_conv import deform_conv2d
 from rs_detection_tpu_torch.ops.rotated_iou import box_iou_rotated
 from rs_detection_tpu_torch.ops.sampling import bilinear_sample_zeros
+from torch_one_thread import _one_thread  # noqa: F401
 
 
 def _obbs(rng, n, img=200.0, lo=2.0, hi=120.0):

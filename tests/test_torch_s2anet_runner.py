@@ -27,6 +27,7 @@ from rs_detection_tpu_torch.runner import Runner
 from rs_detection_tpu_torch.utils.jax_weights import jax_to_state_dict
 from test_map_pipeline import render_dataset
 from test_torch_port_slice import perturb
+from torch_one_thread import _one_thread  # noqa: F401
 
 NORM = dict(type="Normalize", mean=[123.675, 116.28, 103.53],
             std=[58.395, 57.12, 57.375], to_bgr=False)

@@ -26,6 +26,7 @@ from rs_detection_tpu_torch.models.networks.tile_screen import (TileScreen,
 from rs_detection_tpu_torch.tools import train_screen
 from rs_detection_tpu_torch.utils.jax_weights import (load_jax_variables,
                                                       module_to_jax_params)
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCREEN_KW = dict(channels=(8, 16), pool=2)

@@ -27,6 +27,7 @@ from rs_detection_tpu_torch.models.networks import compat
 from rs_detection_tpu_torch.models.roi_heads.ssd_head import SSDHead
 from rs_detection_tpu_torch.runner import runner  # noqa: F401  (registries)
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SSD = sorted(glob.glob(os.path.join(REPO, "projects", "ssd", "configs",

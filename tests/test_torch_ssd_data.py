@@ -33,6 +33,7 @@ from rs_detection_tpu_torch.data import yolo
 from rs_detection_tpu_torch.runner import runner  # noqa: F401  (datasets)
 from rs_detection_tpu_torch.utils.registry import DATASETS, TRANSFORMS
 from test_torch_ssd_cuda import render_coco
+from torch_one_thread import _one_thread  # noqa: F401
 
 ZOO_TRAIN = [
     dict(type="PhotoMetricDistortion", brightness_delta=32 / 255,

@@ -20,6 +20,7 @@ from rs_detection_tpu.data import yolo as jyolo
 from rs_detection_tpu_torch.config import lvis_categories as lvis
 from rs_detection_tpu_torch.data import yolo  # noqa: F401  (LVISDataset)
 from rs_detection_tpu_torch.utils import registry as reg
+from torch_one_thread import _one_thread  # noqa: F401
 
 IMG = 64
 
