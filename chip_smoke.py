@@ -336,7 +336,13 @@ Phases, each of which raises (exit code 1) on failure:
      ranks on one device), spawned with a time limit: the tiny config's
      AdamW step on 4 images (samplers drawing a subset, DropPath 0.2)
      and ``make_eval_step`` on 3 against one process on the card, to the
-     stated tolerances; the ranks' parameters bit for bit
+     stated tolerances; the ranks' parameters bit for bit; then one SGD
+     step of each family of ``tests/torch_dp_children.py:
+     TWO_STAGE_FAMILIES`` (RoI-Transformer, FasterRCNN-OBB, Gliding
+     Vertex, RetinaNet, R3Det, Oriented R-CNN on ResNet-18 in train-mode
+     BN with the plain, EQLv2, EFL and Seesaw heads, the ConvNeXt
+     RoI-Transformer with DropPath) to ``FAMILY_TOL``, K1 / K3 a rank as
+     ``FAMILY_LAUNCHES``
  57. data parallel at full width: two gloo ranks sharing the card,
      spawned with a time limit, each running phase 55's VAN-b3 bf16
      step (DropPath 0.1) on 4 of the 8 images, against one process on
@@ -346,6 +352,13 @@ Phases, each of which raises (exit code 1) on failure:
      in the grouped step; ``make_eval_step`` on 7 images (one rank pads)
      bit for bit as ``predict`` on the rank's rows (K2 38 / K1 1); the
      ranks' parameters bit for bit
+ 58. the two-stage and box toolbox at the zoo's shapes (a stride-16
+     level of two 1024^2 tiles, C = 256, 2,000 rois, P = 7): rotated
+     RoIAlign, RoIPool, PSRoIAlign (490 channels), DCN pooling and
+     ``DCNPooling`` forward and backward, ``poly_iou``,
+     ``box_iou_rotated_v1``, ``nms_mask``, ``anchor_inside_flags`` and
+     ``images_to_levels`` on the card against the CPU (``TOOLBOX_*``);
+     each one's ms, K1-K7 0 launches over the phase
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -370,9 +383,10 @@ tasks, ``retinanet_*_launches``, phases 43 and 45's ``fcos_*`` and
 time, bound and ``conv2d_weight`` time at ConvNeXt-XL's shapes, the
 ``convnext_*`` keys of its entry; every kernel's launches in phase 55's
 grouped step and eval step, ``data_parallel_train_launches`` and
-``data_parallel_eval_launches``, and in phase 57's (rank 0's),
-``data_parallel_two_ranks_*_launches``), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+``data_parallel_eval_launches``, in phase 57's (rank 0's),
+``data_parallel_two_ranks_*_launches``, and in phase 58,
+``toolbox_launches``, all 0), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2885,18 +2899,23 @@ def phase_gloo_two_ranks(torch, dev, tmp, card):
     import torch_dp_children as children
 
     step_kw = dict(n=4, drop_path=0.2, take_all=False, device="cuda:0")
+    families = children.TWO_STAGE_FAMILIES
+    family_calls = [("family_step", dict(family=f, device="cuda:0"))
+                    for f in families]
     t0 = time.perf_counter()
     one = children.orcnn_step(**step_kw)
     one_eval = children.orcnn_eval(n=3, device="cuda:0")
+    one_families = [children.family_step(**kw) for _, kw in family_calls]
     one_s = time.perf_counter() - t0
     root = os.path.join(tmp, "gloo_two_ranks")
     os.makedirs(root)
     t0 = time.perf_counter()
-    two = [dict(zip(["orcnn_step", "orcnn_eval"], r))
+    names = ["orcnn_step", "orcnn_eval"] + families
+    two = [dict(zip(names, r))
            for r in children.run_world("several", 2, dict(calls=[
                ("orcnn_step", step_kw),
-               ("orcnn_eval", dict(n=3, device="cuda:0"))]), root,
-               timeout=300)]
+               ("orcnn_eval", dict(n=3, device="cuda:0"))] + family_calls),
+               root, timeout=300)]
     two_s = time.perf_counter() - t0
 
     def rel(a, b):
@@ -2947,10 +2966,81 @@ def phase_gloo_two_ranks(torch, dev, tmp, card):
             raise AssertionError(f"the ranks' {k} differ")
     log(f"  tiny Oriented R-CNN, 2 gloo ranks x 2 images on one card "
         f"against one process on 4 ({one_s:.1f} s here, {two_s:.1f} s for "
-        f"the two children): worst relative errors " + ", ".join(
-            f"{k} {v:.2e}" for k, v in worst.items())
+        f"the two children, the families below included): worst relative "
+        f"errors " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + f" (tolerances {tol}); the ranks' parameters bit for bit; gloo "
         f"took the card's tensors for all_reduce and all_gather [{card}]")
+    check_families(np, families, one_families,
+                   [[r[f] for f in families] for r in two], card)
+
+
+# phase 56's families (``tests/torch_dp_children.py:family_step``, one SGD
+# step, f32 on the card): losses, BN and long-tail statistics and the
+# gradients to 1e-4 of their scale, as the tiny Oriented R-CNN's. The
+# gradients of the families whose ResNet trains its BatchNorm are only
+# reported: their f32 sides differ by up to 4.2e-2 on the CPU and 0.12 on
+# the card (the train-mode norm's conditioning, and rounding that reorders
+# near-tied proposals of the random RPN), as much as a fault would move
+# them, and by 2e-14 in f64, where the CPU tests hold them; their losses
+# and statistics stay held at 1e-4
+FAMILY_TOL = dict(losses=1e-4, grads=1e-4, stats=1e-4)
+TRAIN_BN_FAMILIES = ("roitrans", "faster_rcnn_obb", "orcnn_resnet",
+                     "orcnn_eqlv2", "orcnn_efl", "orcnn_seesaw")
+# K1 / K3 a rank's step: the cascades' stage 2 and the Oriented R-CNN
+# heads; FasterRCNN-OBB's one stage pools hbb rois without a kernel, and
+# Gliding Vertex and the single-stage families reach none
+FAMILY_LAUNCHES = dict(roitrans=(1, 1), convnext_roitrans=(1, 1),
+                       faster_rcnn_obb=(0, 0), gliding=(0, 0),
+                       retinanet=(0, 0), r3det=(0, 0), orcnn_resnet=(1, 1),
+                       orcnn_eqlv2=(1, 1), orcnn_efl=(1, 1),
+                       orcnn_seesaw=(1, 1))
+
+
+def check_families(np, families, one, two, card):
+    """Phase 56's families: each rank's step against one process's on the
+    4 images (``FAMILY_TOL``), the ranks' parameters bit for bit, and
+    K1 / K3 launches a rank (``FAMILY_LAUNCHES``)."""
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-12)
+
+    rows = []
+    for i, fam in enumerate(families):
+        ref = one[i]
+        worst = dict(losses=0.0, grads=0.0, stats=0.0, grads_bn=0.0)
+        for r, ranks in enumerate(two):
+            got = ranks[i]
+            for k, v in ref["losses"].items():
+                worst["losses"] = max(worst["losses"], abs(
+                    got["losses"][k] - v) / max(abs(v), 1.0))
+            for k, g in ref["grads"].items():
+                key = "grads_bn" if fam in TRAIN_BN_FAMILIES else "grads"
+                worst[key] = max(worst[key], rel(got["grads"][k], g))
+            for k, v in ref["stats"].items():
+                worst["stats"] = max(worst["stats"], float(np.abs(
+                    got["stats"][k] - v).max()) / max(float(
+                        np.abs(v).max()), 1.0))
+            launches = (got["launches"]["K1"], got["launches"]["K3"])
+            if launches != FAMILY_LAUNCHES[fam]:
+                raise AssertionError(f"{fam}: rank {r} launched K1 / K3 "
+                                     f"{launches}, not "
+                                     f"{FAMILY_LAUNCHES[fam]}")
+        for k in ref["params"]:
+            if not np.array_equal(two[0][i]["params"][k],
+                                  two[1][i]["params"][k]):
+                raise AssertionError(f"{fam}: the ranks' {k} differ")
+        over = {k: v for k, v in worst.items()
+                if k in FAMILY_TOL and v > FAMILY_TOL[k]}
+        if over:
+            raise AssertionError(f"{fam}: two gloo ranks against one "
+                                 f"process {over} past {FAMILY_TOL}")
+        rows.append(f"{fam} " + "/".join(f"{v:.1e}" for v in worst.values())
+                    + " K1/K3 a rank " + "/".join(
+                        str(v) for v in FAMILY_LAUNCHES[fam]))
+    log(f"  the families, 2 gloo ranks x 2 tiles against one process on 4, "
+        f"worst losses/grads/stats/train-BN families' grads (reported) "
+        f"(tolerances "
+        f"{FAMILY_TOL}): " + "; ".join(rows) + f" [{card}]")
 
 
 TWO_RANKS_CHILD = "--two-ranks-child"
@@ -3257,6 +3347,196 @@ def phase_two_ranks_full(torch, tmp, card):
                                  f"{o['eval_launches']}, expected "
                                  f"{want_eval}")
     return zero["train_launches"], zero["eval_launches"]
+
+
+# phase 58: the two-stage and box toolbox on the card against the CPU, at
+# the zoo's shapes: a stride-16 level of two 1024^2 tiles (64^2, C = 256),
+# 2,000 rois, P = 7; PSRoIAlign on 7^2 * 10 channels. Every function runs
+# at the full shape on the card (timed); its CPU twin runs on the first
+# TOOLBOX_CHECK rois of the same inputs (a roi's rows do not depend on the
+# others), forward and gradients. Tolerances relative to each tensor's
+# largest magnitude: outputs 1e-5, gradients 1e-4 (the CUDA backward of a
+# gather adds in another order); keeps, flags and levels exactly.
+# RoIPool's gradient goes to each bin's largest sample, and where two
+# samples differ in the last bits the two devices may pick either (a
+# first card run read 4.2e-4 at the largest element): it is held by the
+# relative L2 norm of its difference, to 1e-3
+TOOLBOX_ROIS = 2000
+TOOLBOX_CHECK = 256
+TOOLBOX_TOL = dict(out=1e-5, grad=1e-4, grad_l2_max=1e-3)
+
+
+def toolbox_inputs(torch, n_rois=TOOLBOX_ROIS, seed=58):
+    """Seeded toolbox inputs on the CPU: stride-16 features [2, 64, 64,
+    256] and [2, 64, 64, 490], rotated rois [R, 6] and hbb rois [R, 5] in
+    the 1024^2 tile (4-400 px), DCN offsets [R, 2, 7, 7], quads [R, 8] and
+    obbs [R, 5] of the rotated rois, scores [R], and the stride-16 level's
+    3 anchors a position."""
+    from rs_detection_tpu_torch.ops import box_ops as B
+
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    side = torch.exp(u(math.log(4.0), math.log(400.0), n_rois, 2))
+    obbs = torch.stack([u(0, TILE, n_rois), u(0, TILE, n_rois), side[:, 0],
+                        side[:, 1], u(-math.pi, math.pi, n_rois)], -1)
+    batch = torch.randint(0, 2, (n_rois, 1), generator=g).float()
+    hbbs = B.obb2hbb(obbs)
+    ys, xs = torch.meshgrid(torch.arange(64.0), torch.arange(64.0),
+                            indexing="ij")
+    centre = torch.stack([xs, ys], -1).reshape(-1, 1, 2) * 16 + 8
+    half = torch.tensor([[32.0, 32.0], [45.0, 22.0], [22.0, 45.0]])
+    anchors = torch.cat([centre - half, centre + half], -1).reshape(-1, 4)
+    return dict(
+        feats=torch.randn(2, 64, 64, 256, generator=g),
+        ps_feats=torch.randn(2, 64, 64, 490, generator=g),
+        rois=torch.cat([batch, obbs], 1), hrois=torch.cat([batch, hbbs], 1),
+        offsets=torch.randn(n_rois, 2, 7, 7, generator=g),
+        polys=B.obb2poly(obbs), obbs=obbs, hbbs=hbbs,
+        scores=torch.rand(n_rois, generator=g), anchors=anchors,
+        valid=torch.rand(anchors.shape[0], generator=g) > 0.1)
+
+
+def phase_toolbox(torch, dev, kernels, card):
+    """Phase 58: ``roi_align_rotated``, ``roi_pool``, ``psroi_align``,
+    ``deform_roi_pooling`` and ``DCNPooling`` (forward and backward),
+    ``poly_iou``, ``box_iou_rotated_v1``, ``nms_mask``,
+    ``anchor_inside_flags`` and ``images_to_levels`` on the card against
+    the same calls on the CPU (``TOOLBOX_*``); each one's ms on the card
+    at the full shape, and K1-K7's launches over the phase, all 0: none of
+    these functions reaches a kernel, as their JAX twins reach no Pallas
+    call. Returns the launches."""
+    from rs_detection_tpu_torch.models.boxes import anchor_target as at
+    from rs_detection_tpu_torch.ops import dcn_pool as dcn
+    from rs_detection_tpu_torch.ops import nms
+    from rs_detection_tpu_torch.ops import roi_align as ra
+    from rs_detection_tpu_torch.ops import rotated_iou as ri
+
+    for fn in kernels.values():
+        fn.launches = 0
+    x = toolbox_inputs(torch)
+    k = TOOLBOX_CHECK
+    s = 1.0 / 16
+    pool = dcn.DCNPooling(spatial_scale=s, pooled_size=7, output_dim=256,
+                          trans_std=0.1)
+    g = torch.Generator().manual_seed(59)
+    with torch.no_grad():
+        for p in pool.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(
+                p.shape[-1]))
+    pool_dev = type(pool)(spatial_scale=s, pooled_size=7, output_dim=256,
+                          trans_std=0.1).to(dev)
+    pool_dev.load_state_dict(pool.state_dict())
+    differentiable = {
+        "roi_align_rotated": (lambda m, f, r: ra.roi_align_rotated(
+            f, r, 7, s, 2), "feats", "rois"),
+        "roi_pool": (lambda m, f, r: ra.roi_pool(f, r, 7, s), "feats",
+                     "hrois"),
+        "psroi_align": (lambda m, f, r: ra.psroi_align(f, r, 7, s, 2),
+                        "ps_feats", "hrois"),
+        "deform_roi_pooling": (lambda m, f, r, o: dcn.deform_roi_pooling(
+            f, r, o, 7, s, sample_per_part=4, trans_std=0.1), "feats",
+            "hrois", "offsets"),
+        "DCNPooling": (lambda m, f, r: m(f, r), "feats", "hrois"),
+    }
+    worst, times = {}, {}
+
+    def rel(a, b):
+        return (a.detach().float().cpu() - b.detach().float()).abs().max() \
+            .item() / max(b.detach().abs().max().item(), 1e-12)
+
+    for name, (fn, *keys) in differentiable.items():
+        args = {key: x[key] for key in keys}
+        wants = [key in ("feats", "ps_feats", "offsets") for key in keys]
+        full = [args[key].to(dev, copy=True).requires_grad_(w)
+                for key, w in zip(keys, wants)]
+        with torch.no_grad():
+            times[name] = cuda_ms(lambda: fn(pool_dev, *full), 3)
+        times[name + " fwd+bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            fn(pool_dev, *full).sum(), [a for a in full if a.requires_grad]),
+            3)
+        outs = {}
+        for dv, m in (("cpu", pool), (dev, pool_dev)):
+            ins = [(args[key] if key in ("feats", "ps_feats")
+                    else args[key][:k]).to(dv, copy=True).requires_grad_(w)
+                   for key, w in zip(keys, wants)]
+            m.zero_grad(set_to_none=True)
+            out = fn(m, *ins)
+            wt = torch.randn(out.shape, generator=torch.Generator()
+                             .manual_seed(60)).to(dv)
+            (out * wt).sum().backward()
+            grads = [a.grad for a in ins if a.requires_grad]
+            if name == "DCNPooling":
+                grads += [p.grad for p in m.parameters()]
+            outs[dv] = out, grads
+        (o_g, g_g), (o_c, g_c) = outs[dev], outs["cpu"]
+        worst[name] = (rel(o_g, o_c), max(rel(a, b) for a, b in
+                                         zip(g_g, g_c)))
+        grad_ok = worst[name][1] <= TOOLBOX_TOL["grad"]
+        if name == "roi_pool":
+            l2 = max((a.cpu() - b).norm().item() / b.norm().item()
+                     for a, b in zip(g_g, g_c))
+            worst[name] += (l2,)
+            grad_ok = l2 <= TOOLBOX_TOL["grad_l2_max"]
+        if worst[name][0] > TOOLBOX_TOL["out"] or not grad_ok:
+            raise AssertionError(f"{name}: card against the CPU "
+                                 f"{worst[name]} past {TOOLBOX_TOL}")
+
+    polys, obbs = x["polys"].to(dev), x["obbs"].to(dev)
+    times["poly_iou"] = cuda_ms(lambda: ri.poly_iou(polys, polys), 1)
+    times["box_iou_rotated_v1"] = cuda_ms(
+        lambda: ri.box_iou_rotated_v1(obbs, obbs), 1)
+    worst["poly_iou"] = (rel(ri.poly_iou(polys[:k // 4], polys),
+                             ri.poly_iou(x["polys"][:k // 4], x["polys"])),)
+    worst["box_iou_rotated_v1"] = (rel(
+        ri.box_iou_rotated_v1(obbs[:k // 4], obbs),
+        ri.box_iou_rotated_v1(x["obbs"][:k // 4], x["obbs"])),)
+    for name in ("poly_iou", "box_iou_rotated_v1"):
+        if worst[name][0] > TOOLBOX_TOL["out"]:
+            raise AssertionError(f"{name}: card against the CPU "
+                                 f"{worst[name][0]:.3e}")
+
+    hbbs, scores = x["hbbs"].to(dev), x["scores"].to(dev)
+    times["nms_mask"] = cuda_ms(lambda: nms.nms_mask(hbbs, scores, 0.5), 3)
+    keep = nms.nms_mask(hbbs, scores, 0.5)
+    if not torch.equal(keep.cpu(), nms.nms_mask(x["hbbs"], x["scores"], 0.5)):
+        raise AssertionError("nms_mask: the card's keeps differ")
+    anchors, valid = x["anchors"].to(dev), x["valid"].to(dev)
+    times["anchor_inside_flags"] = cuda_ms(lambda: at.anchor_inside_flags(
+        anchors, valid, (TILE, TILE), 0), 3)
+    flags = at.anchor_inside_flags(anchors, valid, (TILE, TILE), 0)
+    if not torch.equal(flags.cpu(), at.anchor_inside_flags(
+            x["anchors"], x["valid"], (TILE, TILE), 0)):
+        raise AssertionError("anchor_inside_flags: the card's flags differ")
+    levels = [4096 * 3, 1024 * 3, 256 * 3, 64 * 3, 16 * 3]
+    target = torch.arange(2 * sum(levels) * 5, dtype=torch.float32) \
+        .reshape(2, -1, 5)
+    times["images_to_levels"] = cuda_ms(lambda: at.images_to_levels(
+        target.to(dev), levels), 3)
+    for a, b in zip(at.images_to_levels(target.to(dev), levels),
+                    at.images_to_levels(target, levels)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("images_to_levels: the card's levels "
+                                 "differ")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"  {TOOLBOX_ROIS} rois on a stride-16 level of two {TILE}^2 tiles "
+        f"(C = 256; PSRoIAlign 490), P = 7, f32; the CPU on the first "
+        f"{TOOLBOX_CHECK} rois (the IoUs on {TOOLBOX_CHECK // 4} x "
+        f"{TOOLBOX_ROIS} pairs): worst relative errors (output, gradients; "
+        f"RoIPool's gradients also by the L2 norm) "
+        + ", ".join(f"{n} " + " / ".join(f"{e:.2e}" for e in v)
+                    for n, v in worst.items())
+        + f" (tolerances {TOOLBOX_TOL}); nms_mask {int(keep.sum())} of "
+        f"{TOOLBOX_ROIS} kept, anchor_inside_flags and images_to_levels "
+        f"exactly as the CPU")
+    log("  card ms at the full shape (CUDA events): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in times.items())
+        + f"; kernel launches over the phase {launches} [{card}]")
+    if any(launches.values()):
+        raise AssertionError(f"the toolbox launched a kernel: {launches}")
+    return launches
 
 
 def compare_tile_dirs(a, b):
@@ -6143,7 +6423,13 @@ def main():
             "width: the VAN-b3 bf16 step at batch 4 + 4 against one process "
             "on 8, make_eval_step on 7 images",
             lambda: phase_two_ranks_full(torch, tmp, card))
-    log(f"all 57 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        toolbox = run_phase(
+            torch, 58, "the two-stage and box toolbox on the card against "
+            "the CPU: rotated RoIAlign, RoIPool, PSRoIAlign, DCN pooling, "
+            "poly and rotated IoU, NMS, anchor helpers",
+            lambda: phase_toolbox(torch, dev, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 58 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -6259,6 +6545,7 @@ def main():
             k["name"], 0)
         k["data_parallel_two_ranks_eval_launches"] = dp2_eval.get(
             k["name"], 0)
+        k["toolbox_launches"] = toolbox[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -101,3 +101,9 @@ def mergebypoly(srcpath: str, dstpath: str,
             pool.map(partial(mergesingle, dstpath,
                              nms_threshold_type=nms_threshold_type),
                      files)
+
+
+def mergebyobb(srcpath: str, dstpath: str, num_process: int = 16):
+    """The obb merge of the reference: ``mergebypoly``'s pipeline, whose
+    exact polygon NMS covers obbs (their polygons are rectangles)."""
+    mergebypoly(srcpath, dstpath, num_process=num_process)

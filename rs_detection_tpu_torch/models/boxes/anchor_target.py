@@ -68,3 +68,28 @@ def anchor_target_single(anchors, inside_mask, gt_bboxes, gt_mask,
         num_pos=pos.sum(dim=-1),
         num_neg=neg.sum(dim=-1),
         assigned_gt_inds=assigned)
+
+
+def anchor_inside_flags(flat_anchors, valid_flags, img_shape,
+                        allowed_border=-1):
+    """hbb anchors [A, 4] within the image border, widened by
+    ``allowed_border``; a negative border keeps ``valid_flags`` as they
+    are."""
+    if allowed_border < 0:
+        return valid_flags
+    img_h, img_w = img_shape
+    return (valid_flags
+            & (flat_anchors[:, 0] >= -allowed_border)
+            & (flat_anchors[:, 1] >= -allowed_border)
+            & (flat_anchors[:, 2] < img_w + allowed_border)
+            & (flat_anchors[:, 3] < img_h + allowed_border))
+
+
+def images_to_levels(target, num_level_anchors):
+    """[B, A, ...] -> per-level [B, A_l, ...] slices."""
+    out = []
+    start = 0
+    for n in num_level_anchors:
+        out.append(target[:, start:start + n])
+        start += n
+    return out

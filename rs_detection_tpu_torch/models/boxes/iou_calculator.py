@@ -5,6 +5,9 @@ through ``ops/nms.py:bbox_overlaps_hbb``, rotated IoU through
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ...ops.nms import bbox_overlaps_hbb
 from ...ops.rotated_iou import box_iou_rotated
 from ...utils.registry import BOXES
@@ -42,3 +45,11 @@ class BboxOverlaps2D_rotated:
 @BOXES.register_module()
 class BboxOverlaps2D_rotated_v1(BboxOverlaps2D_rotated):
     pass
+
+
+def bbox_overlaps_np(bboxes1, bboxes2, mode="iou"):
+    """numpy hbb IoU [N, 4] x [M, 4] -> [N, M] f32, through
+    ``bbox_overlaps_hbb`` on the CPU."""
+    return bbox_overlaps_hbb(
+        torch.from_numpy(np.asarray(bboxes1, np.float32)),
+        torch.from_numpy(np.asarray(bboxes2, np.float32)), mode).numpy()

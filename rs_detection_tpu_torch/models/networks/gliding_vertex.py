@@ -14,7 +14,10 @@ from .rcnn import RCNN
 @MODELS.register_module()
 class GlidingVertex(RCNN):
     """Backbone, FPN, ``GlidingRPNHead`` and ``GlidingHead`` by default;
-    it takes no legacy section. The targets need "hboxes" and "polys"."""
+    it reads no legacy section, not even ``rpn_head`` (the JAX network
+    builds its RPN from ``rpn`` alone). The targets need "hboxes" and
+    "polys"."""
 
+    reads_rpn_head = False
     default_rpn = GlidingRPNHead
     default_head = GlidingHead

@@ -55,11 +55,17 @@ class RCNN(nn.Module):
     ``default_head`` when None). ``compute_dtype`` (a torch dtype or its
     name, e.g. "bfloat16"): the dtype the images are cast to, and so the
     activations'; the parameters' dtype when None. ``pretrained`` is read
-    by the runner. The mmdet-v1 sections (``rpn_head``, ``rbbox_head``,
-    ...) are taken by the networks whose ``LEGACY`` names them and raise
-    elsewhere; ``rpn_head`` stands for ``rpn`` when that is None."""
+    by the runner. Every network takes the seven mmdet-v1 sections of the
+    JAX ``RCNN`` (``rpn_head``, ``bbox_roi_extractor``,
+    ``rbbox_roi_extractor``, ``rbbox_head``, ``shared_head``,
+    ``train_cfg``, ``test_cfg``) and reads what its JAX twin reads:
+    ``rpn_head`` stands for ``rpn`` when that is None (where
+    ``reads_rpn_head``), a subclass's ``build_head`` reads the cascade's
+    sections, and the rest are ignored, ``shared_head`` everywhere, as in
+    JAX."""
 
-    LEGACY = ()
+    # the JAX GlidingVertex builds its RPN from ``rpn`` alone
+    reads_rpn_head = True
     default_rpn = OrientedRPNHead
     default_head = OrientedHead
 
@@ -72,18 +78,11 @@ class RCNN(nn.Module):
                       rbbox_roi_extractor=rbbox_roi_extractor,
                       rbbox_head=rbbox_head, shared_head=shared_head,
                       train_cfg=train_cfg, test_cfg=test_cfg)
-        unread = sorted(k for k, v in legacy.items()
-                        if v is not None and k not in self.LEGACY)
-        if unread:
-            raise NotImplementedError(
-                f"{type(self).__name__}: the legacy config sections {unread} "
-                f"are not ported for this network; RoITransformer and "
-                f"FasterRCNNOBB take all but shared_head (ROADMAP.md, "
-                f"Queue 1, item 10c)")
+        if rpn is None and self.reads_rpn_head:
+            rpn = adapt_rpn_cfg(rpn_head)
         self.backbone = _build(backbone, BACKBONES, _resnet50)
         self.neck = _build(neck, NECKS, FPN)
-        self.rpn = _build(rpn if rpn is not None else adapt_rpn_cfg(rpn_head),
-                          HEADS, self.default_rpn)
+        self.rpn = _build(rpn, HEADS, self.default_rpn)
         self.bbox_head = self.build_head(bbox_head, legacy)
         self.compute_dtype = _dtype(compute_dtype)
 
@@ -130,4 +129,4 @@ class RCNN(nn.Module):
 @MODELS.register_module()
 class OrientedRCNN(RCNN):
     """The competition model: ``OrientedRPNHead`` and ``OrientedHead`` by
-    default; it takes no legacy section."""
+    default; of the legacy sections it reads ``rpn_head``."""

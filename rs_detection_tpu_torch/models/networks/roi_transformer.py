@@ -37,8 +37,6 @@ def _head_cfg(bbox_head, legacy):
 class RoITransformer(RCNN):
     """hbb RPN + the two-stage rotated cascade."""
 
-    LEGACY = ("rpn_head", "bbox_roi_extractor", "rbbox_roi_extractor",
-              "rbbox_head", "train_cfg", "test_cfg")
     default_rpn = RPNHead
     default_head = RoITransformerHead
 

@@ -126,10 +126,23 @@ def poly2obb(polys):
 _BBOX_TYPES = {4: "hbb", 5: "obb", 8: "poly"}
 
 
+def get_bbox_type(bboxes, with_score: bool = False) -> str:
+    """"hbb", "obb", "poly" or "notype" by the last axis (less one with
+    ``with_score``); tensors or numpy arrays."""
+    return _BBOX_TYPES.get(bboxes.shape[-1] - (1 if with_score else 0),
+                           "notype")
+
+
+def get_bbox_dim(bbox_type: str, with_score: bool = False) -> int:
+    """The last axis of a box type (plus one with ``with_score``)."""
+    return {"hbb": 4, "obb": 5, "poly": 8}[bbox_type] + (
+        1 if with_score else 0)
+
+
 def bbox2type(bboxes, to_type: str):
     """Convert between "hbb" [..., 4], "obb" [..., 5] and "poly" [..., 8]
     (the JAX table)."""
-    ori = _BBOX_TYPES.get(bboxes.shape[-1], "notype")
+    ori = get_bbox_type(bboxes)
     if ori == to_type:
         return bboxes
     table = {("poly", "obb"): poly2obb, ("poly", "hbb"): poly2hbb,
@@ -152,6 +165,57 @@ def get_bbox_areas(bboxes):
     cross = (pts[..., 0] * rolled[..., 1]
              - rolled[..., 0] * pts[..., 1]).sum(-1)
     return 0.5 * torch.abs(cross)
+
+
+def poly_to_rotated_box(polys, angle_version: str = "le135"):
+    """Quadrilaterals [..., 8+] -> (cx, cy, w, h, theta) [..., 5] on
+    tensors (the JAX function; ``poly_to_rotated_box_np`` is its numpy
+    form): w the longer of edges (p1, p2) / (p2, p3), theta along it
+    (p1 -> p2, else p1 -> p4) normalized by ``angle_version``, the centre
+    the midpoint of p1 and p3."""
+    x1, y1, x2, y2, x3, y3, x4, y4 = polys[..., :8].unbind(-1)
+    edge1 = torch.sqrt((x1 - x2) ** 2 + (y1 - y2) ** 2)
+    edge2 = torch.sqrt((x2 - x3) ** 2 + (y2 - y3) ** 2)
+    angle = norm_angle(torch.where(edge1 > edge2,
+                                   torch.atan2(y2 - y1, x2 - x1),
+                                   torch.atan2(y4 - y1, x4 - x1)),
+                       angle_version)
+    return torch.stack([(x1 + x3) / 2.0, (y1 + y3) / 2.0,
+                        torch.maximum(edge1, edge2),
+                        torch.minimum(edge1, edge2), angle], dim=-1)
+
+
+def get_best_begin_point(polys):
+    """Each quad's vertices in the cyclic order nearest (summed distance)
+    to its hbb's TL-TR-BR-BL corners; columns after the 8th (a score)
+    kept. Tensors or numpy arrays."""
+    if not isinstance(polys, torch.Tensor):
+        out = _best_begin_point(polys[..., :8])
+        return np.concatenate([out, polys[..., 8:]], axis=-1) \
+            if polys.shape[-1] > 8 else out
+    pts = polys[..., :8].reshape(*polys.shape[:-1], 4, 2)
+    lo, hi = pts.amin(-2), pts.amax(-2)
+    corners = torch.stack([lo, torch.stack([hi[..., 0], lo[..., 1]], -1), hi,
+                           torch.stack([lo[..., 0], hi[..., 1]], -1)], -2)
+    rots = torch.stack([torch.roll(pts, -k, dims=-2) for k in range(4)], -3)
+    dists = torch.sqrt(((rots - corners[..., None, :, :]) ** 2).sum(-1)) \
+        .sum(-1)
+    best = torch.argmin(dists, dim=-1)
+    out = torch.take_along_dim(rots, best[..., None, None, None], dim=-3) \
+        .reshape(*polys.shape[:-1], 8)
+    return torch.cat([out, polys[..., 8:]], -1) if polys.shape[-1] > 8 \
+        else out
+
+
+def rotated_box_to_bbox(rrects):
+    """obbs [..., 5] -> their enclosing hbbs [..., 4] on tensors, through
+    ``rotated_box_to_poly`` (the JAX function;
+    ``rotated_box_to_bbox_np`` is the numpy form, which also returns the
+    quads)."""
+    poly = rotated_box_to_poly(rrects)
+    xs, ys = poly[..., 0::2], poly[..., 1::2]
+    return torch.stack([xs.amin(-1), ys.amin(-1), xs.amax(-1), ys.amax(-1)],
+                       dim=-1)
 
 
 def rotated_box_to_poly(rrects):
@@ -355,3 +419,24 @@ def rotated_box_to_bbox_np(rrects):
     hbb = np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)],
                    axis=1).astype(np.float32)
     return hbb, polys
+
+
+# ---------------------------------------------------------------------------
+# roi packing, tensors or numpy arrays
+# ---------------------------------------------------------------------------
+
+def arb2roi(bbox_list, bbox_dim: int = 5):
+    """Per-image boxes [N_i, bbox_dim+] -> rois [sum N_i, 1 + bbox_dim]
+    with the image index in front, in the boxes' dtype."""
+    if bbox_list and isinstance(bbox_list[0], torch.Tensor):
+        return torch.cat([torch.cat([torch.full(
+            (b.shape[0], 1), float(i), dtype=b.dtype, device=b.device),
+            b[:, :bbox_dim]], -1) for i, b in enumerate(bbox_list)], 0)
+    return np.concatenate([np.concatenate([np.full(
+        (b.shape[0], 1), float(i), dtype=b.dtype), b[:, :bbox_dim]], -1)
+        for i, b in enumerate(bbox_list)], 0)
+
+
+def bbox2roi(bbox_list):
+    """``arb2roi`` of hbbs: rois [sum N_i, 5]."""
+    return arb2roi(bbox_list, 4)

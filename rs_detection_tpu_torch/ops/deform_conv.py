@@ -59,3 +59,11 @@ def deform_conv2d(x, offset, weight, bias=None, mask=None,
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)
+
+
+def dcn_offset_grid(k: int):
+    """The (ky, kx) tap offsets of a k x k kernel in row-major tap order,
+    f32 [k * k] each (AlignConv's offset builder)."""
+    ky = torch.arange(k, dtype=torch.float32).repeat_interleave(k)
+    kx = torch.arange(k, dtype=torch.float32).repeat(k)
+    return ky, kx

@@ -1,8 +1,13 @@
-"""Horizontal-box IoU and the NMS pieces of the RPN (counterpart of
-``rs_detection_tpu/ops/nms.py``), batched over a leading image axis."""
+"""Horizontal-box IoU and NMS (counterpart of
+``rs_detection_tpu/ops/nms.py``): the RPN's pieces, batched over a
+leading image axis; ``nms_mask`` on tensors, and the host helpers
+``nms`` and ``multiclass_nms`` that take numpy arrays, as the JAX ones
+do. ``fast_top_k`` is not ported: it is the TPU's approximate top-k, and
+``top_k`` here is exact."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -66,3 +71,60 @@ def top_k(x, k: int):
     approximate above 16384 candidates; the port is exact everywhere."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def nms_mask(boxes, scores, iou_threshold, valid=None):
+    """Keep mask, in input order, of greedy hbb NMS over ``boxes`` [N, 4]
+    and ``scores`` [N] on their device; ``valid`` [N] marks live entries
+    (the others score -inf and are never kept). The boxes go in stable
+    descending score order, as JAX's ``argsort(-s)``."""
+    n = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    s = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(-s, stable=True).indices
+    b = boxes[order]
+    keep_sorted = greedy_suppress_mask(bbox_overlaps_hbb(b, b)
+                                       > iou_threshold, valid[order])
+    return torch.zeros(n, dtype=torch.bool, device=boxes.device) \
+        .index_put((order,), keep_sorted)
+
+
+def nms(boxes, scores, iou_threshold):
+    """Kept indices of hbb NMS (host numpy in and out, ``nms_mask`` on the
+    CPU), by descending score in the JAX helper's numpy order."""
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    if boxes.shape[0] == 0:
+        return np.zeros((0,), np.int64)
+    keep = nms_mask(torch.from_numpy(boxes), torch.from_numpy(scores),
+                    iou_threshold).numpy()
+    idx = np.nonzero(keep)[0]
+    return idx[np.argsort(-scores[idx])]
+
+
+def multiclass_nms(mlvl_bboxes, mlvl_scores, score_thr, nms_cfg, max_num=-1):
+    """Per-class hbb NMS over numpy boxes [N, 4] and scores [N, C]:
+    (dets [K, 5] with the score last, labels [K]) by descending score, at
+    most ``max_num`` when positive; ``nms_cfg["iou_thr"]`` (0.5)."""
+    num_classes = mlvl_scores.shape[1]
+    out_boxes, out_labels = [], []
+    iou_thr = nms_cfg.get("iou_thr", 0.5)
+    for c in range(num_classes):
+        mask = mlvl_scores[:, c] > score_thr
+        if not mask.any():
+            continue
+        boxes_c = mlvl_bboxes[mask]
+        scores_c = mlvl_scores[mask, c]
+        keep = nms(boxes_c, scores_c, iou_thr)
+        out_boxes.append(np.concatenate([boxes_c[keep], scores_c[keep, None]],
+                                        1))
+        out_labels.append(np.full((len(keep),), c, np.int64))
+    if not out_boxes:
+        return np.zeros((0, 5), np.float32), np.zeros((0,), np.int64)
+    dets = np.concatenate(out_boxes, 0)
+    labels = np.concatenate(out_labels, 0)
+    order = np.argsort(-dets[:, 4])
+    if max_num > 0:
+        order = order[:max_num]
+    return dets[order], labels[order]

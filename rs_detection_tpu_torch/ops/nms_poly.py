@@ -170,3 +170,33 @@ def poly_nms(dets, thresh: float) -> np.ndarray:
     indices, score-descending, as :func:`poly_nms_numpy` gives them."""
     return poly_nms_native(np.asarray(dets, np.float64).reshape(-1, 9),
                            thresh)
+
+
+def multiclass_poly_nms(multi_polys, multi_scores, score_thr, nms_thresh,
+                        max_num=-1):
+    """Per-class poly NMS over numpy quads [N, 8] and scores [N, C]
+    (``poly_nms_numpy`` a class): (dets [K, 9] f32 with the score last,
+    labels [K]) by descending score, at most ``max_num`` when
+    positive."""
+    polys_out, scores_out, labels_out = [], [], []
+    num_classes = multi_scores.shape[1]
+    for c in range(num_classes):
+        mask = multi_scores[:, c] > score_thr
+        if not mask.any():
+            continue
+        p = multi_polys[mask]
+        s = multi_scores[mask, c]
+        keep = poly_nms_numpy(np.concatenate([p, s[:, None]], 1), nms_thresh)
+        polys_out.append(p[keep])
+        scores_out.append(s[keep])
+        labels_out.append(np.full((len(keep),), c, np.int64))
+    if not polys_out:
+        return np.zeros((0, 9), np.float32), np.zeros((0,), np.int64)
+    polys = np.concatenate(polys_out, 0)
+    scores = np.concatenate(scores_out, 0)
+    labels = np.concatenate(labels_out, 0)
+    order = np.argsort(-scores)
+    if max_num > 0:
+        order = order[:max_num]
+    dets = np.concatenate([polys[order], scores[order, None]], 1)
+    return dets.astype(np.float32), labels[order]

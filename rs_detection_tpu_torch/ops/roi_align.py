@@ -106,13 +106,36 @@ def _corners(rois, h: int, w: int, stride: float, p: int, s: int):
     return ~oob, idx, wt
 
 
-def _pool_level(feat, rois, stride: float, p: int, s: int):
-    """Exact rotated RoIAlign of ``rois`` on one level, f32 sums."""
+def _jax_rows(i, size: int):
+    """Row indices as a JAX gather reads them: a negative index counts
+    once from the end, then every index is clamped into [0, size).
+    Returns (the rows read, whether the row was in range): JAX's
+    gradient of a clamped read is dropped."""
+    i = torch.where(i < 0, i + size, i)
+    return i.clamp(0, size - 1), (i >= 0) & (i < size)
+
+
+def _jax_gather(flat, rows, size: int, w: int, xi):
+    """``flat[row * w + xi]`` for rows of a [size * w, C] table as JAX's
+    gather reads them (``_jax_rows``): out-of-range rows read the clamped
+    row and take no gradient."""
+    rows, live = _jax_rows(rows, size)
+    v = flat[rows * w + xi]
+    return torch.where(live[..., None], v, v.detach())
+
+
+def _pool_level(feat, rois, inv, p: int, s: int, clamp_batch: bool = True):
+    """Exact rotated RoIAlign of ``rois`` on one level at scale ``inv``
+    (an f32 scalar tensor: 1 / stride, or a single level's
+    ``spatial_scale``), f32 sums. The batch index is clamped into the
+    batch (``clamp_batch``), or, as the JAX ``roi_align_rotated``'s
+    gather does, the row ``b * H + y`` is (``_jax_rows``)."""
     n, h, w, c = feat.shape
     r = rois.shape[0]
     dev = rois.device
-    b = torch.clamp(rois[:, 0].long(), 0, n - 1)
-    inv = 1.0 / torch.tensor(stride, dtype=torch.float32, device=dev)
+    b = rois[:, 0].long()
+    if clamp_batch:
+        b = torch.clamp(b, 0, n - 1)
     cx = rois[:, 1] * inv - 0.5
     cy = rois[:, 2] * inv - 0.5
     rw = torch.clamp(rois[:, 3] * inv, min=1.0)
@@ -150,8 +173,10 @@ def _pool_level(feat, rois, stride: float, p: int, s: int):
     flat = feat.reshape(n * h * w, c)
     row = (b * h)[:, None, None]
 
-    def g(yi, xi):
-        return flat[(row + yi) * w + xi].float()        # [r, G, G, C]
+    def g(yi, xi):                                      # [r, G, G, C]
+        if not clamp_batch:
+            return _jax_gather(flat, row + yi, n * h, w, xi).float()
+        return flat[(row + yi) * w + xi].float()
 
     out = (hy * hx * g(y_low, x_low) + hy * lx * g(y_low, x_high)
            + ly * hx * g(y_high, x_low) + ly * lx * g(y_high, x_high))
@@ -174,10 +199,11 @@ def roi_align_rotated_pyramid_reference(feats: Sequence[torch.Tensor], rois,
                       device=rois.device)
     for i, (feat, stride) in enumerate(zip(feats, strides)):
         idx = torch.nonzero(lvl == i).flatten()
+        inv = 1.0 / torch.tensor(float(stride), dtype=torch.float32,
+                                 device=rois.device)
         for j in range(0, idx.numel(), _CHUNK):
             sel = idx[j:j + _CHUNK]
-            out[sel] = _pool_level(feat, rois[sel], float(stride), p,
-                                   s).to(out.dtype)
+            out[sel] = _pool_level(feat, rois[sel], inv, p, s).to(out.dtype)
     return out
 
 
@@ -196,15 +222,27 @@ def _axis_corners(t, size: int):
     return low, high, 1.0 - lt, lt, oob
 
 
-def _roi_align_chunk(feat, rois, scale: float, p: int, s: int):
+def _roi_align_chunk(feat, rois, scale: float, p: int, s: int,
+                     pool: bool = False, clamp_batch: bool = True):
+    """Horizontal bilinear sampling of ``rois`` on one level, s x s
+    samples a bin: RoIAlign's corner and extent and a mean, or with
+    ``pool`` RoIPool's rounded corners, ``x2 - x1 + 1`` extent and a
+    max. The batch index as in ``_pool_level``."""
     n, h, w, c = feat.shape
     r = rois.shape[0]
     dev = rois.device
-    b = torch.clamp(rois[:, 0].long(), 0, n - 1)
-    x1 = rois[:, 1] * scale
-    y1 = rois[:, 2] * scale
-    rw = torch.clamp(rois[:, 3] * scale - x1, min=1.0)
-    rh = torch.clamp(rois[:, 4] * scale - y1, min=1.0)
+    b = rois[:, 0].long()
+    if clamp_batch:
+        b = torch.clamp(b, 0, n - 1)
+    if pool:
+        x1, y1, x2, y2 = (torch.round(rois[:, k] * scale) for k in range(1, 5))
+        rw = torch.clamp(x2 - x1 + 1, min=1.0)
+        rh = torch.clamp(y2 - y1 + 1, min=1.0)
+    else:
+        x1 = rois[:, 1] * scale
+        y1 = rois[:, 2] * scale
+        rw = torch.clamp(rois[:, 3] * scale - x1, min=1.0)
+        rh = torch.clamp(rois[:, 4] * scale - y1, min=1.0)
     grid = (torch.arange(p, dtype=torch.float32, device=dev)[:, None]
             + (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
             ).reshape(-1) / p
@@ -217,6 +255,9 @@ def _roi_align_chunk(feat, rois, scale: float, p: int, s: int):
     row = (b * h)[:, None, None]
 
     def g(yi, xi):                                        # [r, G, G, C]
+        if not clamp_batch:
+            return _jax_gather(flat, row + yi[:, :, None], n * h, w,
+                               xi[:, None, :]).float()
         return flat[(row + yi[:, :, None]) * w + xi[:, None, :]].float()
 
     def wt(a, b_):
@@ -225,8 +266,18 @@ def _roi_align_chunk(feat, rois, scale: float, p: int, s: int):
     out = (wt(hy, hx) * g(y_lo, x_lo) + wt(hy, lx) * g(y_lo, x_hi)
            + wt(ly, hx) * g(y_hi, x_lo) + wt(ly, lx) * g(y_hi, x_hi))
     oob = oob_y[:, :, None] | oob_x[:, None, :]
-    out = torch.where(oob[..., None], 0.0, out)
-    return out.reshape(r, p, s, p, s, c).mean(dim=(2, 4))
+    out = torch.where(oob[..., None], 0.0, out).reshape(r, p, s, p, s, c)
+    # amax splits the gradient evenly among tied samples, as JAX's max
+    return out.amax(dim=(2, 4)) if pool else out.mean(dim=(2, 4))
+
+
+def _chunked(fn, features, rois, p: int):
+    """``fn`` over ``_CHUNK`` rois at a time, concatenated in the
+    features' dtype ([0, p, p, C] for no rois)."""
+    parts = [fn(rois[i:i + _CHUNK]) for i in range(0, rois.shape[0], _CHUNK)]
+    if not parts:
+        return features.new_zeros(0, p, p, features.shape[-1])
+    return torch.cat(parts).to(features.dtype)
 
 
 def roi_align(features, rois, output_size: int = 7,
@@ -237,17 +288,17 @@ def roi_align(features, rois, output_size: int = 7,
     ``max(x2 * s - x1 * s, 1)`` x ``max(y2 * s - y1 * s, 1)``, bilinear
     with the border semantics of the rotated version. Returns [R, P, P,
     C] in the features' dtype (f32 sums), ``_CHUNK`` rois at a time."""
+    return _roi_align(features, rois, output_size, spatial_scale,
+                      sampling_ratio, clamp_batch=True)
+
+
+def _roi_align(features, rois, output_size, spatial_scale, sampling_ratio,
+               clamp_batch):
     if sampling_ratio <= 0:
         raise ValueError("roi_align: sampling_ratio must be positive")
-    rois = rois.float()
-    parts = [_roi_align_chunk(features, rois[i:i + _CHUNK],
-                              float(spatial_scale), output_size,
-                              sampling_ratio)
-             for i in range(0, rois.shape[0], _CHUNK)]
-    if not parts:
-        return features.new_zeros(0, output_size, output_size,
-                                  features.shape[-1])
-    return torch.cat(parts).to(features.dtype)
+    return _chunked(lambda r: _roi_align_chunk(
+        features, r, float(spatial_scale), output_size, sampling_ratio,
+        clamp_batch=clamp_batch), features, rois.float(), output_size)
 
 
 class ROIAlign:
@@ -262,6 +313,76 @@ class ROIAlign:
     def __call__(self, features, rois):
         return roi_align(features, rois, self.output_size,
                          self.spatial_scale, self.sampling_ratio)
+
+
+def roi_align_rotated(features, rois, output_size: int = 7,
+                      spatial_scale: float = 1.0, sampling_ratio: int = 2):
+    """Rotated RoIAlign on one NHWC level (counterpart of the JAX
+    ``roi_align_rotated``, OBBDetection's v1 convention): ``rois`` [R, 6]
+    = (batch_idx, cx, cy, w, h, theta) in image coordinates, scaled by
+    ``spatial_scale`` (the f32 product, as JAX takes it); the pyramid
+    version's arithmetic (``_pool_level``). A batch index outside the
+    batch reads the row JAX's gather reads (``_jax_rows``), where the
+    pyramid version clamps it. Returns [R, P, P, C] in the features'
+    dtype (f32 sums), ``_CHUNK`` rois at a time; autograd differentiates
+    it."""
+    if sampling_ratio <= 0:
+        raise ValueError("roi_align_rotated: sampling_ratio must be positive")
+    scale = torch.tensor(float(spatial_scale), dtype=torch.float32,
+                         device=rois.device)
+    return _chunked(lambda r: _pool_level(
+        features, r, scale, output_size, sampling_ratio, clamp_batch=False),
+        features, rois.float(), output_size)
+
+
+class ROIAlignRotated(ROIAlign):
+    """Module-style wrapper of ``roi_align_rotated`` (the JAX class)."""
+
+    def __call__(self, features, rois):
+        return roi_align_rotated(features, rois, self.output_size,
+                                 self.spatial_scale, self.sampling_ratio)
+
+
+ROIAlignRotated_v1 = ROIAlignRotated
+
+
+def roi_pool(features, rois, output_size: int = 7,
+             spatial_scale: float = 1.0):
+    """Max RoIPool of the JAX package (not JDet's integer-cell max): the
+    corners ``round(x * s)``, the extent ``x2 - x1 + 1`` (at least 1),
+    and each bin the max of a fixed 4 x 4 grid of bilinear samples
+    (an out-of-range sample reads 0). ``rois`` [R, 5] = (batch_idx, x1,
+    y1, x2, y2); [R, P, P, C] in the features' dtype. Its gradient is the
+    max's, split evenly among tied samples as JAX's is."""
+    return _chunked(lambda r: _roi_align_chunk(
+        features, r, float(spatial_scale), output_size, 4, pool=True,
+        clamp_batch=False), features, rois.float(), output_size)
+
+
+def psroi_align(features, rois, output_size: int = 7,
+                spatial_scale: float = 1.0, sampling_ratio: int = 2):
+    """Position-sensitive RoIAlign (counterpart of the JAX
+    ``psroi_align``): the input has ``P^2 * C_out`` channels, and bin
+    (i, j) takes channel group ``i * P + j`` of the horizontal RoIAlign
+    over all of them. A channel count that ``P^2`` does not divide
+    raises, as JAX's reshape does. Returns [R, P, P, C_out]."""
+    p = output_size
+    pooled = _roi_align(features, rois, p, spatial_scale, sampling_ratio,
+                        clamp_batch=False)
+    r, c_in = pooled.shape[0], pooled.shape[-1]
+    pooled = pooled.reshape(r, p, p, p * p, c_in // (p * p))
+    groups = torch.arange(p * p, device=pooled.device).reshape(p, p)
+    take = groups[None, :, :, None, None].expand(r, p, p, 1,
+                                                 pooled.shape[-1])
+    return torch.take_along_dim(pooled, take, dim=3)[:, :, :, 0]
+
+
+class PSROIAlign(ROIAlign):
+    """Module-style wrapper of ``psroi_align`` (the JAX class)."""
+
+    def __call__(self, features, rois):
+        return psroi_align(features, rois, self.output_size,
+                           self.spatial_scale, self.sampling_ratio)
 
 
 def _merged_bins(o, wt, w: int):

@@ -187,3 +187,49 @@ def box_iou_rotated(boxes1, boxes2, mode: str = "iou",
         out[..., sl, :] = _iou_of_pairs(xa, ya, xb, yb, area1[..., sl, :],
                                         area2, mode)
     return out
+
+
+def box_iou_rotated_v1(boxes1, boxes2, mode: str = "iou", **kw):
+    """The mmrotate / OBBDetection entry point: ``box_iou_rotated`` (the
+    IoU values of the two conventions coincide)."""
+    return box_iou_rotated(boxes1, boxes2, mode=mode, **kw)
+
+
+def _shoelace(xs, ys):
+    s = None
+    for i in range(4):
+        t = xs[i] * ys[(i + 1) % 4] - xs[(i + 1) % 4] * ys[i]
+        s = t if s is None else s + t
+    return 0.5 * s.abs()
+
+
+def poly_iou(polys1, polys2, mode: str = "iou",
+             pair_block: int = PAIR_BLOCK):
+    """Pairwise exact IoU of convex quadrilaterals: [N, 8] x [M, 8] ->
+    [N, M] f32 (``mode="iof"``: over the area of ``polys1``), on the
+    candidate-point core of ``box_iou_rotated`` with the quads' own
+    corners and their shoelace areas, in blocks of at most
+    ``pair_block`` pairs. A non-convex quad is taken as its vertex hull
+    would be by that core, as in JAX."""
+    if mode not in ("iou", "iof"):
+        raise ValueError(f"poly_iou: mode {mode!r}")
+    n, m = polys1.shape[0], polys2.shape[0]
+    out = polys1.new_zeros(n, m, dtype=torch.float32)
+    if n == 0 or m == 0:
+        return out
+    c1 = polys1.float().reshape(n, 4, 2).permute(1, 2, 0)   # [4, 2, N]
+    c2 = polys2.float().reshape(m, 4, 2).permute(1, 2, 0)
+    area1 = _shoelace(c1[:, 0], c1[:, 1])[:, None]
+    area2 = _shoelace(c2[:, 0], c2[:, 1])[None, :]
+    rows = max(1, pair_block // m)
+    for r0 in range(0, n, rows):
+        sl = slice(r0, r0 + rows)
+        xa, xb = torch.broadcast_tensors(c1[:, 0, sl, None], c2[:, 0, None])
+        ya, yb = torch.broadcast_tensors(c1[:, 1, sl, None], c2[:, 1, None])
+        inter = _inter_area(xa, ya, xb, yb)
+        a1 = area1[sl]
+        denom = a1 + area2 - inter if mode == "iou" else a1.expand_as(inter)
+        out[sl] = torch.where(
+            denom > _EPS_AREA,
+            (inter / denom.clamp(min=_EPS_AREA)).clamp(0.0, 1.0), 0.0)
+    return out

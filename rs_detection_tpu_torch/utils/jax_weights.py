@@ -10,7 +10,8 @@ names, so the mapping is mechanical:
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ``kernel`` -> ``weight``: a conv HWIO ``(kh, kw, in/groups, out)``
   becomes OIHW (a depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``),
-  an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)``, and
+  an ``nn.Dense`` ``(in, out)`` becomes ``nn.Linear`` ``(out, in)`` (the
+  heads' FCs, ``DCNPooling``'s ``fc1`` - ``fc3``), and
   ORConv2d's rank-3 ARF kernel ``(out, in / nOr, nOr * k * k)`` keeps its
   layout (the port's parameter has it);
 * every other leaf (``bias``, ``layer_scale_*``, ConvNeXt's ``gamma``,

@@ -98,3 +98,5 @@ OPTIMS = Registry("optims")
 SCHEDULERS = Registry("schedulers")
 HOOKS = Registry("hooks")
 LOSSES = Registry("losses")
+BRICKS = Registry("bricks")
+SHARED_HEADS = Registry("shared_heads")

@@ -130,12 +130,11 @@ def _tiny_cfg(**changes):
     ({"neck.add_extra_convs": "on_bogus"}, ValueError),
     ({"rpn.num_classes": 2}, NotImplementedError),
     ({"rpn.reg_dim": 5}, NotImplementedError),
-    ({"rpn_head": {"type": "RPNHead"}}, NotImplementedError),
     ({"compute_dtype": "int32"}, ValueError),
     ({"rpn.anchor_generator.octave_base_scale": 4}, TypeError),
     ({"bbox_head.bbox_roi_extractor.impl": "pallas"}, TypeError),
 ], ids=["reg_per_class", "fpn_extra_convs", "rpn_classes", "rpn_reg_dim",
-        "legacy_section", "int_dtype", "anchor_octaves", "extractor_impl"])
+        "int_dtype", "anchor_octaves", "extractor_impl"])
 def test_unsupported_config_values_raise(changes, error):
     """A value the JAX package honours and the port cannot is refused,
     never dropped (and an extra-conv mode neither knows is refused)."""

@@ -180,11 +180,78 @@ def orcnn_eval(n=3, weights=None, seed=22, device="cpu"):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def _family(family, n, seed):
+def _two_stage_inputs(n, seed, img=128, polys=False):
+    """``n`` seeded ``img``^2 tiles and 6 axis-aligned boxes each (the
+    card tests' inputs of the two-stage families: an axis-aligned box
+    keeps the rotated IoU's low-quality rescue away from near-ties),
+    with their hbbs and, for Gliding Vertex, their corner quads."""
+    import torch
+
+    from rs_detection_tpu_torch.flagship import make_targets
+    from rs_detection_tpu_torch.ops import box_ops as B
+
+    g = torch.Generator().manual_seed(seed)
+    tiles = torch.randint(0, 256, (n, img, img, 3), generator=g,
+                          dtype=torch.uint8)
+    targets = make_targets(n, img, 6, g)
+    targets["rboxes"][..., 4] = 0.0
+    targets["hboxes"] = B.obb2hbb(targets["rboxes"])
+    if polys:
+        targets["polys"] = B.hbb2poly(targets["hboxes"])
+    return tiles, targets
+
+
+def _long_tail_orcnn(head):
+    """The tiny flagship on ResNet-18 (train-mode BN) with the RoI head
+    ``head``: "OrientedHead", "OrientedEQLv2Head", "OrientedEFLHead", or
+    "seesaw" (the EFL head's stateful loss swapped for ``SeesawLoss`` on
+    C + 2 channels, a form no config builds), each sampling a subset."""
+    from rs_detection_tpu_torch.flagship import flagship_cfg
+
+    cfg = flagship_cfg(tiny=True)
+    cfg["backbone"] = dict(type="ResNet", depth=18, norm_eval=False)
+    cfg["neck"]["in_channels"] = [64, 128, 256, 512]
+    cfg["rpn"]["sampler"] = dict(type="RandomSampler", num=48,
+                                 pos_fraction=0.5)
+    cfg["bbox_head"]["type"] = ("OrientedEFLHead" if head == "seesaw"
+                                else head)
+    cfg["bbox_head"]["sampler"] = dict(cfg["bbox_head"]["sampler"], num=24)
+    return cfg
+
+
+def _seesaw(model):
+    import torch
+
+    from rs_detection_tpu_torch.models.losses.long_tail import SeesawLoss
+    from rs_detection_tpu_torch.models.roi_heads.oriented_head_variants \
+        import LossState
+
+    head = model.bbox_head
+    head.cls_loss_fn = SeesawLoss(num_classes=head.num_classes)
+    head.efl = LossState(head.cls_loss_fn.init_state())
+    head.fc_cls = torch.nn.Linear(head.fc_cls.in_features,
+                                  head.num_classes + 2)
+
+
+# the families of ``family_step``: the single-stage ones from PR 21, then
+# every two-stage one, the long-tail heads and a backbone with DropPath
+FAMILY_NAMES = ["s2anet", "fcos", "ssd", "yolo"]
+TWO_STAGE_FAMILIES = ["roitrans", "faster_rcnn_obb", "gliding", "retinanet",
+                      "r3det", "orcnn_resnet", "orcnn_eqlv2", "orcnn_efl",
+                      "orcnn_seesaw", "convnext_roitrans"]
+
+
+def _family(family, n, seed, drop_path=0.2):
     """(model in train mode, images [n], targets) of a family's tiny
     network and inputs from its card tests (``tests/test_torch_*_cuda``):
     S2ANet (the zoo's frozen first ResNet-18 stage, 128^2), FCOS (64^2,
-    axis-aligned boxes), SSD (96^2) and YOLOv5 (128^2, no EMA)."""
+    axis-aligned boxes), SSD (96^2) and YOLOv5 (128^2, no EMA); at 128^2
+    with 6 axis-aligned boxes a tile: RoI-Transformer and FasterRCNN-OBB
+    (ResNet-18 in train-mode BN), Gliding Vertex, RetinaNet (the modern
+    head), R3Det, the tiny Oriented R-CNN on ResNet-18 in train-mode BN
+    with the plain, EQLv2, EFL or Seesaw head, and the tiny
+    RoI-Transformer on a ConvNeXt with DropPath at ``drop_path`` (its
+    layer scales drawn from U(0.2, 0.6))."""
     import torch
 
     from rs_detection_tpu_torch.flagship import (init_weights, make_targets,
@@ -204,35 +271,90 @@ def _family(family, n, seed):
         targets["labels"] = targets["labels"].clamp(max=3)
         if family == "fcos":
             targets["rboxes"][..., 4] = 0.0
-    else:
+    elif family in ("ssd", "yolo"):
         mod = __import__(f"test_torch_{family}_cuda")
         cfg = (mod.tiny_model(ema=False) if family == "yolo"
                else mod.tiny_model())
         tiles, targets = mod.tiny_inputs(seed=seed, batch=n)
+    else:
+        tiles, targets = _two_stage_inputs(n, seed,
+                                           polys=family == "gliding")
+        if family in ("roitrans", "faster_rcnn_obb"):
+            import test_torch_roitrans_cuda
+            cfg = test_torch_roitrans_cuda.tiny_model(family)
+        elif family == "convnext_roitrans":
+            import test_torch_other_backbones_cuda
+            cfg = test_torch_other_backbones_cuda.tiny_convnext_roitrans()
+            cfg["backbone"]["drop_path_rate"] = drop_path
+        elif family == "gliding":
+            import test_torch_gliding_cuda
+            cfg = test_torch_gliding_cuda.tiny_model()
+        elif family == "retinanet":
+            import test_torch_retinanet_cuda
+            cfg = test_torch_retinanet_cuda.tiny_model("modern")
+            targets["labels"] = targets["labels"].clamp(max=2)
+        elif family == "r3det":
+            import test_torch_r3det_cuda
+            cfg = test_torch_r3det_cuda.tiny_model()
+            targets["labels"] = targets["labels"].clamp(max=2)
+        else:
+            cfg = _long_tail_orcnn({
+                "orcnn_resnet": "OrientedHead",
+                "orcnn_eqlv2": "OrientedEQLv2Head",
+                "orcnn_efl": "OrientedEFLHead",
+                "orcnn_seesaw": "seesaw"}[family])
     model = reg.build_from_cfg(cfg, reg.MODELS)
-    init_weights(model, torch.Generator().manual_seed(3))
+    if family == "orcnn_seesaw":
+        _seesaw(model)
+    if family == "convnext_roitrans":
+        # the layer scales drawn off their 1e-6, so that DropPath matters
+        test_torch_other_backbones_cuda.seeded(model, 3)
+    else:
+        init_weights(model, torch.Generator().manual_seed(3))
     return model.train(), normalize(tiles), targets
 
 
-def family_step(family="s2anet", n=4, seed=23, device="cpu"):
+def family_step(family="s2anet", n=4, seed=23, device="cpu", f64=False,
+                drop_path=0.2, draw_seed=6):
     """One SGD step of a family's tiny network on the rank's rows of ``n``
     seeded tiles: the losses divide by counts over the batch (S2ANet,
-    FCOS, SSD's mined negatives, YOLO's positives and batch)."""
+    FCOS, SSD's mined negatives, YOLO's positives and batch), the
+    samplers draw from a seeded generator at the global batch's shape and
+    DropPath (the ConvNeXt's, at ``drop_path``) from the seeded global
+    generator; ``f64`` runs the network
+    and its inputs in f64. Besides ``_state``'s, the long-tail heads'
+    statistics after the step, and the K1 / K3 launches of the step (on
+    the card)."""
     import torch
 
+    from rs_detection_tpu_torch.ops import roi_align as ra
     from rs_detection_tpu_torch.optims.optimizer import SGD
     from rs_detection_tpu_torch.parallel import dist
     from rs_detection_tpu_torch.parallel.train_step import train_step
 
-    model, images, targets = _family(family, n, seed)
+    model, images, targets = _family(family, n, seed, drop_path)
     model.to(device)
+    if f64:
+        model.double()
+        images = images.double()
+        targets = {k: v.double() if v.is_floating_point() else v
+                   for k, v in targets.items()}
     opt = SGD(model.named_parameters(), lr=0.01)
+    torch.manual_seed(5)
+    fwd, bwd = ra.roi_align_rotated_pyramid_cuda, \
+        ra.roi_align_rotated_pyramid_bwd_cuda
+    k1, k3 = fwd.launches, bwd.launches
     losses = train_step(
         model, opt, lambda lr, s, e: lr, dist.rows(images.to(device)),
-        {k: dist.rows(v.to(device)) for k, v in targets.items()}, None,
-        epoch=0)
+        {k: dist.rows(v.to(device)) for k, v in targets.items()},
+        torch.Generator(device=device).manual_seed(draw_seed), epoch=0)
+    state = _state(model, opt)
+    state["stats"].update({k: v.cpu().numpy().copy()
+                           for k, v in model.state_dict().items()
+                           if k.startswith("bbox_head.efl.")})
     return dict(losses={k: float(v) for k, v in losses.items()},
-                **_state(model, opt))
+                launches=dict(K1=fwd.launches - k1, K3=bwd.launches - k3),
+                **state)
 
 
 def make_run(root, work, img=64, n=4):
