@@ -359,6 +359,27 @@ Phases, each of which raises (exit code 1) on failure:
      ``box_iou_rotated_v1``, ``nms_mask``, ``anchor_inside_flags`` and
      ``images_to_levels`` on the card against the CPU (``TOOLBOX_*``);
      each one's ms, K1-K7 0 launches over the phase
+ 59. a reference checkpoint and the golden streams. 59a: the model of
+     ``configs/orcnn_van3_7_anchor_swa_1.py`` (VAN-b3 at its published
+     widths, served in bf16) with seeded weights, exported as a
+     JDet-style pickle (JDet names, OIHW, the first shared FC over (C, P,
+     P)); the port's
+     ``convert_checkpoint --config`` (read back bit for bit) and
+     ``parity_check --record`` on two 1024^2 tiles on the card, then
+     ``--ref-dets`` against the original module's detections (exact
+     audit and counts, IoU >= 0.99, score MAE < 1e-5; the recorded
+     detections equal the original's bit for bit; K1 2 / K2 76 launches
+     in the ``--record`` run). 59b: the nine golden-loss families of
+     ``tools/golden_streams.py`` from the port's seeded init, four SGD
+     steps on the card and on the CPU in f32 with the same sampler draws
+     (``host_draws``), in lock step from the states of the CPU's f64
+     stream: each step's loss on the card against the CPU's f32 one to
+     ``GOLDEN_LOSS_TOL``, its update against the f64 one to
+     ``GOLDEN_UPDATE_*`` of the CPU's f32 error (the families of
+     ``GOLDEN_FAMILY_FLOOR`` with their own floor, and for them a third
+     lock-step stream on the card without cuDNN); then the card's own
+     four-step stream (reported); K1 and K3 launches from the two RoIAlign
+     families
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -384,8 +405,10 @@ time, bound and ``conv2d_weight`` time at ConvNeXt-XL's shapes, the
 ``convnext_*`` keys of its entry; every kernel's launches in phase 55's
 grouped step and eval step, ``data_parallel_train_launches`` and
 ``data_parallel_eval_launches``, in phase 57's (rank 0's),
-``data_parallel_two_ranks_*_launches``, and in phase 58,
-``toolbox_launches``, all 0), the card's name and power limit, and last
+``data_parallel_two_ranks_*_launches``, in phase 58,
+``toolbox_launches``, all 0, in phase 59a's ``--record`` run,
+``reference_checkpoint_launches``, and in phase 59b's streams on the
+card, ``golden_stream_launches``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3577,6 +3600,216 @@ def compare_tile_dirs(a, b):
     return len(names), differ, total
 
 
+# phase 59b: a step's loss on the card against the CPU's (both f32, from
+# the same state; relative), and the step's update of all the parameters
+# against the CPU's in f64 from that state (the L2 norm of the
+# difference over the f64 update's), at most GOLDEN_UPDATE_FACTOR times
+# the CPU's f32 update's error plus GOLDEN_UPDATE_FLOOR. The CPU's f32
+# updates are 1e-5 to 3e-3 off the f64 ones (train-mode BatchNorm over
+# one 64^2 image). orcnn's f32 update is ill-conditioned at some states:
+# on the card it is 9.4e-3 off at step 1 with cuDNN and 1.4e-2 at step 2
+# without it, where the CPU's f32 reads 4e-5. The families of
+# GOLDEN_FAMILY_FLOOR take their floor in place of GOLDEN_UPDATE_FLOOR,
+# and a third lock-step stream on the card without cuDNN is held to the
+# same bound.
+GOLDEN_LOSS_TOL = 1e-4
+GOLDEN_UPDATE_FACTOR = 10.0
+GOLDEN_UPDATE_FLOOR = 1e-3
+GOLDEN_FAMILY_FLOOR = {"orcnn": 2e-2}
+# the RoIAlign kernels the golden streams must launch (orcnn, roitrans)
+GOLDEN_ROI_KERNELS = ("roi_align_rotated_pyramid",
+                      "roi_align_rotated_pyramid_bwd")
+# phase 59a: the config, its tiles, the most detections a tile that are
+# matched, and the kernels' launches in the served run (K1 once and K2 38
+# times a VAN-b3 forward)
+REF_CONFIG = os.path.join(ROOT, "configs", "orcnn_van3_7_anchor_swa_1.py")
+REF_TILES = 2
+REF_DETS_PER_TILE = 300
+REF_LAUNCHES = {"roi_align_rotated_pyramid": REF_TILES,
+                "van_mlp": 38 * REF_TILES}
+
+
+def phase_reference_checkpoint(torch, dev, tmp, kernels, card):
+    """Phase 59a: a JDet-style checkpoint of ``REF_CONFIG`` (the VAN-b3
+    flagship's) through the port's converter and audit to ``predict`` on
+    the card. Returns the kernels' launches in the ``parity_check
+    --record`` run, which must be ``REF_LAUNCHES``."""
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.flagship import init_weights
+    from rs_detection_tpu_torch.tools import convert_checkpoint as conv
+    from rs_detection_tpu_torch.tools import parity_check as pc
+    from rs_detection_tpu_torch.utils.checkpoint import (load_model_arrays,
+                                                         read_checkpoint)
+
+    work = os.path.join(tmp, "ref_ckpt")
+    tiles = os.path.join(work, "tiles")
+    write_tiles(tiles, [f"t{i}.png" for i in range(REF_TILES)], TILE, 59)
+    # served in bf16, as phase 22 serves VAN-b3: the f32 form of K2 has
+    # too little shared memory at C = 320
+    config = write_config(os.path.join(work, "ref_config.py"),
+                          _base_=REF_CONFIG,
+                          model=dict(compute_dtype="bfloat16"))
+    original, cfg = pc.build_model(config)
+    init_weights(original, torch.Generator().manual_seed(59))
+    fc = pc.head_fc_spatial(cfg.model)
+    n_params = sum(p.numel() for p in original.parameters())
+    jdet = os.path.join(work, "jdet_van_b3.pkl")
+    state = pc.export_reference_style(original, fc)
+    with open(jdet, "wb") as f:
+        pickle.dump({"meta": {"source": "seeded"}, "model": state}, f)
+    assert "bbox_head.shared_fcs.0.weight" in state and any(
+        ".spatial_gating_unit." in k for k in state)
+    converted = os.path.join(work, "converted.pkl")
+    conv.main(["--src", jdet, "--out", converted, "--config", config])
+    _, arrays, _, _ = read_checkpoint(converted)
+    back, _ = pc.build_model(config)
+    load_model_arrays(back, arrays)
+    for k, v in original.state_dict().items():
+        if not torch.equal(back.state_dict()[k], v):
+            raise AssertionError(f"convert_checkpoint: {k} differs")
+    del back, arrays
+
+    _, images = pc.read_images(tiles)
+    original.to(dev)
+    ref = pc.run_inference(original, images)
+    conf = [np.sort(d[1])[::-1] for d in ref]
+    thr = max([0.05] + [float(c[REF_DETS_PER_TILE - 1]) for c in conf
+                        if len(c) >= REF_DETS_PER_TILE])
+    ref = [tuple(a[d[1] >= thr] for a in d) for d in ref]
+    del original
+    torch.cuda.empty_cache()
+    ref_path = os.path.join(work, "ref_dets.pkl")
+    with open(ref_path, "wb") as f:
+        pickle.dump({"dets": ref}, f)
+    argv = ["--config", config, "--ckpt", jdet, "--images", tiles,
+            "--score-thr", repr(thr)]
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = pc.main(argv + ["--record", os.path.join(work, "rec.pkl")])
+    record_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if any(launches[k] != n for k, n in REF_LAUNCHES.items()):
+        raise AssertionError(f"parity_check --record launched {launches}, "
+                             f"not {REF_LAUNCHES}")
+    for i, ((rp, rs, rl), (gp, gs, gl)) in enumerate(zip(ref, got)):
+        if not (np.array_equal(rp, gp) and np.array_equal(rs, gs)
+                and np.array_equal(rl, gl)):
+            raise AssertionError(f"tile {i}: the loaded checkpoint's "
+                                 f"detections differ from the original's")
+    pc.main(argv + ["--ref-dets", ref_path, "--iou-thr", "0.99",
+                    "--score-tol", "1e-5", "--count-tol", "0"])
+    log(f"  {n_params / 1e6:.2f} M parameters exported with JDet names, "
+        f"converted and audited exactly; {REF_TILES} tiles of {TILE}^2: "
+        f"{[len(d[1]) for d in ref]} detections at score >= {thr:.6f}, "
+        f"identical after the load; --record {record_s:.1f} s (building "
+        f"the model and loading on the CPU included); launches {launches} "
+        f"[{card}]")
+    return launches
+
+
+def _update_error(stream, ref, before):
+    """The L2 norm of ``stream``'s last update's difference from
+    ``ref``'s (both from the parameters ``before``) over ``ref``'s."""
+    off = moved = 0.0
+    for p, q, b in zip(stream.model.parameters(), ref.model.parameters(),
+                       before):
+        off += (p.detach().cpu().double() - q.detach()).pow(2).sum().item()
+        moved += (q.detach() - b).pow(2).sum().item()
+    return math.sqrt(off) / max(math.sqrt(moved), 1e-300)
+
+
+def phase_golden_streams(torch, dev, kernels, card):
+    """Phase 59b: the nine golden-loss families on ``dev`` against the
+    CPU in lock step from the states of the CPU's f64 stream (see
+    ``GOLDEN_*``), then the card's own four-step stream; returns the
+    kernels' launches over ``dev``'s streams, of which each of
+    ``GOLDEN_ROI_KERNELS`` must be one or more."""
+    import copy
+
+    from rs_detection_tpu_torch.flagship import init_weights
+    from rs_detection_tpu_torch.tools import golden_streams as gs
+
+    cudnn = torch.backends.cudnn
+    # flags() sets every cuDNN flag: the others keep their values
+    no_cudnn = dict(enabled=False, benchmark=cudnn.benchmark,
+                    deterministic=cudnn.deterministic,
+                    allow_tf32=cudnn.allow_tf32)
+    for fn in kernels.values():
+        fn.launches = 0
+    worst = dict(loss=0.0, card=0.0, cpu=0.0)
+    with gs.host_draws():
+        for i, name in enumerate(gs.FAMILIES):
+            model = gs.build(name)
+            init_weights(model, torch.Generator().manual_seed(590 + i))
+            x, t = gs.inputs(name)
+            ref = gs.Stream(copy.deepcopy(model), x, t, "cpu", torch.float64)
+            cpu = gs.Stream(copy.deepcopy(model), x, t, "cpu")
+            lock = gs.Stream(copy.deepcopy(model), x, t, dev)
+            plain = (gs.Stream(copy.deepcopy(model), x, t, dev)
+                     if name in GOLDEN_FAMILY_FLOOR else None)
+            own = gs.Stream(copy.deepcopy(model), x, t, dev)
+            floor = GOLDEN_FAMILY_FLOOR.get(name, GOLDEN_UPDATE_FLOOR)
+            rows = []
+            for _ in range(gs.STEPS):
+                before = [p.detach().clone() for p in ref.model.parameters()]
+                ref.step()
+                want, got = cpu.step(), lock.step()
+                rel = abs(got - want) / max(abs(want), 1e-6)
+                e_cpu = _update_error(cpu, ref, before)
+                e_card = _update_error(lock, ref, before)
+                bound = GOLDEN_UPDATE_FACTOR * e_cpu
+                ok = (math.isfinite(got) and rel <= GOLDEN_LOSS_TOL
+                      and e_card <= bound + floor)
+                e_plain = None
+                if plain is not None:
+                    with cudnn.flags(**no_cudnn):
+                        got_plain = plain.step()
+                    rel = max(rel, abs(got_plain - want) / max(abs(want),
+                                                               1e-6))
+                    e_plain = _update_error(plain, ref, before)
+                    ok = ok and (rel <= GOLDEN_LOSS_TOL
+                                 and e_plain <= bound + floor)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} step {len(rows) + 1}: loss {got} on the "
+                        f"card, {want} on the CPU (rel {rel:.2e}); the "
+                        f"update {e_card:.2e} off the f64 one on the card "
+                        f"(bound {bound + floor:.2e}), {e_plain} without "
+                        f"cuDNN, {e_cpu:.2e} on the CPU")
+                rows.append((want, rel, e_card, e_cpu, e_plain))
+                worst = dict(loss=max(worst["loss"], rel),
+                             card=max(worst["card"], e_card, e_plain or 0.0),
+                             cpu=max(worst["cpu"], e_cpu))
+                for s in (cpu, lock, plain):
+                    if s is not None:
+                        s.take_state(ref)
+            free = [own.step() for _ in range(gs.STEPS)]
+            log(f"  {name}: CPU " + ", ".join(f"{r[0]:.6f}" for r in rows)
+                + "; card from the same state: loss rel " + ", ".join(
+                    f"{r[1]:.1e}" for r in rows) + "; update off f64, card "
+                + ", ".join(f"{r[2]:.1e}" for r in rows) + " / CPU "
+                + ", ".join(f"{r[3]:.1e}" for r in rows)
+                + ("" if plain is None else " / card without cuDNN "
+                   + ", ".join(f"{r[4]:.1e}" for r in rows))
+                + "; the card's own stream "
+                + ", ".join(f"{v:.6f}" for v in free))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for k in GOLDEN_ROI_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"the golden streams launched no {k}")
+    log(f"  nine families x {gs.STEPS} steps in lock step: worst loss rel "
+        f"{worst['loss']:.1e} (tolerance {GOLDEN_LOSS_TOL}), worst update "
+        f"off f64 {worst['card']:.1e} on the card, {worst['cpu']:.1e} on "
+        f"the CPU (tolerance {GOLDEN_UPDATE_FACTOR} x the CPU's + "
+        f"{GOLDEN_UPDATE_FLOOR}, or {GOLDEN_FAMILY_FLOOR}); "
+        f"launches {launches} [{card}]")
+    return launches
+
+
 def phase_preprocess(torch, tmp, card):
     """Dataset preparation: ``tools/preprocess.py``'s main on
     ``configs/preprocess/fair1m_1_5_ms.py`` over rendered FAIR scenes, on
@@ -6429,7 +6662,18 @@ def main():
             "poly and rotated IoU, NMS, anchor helpers",
             lambda: phase_toolbox(torch, dev, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 58 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        ref_launches = run_phase(
+            torch, "59a", "a JDet-style VAN-b3 checkpoint through the "
+            "port's convert_checkpoint and parity_check to predict on the "
+            "card, against the original module's detections",
+            lambda: phase_reference_checkpoint(torch, dev, tmp, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+        golden_launches = run_phase(
+            torch, "59b", "the nine golden-loss streams on the card against "
+            "the CPU, in lock step",
+            lambda: phase_golden_streams(torch, dev, dict(
+                both, dw_chw=dw.dw_chw_cuda), card))
+    log(f"all 59 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -6546,6 +6790,8 @@ def main():
         k["data_parallel_two_ranks_eval_launches"] = dp2_eval.get(
             k["name"], 0)
         k["toolbox_launches"] = toolbox[k["name"]]
+        k["reference_checkpoint_launches"] = ref_launches[k["name"]]
+        k["golden_stream_launches"] = golden_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,13 @@ tool calls (``ssdd_to_dota(in, out)``).
 
 Pillow decodes and encodes in place of cv2's ``imread(path, 1)`` /
 ``imwrite``, on 8 threads: ``convert("RGB")`` gives cv2's pixels for
-8-bit RGB and grey sources. cv2 rescales a 16-bit image to 8 bits;
-nothing here does, and such a file raises ``NotImplementedError`` naming
-it.
+8-bit RGB and grey sources. A source of 16 bits a sample is read at full
+depth and brought to 8 bits as cv2 brings it: a grey one by its high
+byte (``v >> 8``), repeated in three channels; an RGB(A) one, which
+Pillow itself cuts to its high bytes, by ``round(v / 257)`` a channel,
+alpha dropped (``read_samples16``). Any other mode of more than 8 bits a
+sample (32-bit integer or float) raises ``NotImplementedError`` naming
+the file.
 """
 
 from __future__ import annotations
@@ -17,22 +21,74 @@ from __future__ import annotations
 import os
 import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
+import re
+import sys
 from typing import List, Optional
 
+import numpy as np
 from PIL import Image
 
 # Pillow modes of more than 8 bits a sample
 _WIDE_MODES = ("I", "F", "I;16", "I;16B", "I;16L", "I;16N")
+_GREY16 = ("I;16", "I;16B", "I;16L", "I;16N")
+# the raw modes of 16-bit colour, which Pillow unpacks to their high bytes
+_COLOR16 = re.compile(r"^(RGBA?);16([NBL])$")
+
+
+def _byte_plane(src: str, rawmode: str) -> np.ndarray:
+    """The image at ``src`` decoded with its tiles' raw mode replaced by
+    ``rawmode`` (a 16-bit unpacker keeps one byte of each sample)."""
+    with Image.open(src) as img:
+        img.tile = [t._replace(args=(rawmode,) + tuple(t.args[1:]))
+                    for t in img.tile]
+        img.load()
+        return np.asarray(img)
+
+
+def read_samples16(src: str) -> Optional[np.ndarray]:
+    """The samples of a 16-bit grey ([H, W]) or RGB(A) ([H, W, 3 | 4])
+    image at full depth as uint16, or None for any other image. Pillow
+    opens 16-bit colour as 8-bit RGB(A); its unpacker of the samples'
+    byte order keeps their high bytes, that of the other order their low
+    bytes, so the image is decoded once with each."""
+    with Image.open(src) as img:
+        if img.mode in _GREY16:
+            return np.asarray(img).astype(np.uint16)
+        raw = img.tile[0].args[0] if img.tile else ""
+    m = _COLOR16.match(raw)
+    if m is None:
+        return None
+    order = m.group(2)
+    if order == "N":
+        order = "L" if sys.byteorder == "little" else "B"
+    other = "B" if order == "L" else "L"
+    hi = _byte_plane(src, f"{m.group(1)};16{order}").astype(np.uint16)
+    lo = _byte_plane(src, f"{m.group(1)};16{other}").astype(np.uint16)
+    return (hi << 8) | lo
+
+
+def to_8bit_rgb(samples: np.ndarray) -> np.ndarray:
+    """16-bit samples -> uint8 RGB [H, W, 3], as ``cv2.imread(path, 1)``
+    reads them: grey by the high byte into three channels, colour by
+    ``round(v / 257)`` (never a tie: 2 v + 257 is odd) without alpha."""
+    if samples.ndim == 2:
+        return np.repeat((samples >> 8).astype(np.uint8)[..., None], 3, -1)
+    v = samples[..., :3].astype(np.uint32)
+    return ((2 * v + 257) // 514).astype(np.uint8)
 
 
 def convert_image(src: str, tar: str):
-    """Rewrite one 8-bit image as an RGB PNG (cv2's default speed,
+    """Rewrite one image as an 8-bit RGB PNG (cv2's default speed,
     ``compress_level=1``)."""
+    samples = read_samples16(src)
+    if samples is not None:
+        Image.fromarray(to_8bit_rgb(samples)).save(tar, compress_level=1)
+        return
     with Image.open(src) as img:
         if img.mode in _WIDE_MODES:
             raise NotImplementedError(
-                f"{src}: a {img.mode} image has more than 8 bits a sample; "
-                f"cv2 rescales it to 8 bits, the port does not convert it")
+                f"{src}: a {img.mode} image has more than 8 bits a sample "
+                f"and not 16; cv2's reading of it is not ported")
         img.convert("RGB").save(tar, compress_level=1)
 
 

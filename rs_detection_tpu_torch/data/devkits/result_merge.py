@@ -3,7 +3,9 @@
 back into original-image coordinates by the tile name
 ``name__rate__left___up``, then a polygon NMS per original image with
 the global 0.1 threshold or the FAIR1M-1.5 per-class table, one process
-per class file. The NMS is the native core, ``ops.nms_poly.poly_nms``.
+per class file. The NMS is the native core, ``native.poly_nms_native``
+(what ``ops.nms_poly.poly_nms`` calls), imported without the ``ops``
+package: a spawned worker then loads numpy and the core, not torch.
 """
 
 from __future__ import annotations
@@ -16,8 +18,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from ...native import poly_nms_library
-from ...ops.nms_poly import poly_nms
+from ...native import poly_nms_library, poly_nms_native
 
 NMS_THRESHOLD_GLOBAL = 0.1
 NMS_THRESHOLD_PER_CLASS = {
@@ -76,7 +77,7 @@ def mergesingle(dstpath: str, fullname: str,
     with open(dstname, "w") as f:
         for imgname, dets in nameboxdict.items():
             arr = np.asarray(dets, np.float64)
-            keep = poly_nms(arr, thresh)
+            keep = poly_nms_native(arr, thresh)
             for k in keep:
                 det = arr[k]
                 f.write(imgname + " " + str(det[-1]) + " "

@@ -118,8 +118,13 @@ class FCOSHead(nn.Module):
 
     def _tower(self, branch, x):
         for i in range(self.stacked_convs):
-            x = F.relu(getattr(self, f"{branch}_gn_{i}")(
-                conv2d(getattr(self, f"{branch}_{i}"), x)))
+            gn = getattr(self, f"{branch}_gn_{i}")
+            # the native op, as F.group_norm calls it, without its check
+            # that refuses one value a group in training: a 1 x 1 level
+            # normalizes to the bias there, as flax's GroupNorm does
+            x = F.relu(torch.group_norm(
+                conv2d(getattr(self, f"{branch}_{i}"), x), gn.num_groups,
+                gn.weight, gn.bias, gn.eps, torch.backends.cudnn.enabled))
         return x
 
     def forward(self, feats, train: bool = False):

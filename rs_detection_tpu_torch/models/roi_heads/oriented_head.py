@@ -1,7 +1,8 @@
 """Oriented R-CNN second stage (counterpart of
 ``rs_detection_tpu/models/roi_heads/oriented_head.py``): rotated RoI
 features -> 2 shared FCs -> softmax cls (C+1, background last) and a
-class-agnostic 5-dim ``OrientedDeltaXYWHTCoder`` regression. Training:
+5-dim ``OrientedDeltaXYWHTCoder`` regression, class-agnostic or one per
+class. Training:
 rotated-IoU assignment of the proposals plus the ground truths, random
 sampling into a fixed number of roi slots per image, CE + SmoothL1. At
 test time decode + rescale only (per-tile NMS is deferred to the
@@ -33,8 +34,14 @@ class OrientedHead(nn.Module):
     and ``OrientedSingleRoIExtractor`` kwargs (``type`` keys dropped, as
     in the JAX head); the JAX head's defaults when None.
     ``score_thresh`` is recorded and not used, as in the JAX head: the
-    runner's fixed 0.05 filters the detections. Regression per class
-    (``reg_class_agnostic=False``) is not ported."""
+    runner's fixed 0.05 filters the detections.
+
+    ``reg_class_agnostic=False`` regresses 5 columns per class
+    (``fc_reg`` 5 C wide): the loss takes each slot's columns at its
+    label clipped to [0, C - 1], and ``predict`` decodes all C boxes and
+    keeps the first class's for every roi, as the JAX head does (its
+    ``obb2poly`` reads the first 5 of the 5 C columns; ROADMAP, known
+    inexact spots)."""
 
     REG_DIM = 5
 
@@ -44,11 +51,8 @@ class OrientedHead(nn.Module):
                  pos_weight: float = -1.0, assigner=None, sampler=None,
                  bbox_coder=None, bbox_roi_extractor=None):
         super().__init__()
-        if not reg_class_agnostic:
-            raise NotImplementedError(
-                "OrientedHead: reg_class_agnostic=False (a regression per "
-                "class) is not ported; the port regresses one box per roi")
         self.num_classes = num_classes
+        self.reg_class_agnostic = reg_class_agnostic
         self.num_shared_fcs = num_shared_fcs
         self.score_thresh = score_thresh
         self.pos_weight = pos_weight
@@ -76,7 +80,8 @@ class OrientedHead(nn.Module):
             self.add_module(f"shared_fc{i}", nn.Linear(cin, fc_out_channels))
             cin = fc_out_channels
         self.fc_cls = nn.Linear(cin, num_classes + 1)
-        self.fc_reg = nn.Linear(cin, self.REG_DIM)
+        self.fc_reg = nn.Linear(cin, self.REG_DIM if reg_class_agnostic
+                                else self.REG_DIM * num_classes)
         self.setup_loss()
 
     def setup_loss(self):
@@ -84,7 +89,8 @@ class OrientedHead(nn.Module):
         variants' ``setup``); nothing here."""
 
     def forward_rois(self, feats, rois):
-        """rois [R, 6] -> (cls_score [R, C+1], bbox_pred [R, 5]), f32.
+        """rois [R, 6] -> (cls_score [R, C+1], bbox_pred [R, 5] or
+        [R, 5 C]), f32.
         The FC input is the pooled [R, P, P, C] flattened in (P, P, C)
         order, as in the JAX head."""
         x = self.extractor(feats, rois)
@@ -144,9 +150,17 @@ class OrientedHead(nn.Module):
         sampled, cls_score, bbox_pred = self.forward_sampled(
             feats, proposals, prop_valid, targets, generator)
         label_weights = sampled["label_weights"].reshape(-1)
+        labels = sampled["labels"].reshape(-1)
         loss_cls = softmax_cross_entropy(
-            cls_score, sampled["labels"].reshape(-1), label_weights,
+            cls_score, labels, label_weights,
             avg_factor=(label_weights > 0).sum())
+        if not self.reg_class_agnostic:
+            # each slot's 5 columns at its label (background clipped to
+            # the last class, whose weights are 0)
+            safe = labels.clamp(0, self.num_classes - 1)
+            bbox_pred = bbox_pred.reshape(-1, self.num_classes,
+                                          self.REG_DIM)[
+                torch.arange(labels.shape[0], device=labels.device), safe]
         return dict(loss_cls=loss_cls,
                     orcnn_bbox_loss=self.bbox_loss(sampled, bbox_pred))
 
@@ -183,7 +197,9 @@ class OrientedHead(nn.Module):
         rois = torch.cat([batch_idx[:, None], proposals.reshape(b * p, 5)], 1)
         cls_score, bbox_pred = self.forward_rois(feats, rois)
         scores = torch.softmax(cls_score, dim=-1)[:, :-1]
-        obbs = self.coder.decode(rois[:, 1:], bbox_pred)
+        # all C boxes with a regression per class; the first class's is
+        # kept (the JAX head's obb2poly reads the first 5 columns)
+        obbs = self.coder.decode(rois[:, 1:], bbox_pred)[:, :self.REG_DIM]
         # rescale to original image coordinates
         sf = scale_factor.float().repeat_interleave(p)[:, None]
         obbs = torch.cat([obbs[:, :4] / torch.clamp(sf, min=1e-6),

@@ -23,7 +23,15 @@ from ...parallel import dist
 
 
 def conv2d(m: nn.Conv2d, x):
-    """``m(x)`` with ``m``'s weights in x's dtype."""
+    """``m(x)`` with ``m``'s weights in x's dtype. A map smaller than the
+    kernel's reach gives an empty map (0 rows or columns), as XLA's conv
+    does (an SSD neck's last levels below its 300^2 input), where torch
+    raises."""
+    out_hw = [(n + 2 * p - d * (k - 1) - 1) // s + 1 for n, p, d, k, s in zip(
+        x.shape[2:], m.padding, m.dilation, m.kernel_size, m.stride)]
+    if min(out_hw) <= 0 or min(x.shape[2:]) == 0:
+        return x.new_zeros((x.shape[0], m.out_channels)
+                           + tuple(max(n, 0) for n in out_hw))
     b = None if m.bias is None else m.bias.to(x.dtype)
     return F.conv2d(x, m.weight.to(x.dtype), b, m.stride, m.padding,
                     m.dilation, m.groups)

@@ -25,10 +25,18 @@ single-device program there):
 
 With no process group, or a group of one, every helper is the identity
 and the one-process program is unchanged bit for bit.
+
+A world of W that does not divide the batch trains as the JAX runner
+does, on the most devices that divide it (``step_world``): the first d
+ranks form the step's group (``use_step_group``), and inside
+``step_scope`` every helper above reads and reduces over that group; the
+other ranks take no rows and wait at the next collective of the whole
+world (``broadcast_tensors_`` hands them rank 0's trained weights).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -36,14 +44,78 @@ import torch
 import torch.distributed as dist
 
 
+# the step's group when it is smaller than the world: (group, size)
+_STEP = None
+# the group the helpers read and reduce over: None is the default group
+_ACTIVE = None
+
+
 def world() -> int:
-    """The number of processes of the default group (1 without one)."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+    """The number of processes of the group in use (1 without one): the
+    default group, or the step's inside ``step_scope``."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(_ACTIVE)
 
 
 def rank() -> int:
-    """This process's rank in the default group (0 without one)."""
-    return dist.get_rank() if dist.is_initialized() else 0
+    """This process's rank in the group in use (0 without one)."""
+    return dist.get_rank(_ACTIVE) if dist.is_initialized() else 0
+
+
+def step_world(batch: int) -> int:
+    """The largest divisor of ``batch`` that is at most the default
+    group's size: the ranks a step of ``batch`` rows runs on."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    while n > 1 and batch % n:
+        n -= 1
+    return n
+
+
+def use_step_group(batch: int) -> int:
+    """Make the first ``step_world(batch)`` ranks the step's group (a
+    collective: every rank of the default group calls it); returns its
+    size. With a world that divides ``batch`` the step's group is the
+    default one."""
+    global _STEP
+    d = step_world(batch)
+    _STEP = None
+    if dist.is_initialized() and d < dist.get_world_size():
+        _STEP = (dist.new_group(ranks=list(range(d))), d)
+    return d
+
+
+def in_step_group() -> bool:
+    """Whether this rank takes rows of the training step's batch."""
+    return _STEP is None or dist.get_rank() < _STEP[1]
+
+
+@contextlib.contextmanager
+def step_scope():
+    """The training step's helpers over the step's group (a no-op when it
+    is the default group)."""
+    global _ACTIVE
+    if _STEP is None:
+        yield
+        return
+    if not in_step_group():
+        raise RuntimeError("a rank outside the step's group takes no rows")
+    prev, _ACTIVE = _ACTIVE, _STEP[0]
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+@torch.no_grad()
+def broadcast_tensors_(tensors, src: int = 0) -> None:
+    """Rank ``src``'s ``tensors`` in place on every rank of the default
+    group (a module's parameters and buffers, for the ranks outside a
+    smaller step's group after training), one collective a tensor."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    for t in tensors:
+        dist.broadcast(t.data, src=src)
 
 
 def is_main() -> bool:
@@ -85,6 +157,8 @@ def init_process_group(device=None, backend: Optional[str] = None
 
 
 def destroy_process_group() -> None:
+    global _STEP, _ACTIVE
+    _STEP = _ACTIVE = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -117,7 +191,7 @@ def pad_to_global_shape(images: torch.Tensor) -> torch.Tensor:
     if world() == 1:
         return images
     hw = torch.tensor(images.shape[1:3], device=images.device)
-    dist.all_reduce(hw, op=dist.ReduceOp.MAX)
+    dist.all_reduce(hw, op=dist.ReduceOp.MAX, group=_ACTIVE)
     h, w = hw.tolist()
     if (h, w) == tuple(images.shape[1:3]):
         return images
@@ -144,7 +218,8 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if world() == 1:
         return x
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(x, op=dist.ReduceOp.SUM)
+    return all_reduce(x, op=dist.ReduceOp.SUM,
+                      group=_ACTIVE or dist.group.WORLD)
 
 
 @torch.no_grad()
@@ -154,7 +229,7 @@ def global_count(count) -> torch.Tensor:
     if world() == 1:
         return count
     c = torch.as_tensor(count).detach().clone()
-    dist.all_reduce(c, op=dist.ReduceOp.SUM)
+    dist.all_reduce(c, op=dist.ReduceOp.SUM, group=_ACTIVE)
     return c
 
 
@@ -165,7 +240,7 @@ def global_max(x: torch.Tensor) -> torch.Tensor:
     if world() == 1:
         return x
     x = x.detach().clone()
-    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_ACTIVE)
     return x
 
 
@@ -188,7 +263,7 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(w)]
-    dist.all_gather(out, x)
+    dist.all_gather(out, x, group=_ACTIVE)
     return torch.cat(out, 0)
 
 
@@ -203,7 +278,7 @@ def all_reduce_mean_(tensors) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_ACTIVE)
         flat.div_(w)
         start = 0
         for t in group:
@@ -217,5 +292,5 @@ def broadcast_object(obj, src: int = 0):
     if world() == 1:
         return obj
     box = [obj if rank() == src else None]
-    dist.broadcast_object_list(box, src=src)
+    dist.broadcast_object_list(box, src=src, group=_ACTIVE)
     return box[0]

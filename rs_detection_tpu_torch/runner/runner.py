@@ -40,9 +40,11 @@ the same on every rank, and ``train_step`` averages the gradients, so
 the ranks train as one process on the global batch. ``val`` and
 ``test`` go through ``make_eval_step`` (each rank its rows, gathered).
 Rank 0 alone logs, writes the work directory (config, checkpoints,
-results), reads checkpoints (handed to the others) and evaluates. The
-world size must divide the batch size (the JAX runner instead uses
-fewer devices).
+results), reads checkpoints (handed to the others) and evaluates. A
+world size that does not divide the batch size trains, as the JAX
+runner does, on the most ranks that divide it (``dist.use_step_group``):
+the first d ranks take the rows, the others step through the epoch's
+batches without a training step and take rank 0's weights at its end.
 """
 
 from __future__ import annotations
@@ -170,15 +172,17 @@ class Runner:
             self.test_dataset.device = self.device
         self.steps_per_epoch = 1 if self.train_dataset is None else max(
             1, len(self.train_dataset) // self.train_dataset.batch_size)
+        # the ranks a training step runs on: the most that divide the
+        # batch (all of them when the world divides it)
+        self._step_ranks = dist.world()
         if self.train_dataset is not None and dist.world() > 1:
-            bs = self.train_dataset.batch_size
-            if bs % dist.world():
-                raise ValueError(
-                    f"the world size {dist.world()} does not divide the "
-                    f"train batch size {bs}")
+            d = self._step_ranks = dist.use_step_group(
+                self.train_dataset.batch_size)
             if (hasattr(self.train_dataset, "shard")
                     and getattr(self.train_dataset, "num_workers", 0) > 0):
-                self.train_dataset.shard = (dist.rank(), dist.world())
+                # a rank outside the step's group reads rank 0's rows
+                self.train_dataset.shard = (
+                    dist.rank() if dist.in_step_group() else 0, d)
         self._eval_step = make_eval_step(self.model)
         self.epoch = 0
         self.iter = 0
@@ -237,8 +241,8 @@ class Runner:
             "was found and this environment cannot download published "
             "weights. Either (a) set pretrained_weights=<path> in the "
             "config to a checkpoint pickle of the port or of the JAX "
-            "runner, or a flax variables pickle "
-            "(tools/convert_checkpoint.py converts a "
+            "runner, or a flax variables pickle (python -m "
+            "rs_detection_tpu_torch.tools.convert_checkpoint converts a "
             "torch/jittor checkpoint), or (b) opt into random "
             "initialization explicitly with allow_random_init=True in the "
             "config (or RS_ALLOW_RANDOM_INIT=1).")
@@ -347,29 +351,15 @@ class Runner:
                 self.train_stats["loader_wait_s"] += time.perf_counter() - t0
                 if item is None:
                     break
-                images, targets, metas = item
-                sharded = getattr(self.train_dataset, "shard",
-                                  None) is not None
-                if dist.world() > 1 and not sharded:
-                    images, targets, metas = take_rows(images, targets,
-                                                       metas)
-                x = self._to_device(images)
-                if sharded:
-                    x = dist.pad_to_global_shape(x)
-                tgt = {k: self._to_device(v) for k, v in targets.items()}
-                gen = torch.Generator(device=self.device).manual_seed(
-                    seed_of(seed, self.iter))
-                torch.manual_seed(seed_of(seed, self.iter, 1))
-                if profile_at is not None and self.iter == profile_at:
-                    self._start_profile()
-                losses = train_step(
-                    self.model, self.optimizer, self.scheduler, x, tgt, gen,
-                    epoch=self.optimizer.iterations / self.steps_per_epoch,
-                    ema=self.ema if self._ema_enabled else None,
-                    step=self.iter)
-                lr = self.optimizer.param_groups[0]["lr"]
-                self.iter += 1
-                n_imgs += dist.global_rows(images.shape[0])
+                if not dist.in_step_group():
+                    # no rows for this rank: it keeps the count of steps
+                    self.iter += 1
+                    if self.finish:
+                        break
+                    continue
+                with dist.step_scope():
+                    losses, lr, n = self._step(item, seed, profile_at)
+                n_imgs += n
                 if self._profiler is not None and self.iter == profile_at + 3:
                     self._stop_profile()
                 if check_interval(self.iter - 1, self.log_interval):
@@ -392,9 +382,40 @@ class Runner:
                     break
         finally:
             batches.close()
+        if self._step_ranks < dist.world():
+            # the ranks outside the step's group take the trained weights
+            tensors = list(self.model.parameters()) + list(
+                self.model.buffers())
+            dist.broadcast_tensors_(tensors + (
+                self.ema.shadow if self.ema is not None else []))
         self.epoch += 1
         if self._profiler is not None and self.finish:
             self._stop_profile()
+
+    def _step(self, item, seed, profile_at):
+        """One training step on this rank's rows of the collated batch
+        ``item``; returns its (global) losses, the learning rate and the
+        number of images of the global batch."""
+        images, targets, metas = item
+        sharded = getattr(self.train_dataset, "shard", None) is not None
+        if dist.world() > 1 and not sharded:
+            images, targets, metas = take_rows(images, targets, metas)
+        x = self._to_device(images)
+        if sharded:
+            x = dist.pad_to_global_shape(x)
+        tgt = {k: self._to_device(v) for k, v in targets.items()}
+        gen = torch.Generator(device=self.device).manual_seed(
+            seed_of(seed, self.iter))
+        torch.manual_seed(seed_of(seed, self.iter, 1))
+        if profile_at is not None and self.iter == profile_at:
+            self._start_profile()
+        losses = train_step(
+            self.model, self.optimizer, self.scheduler, x, tgt, gen,
+            epoch=self.optimizer.iterations / self.steps_per_epoch,
+            ema=self.ema if self._ema_enabled else None, step=self.iter)
+        self.iter += 1
+        return (losses, self.optimizer.param_groups[0]["lr"],
+                dist.global_rows(images.shape[0]))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the model's device; to the card through pinned

@@ -1,13 +1,21 @@
-"""File and schedule helpers of the runner (counterpart of
-``rs_detection_tpu/utils/general.py``: ``build_file``,
-``check_interval``, ``search_ckpt``, ``list_images``)."""
+"""General helpers (counterpart of ``rs_detection_tpu/utils/general.py``):
+``multi_apply``, ``parse_losses``, ``set_random_seed`` (which seeds torch
+too), ``sync`` (tensors to host numbers: the training step's losses are
+already the global batch's, as the JAX mesh's outputs are), ``to_np``,
+``unmap`` (numpy arrays or tensors, on the tensor's device), and the
+runner's file and schedule helpers ``build_file``, ``check_interval``,
+``search_ckpt``, ``list_images``."""
 
 from __future__ import annotations
 
 import glob
 import os
+import random
 import re
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 
@@ -46,3 +54,59 @@ def list_images(img_dir: str) -> List[str]:
         out += [os.path.join(root, f) for f in files
                 if f.lower().endswith(IMG_EXTENSIONS)]
     return sorted(out)
+
+
+def multi_apply(func, *args, **kwargs):
+    """``func`` over the zipped ``args``; its tuples of results as a
+    tuple of lists."""
+    results = [func(*a, **kwargs) for a in zip(*args)]
+    return tuple(map(list, zip(*results)))
+
+
+def parse_losses(losses: Dict) -> float:
+    """The sum of every entry whose key contains 'loss'."""
+    return sum(float(to_np(v).sum()) for k, v in losses.items()
+               if "loss" in k)
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's generators (every device's)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def sync(data):
+    """Fetch tensors (nested in dicts, lists and tuples) to the host: a
+    0-d value as a Python number, others as numpy arrays; anything else
+    as it is."""
+    if isinstance(data, dict):
+        return {k: sync(v) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return type(data)(sync(v) for v in data)
+    try:
+        arr = to_np(data)
+        return arr.item() if arr.ndim == 0 else arr
+    except Exception:
+        return data
+
+
+def to_np(x) -> np.ndarray:
+    """A tensor (any device, any grad state) or array-like as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def unmap(data, count: int, inds, fill=0):
+    """``data``'s rows scattered into a ``count``-row array at ``inds``,
+    the other rows ``fill`` (undoes a valid-anchor selection): numpy in,
+    numpy out; a tensor in, a tensor on its device out."""
+    shape = (count,) + tuple(data.shape[1:])
+    if isinstance(data, np.ndarray):
+        out = np.full(shape, fill, dtype=data.dtype)
+        out[np.asarray(inds)] = data
+        return out
+    out = torch.full(shape, fill, dtype=data.dtype, device=data.device)
+    out[torch.as_tensor(inds, device=data.device)] = data
+    return out

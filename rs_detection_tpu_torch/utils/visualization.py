@@ -1,5 +1,5 @@
 """Oriented boxes drawn on images with Pillow (counterpart of
-``draw_bboxes`` and ``visualize_results`` in
+``draw_bboxes``, ``visualize_results`` and ``visualize_dota`` in
 ``rs_detection_tpu/utils/visualization.py``)."""
 
 from __future__ import annotations
@@ -59,3 +59,43 @@ def visualize_results(results: List, classes, img_files: List[str],
             out = draw_bboxes(img.convert("RGB"), polys, scores, labels,
                               classes, score_thr)
         out.save(os.path.join(save_dir, os.path.basename(path)))
+
+
+def visualize_dota(det_dir: str, images_dir: str, save_dir: str,
+                   score_thr: float = 0.3):
+    """Read the per-class DOTA detection files (``<class>.txt``: image
+    name, score, 8 coordinates a line) and draw each image's detections
+    into ``save_dir/<image>.png``; classes are numbered 1.. in sorted
+    order, an image found under ``images_dir`` as .png, .jpg or .tif."""
+    per_image = {}
+    for f in sorted(os.listdir(det_dir)):
+        if not f.endswith(".txt"):
+            continue
+        cls = f[:-4]
+        with open(os.path.join(det_dir, f)) as fh:
+            for line in fh:
+                parts = line.strip().split(" ")
+                if len(parts) < 10:
+                    continue
+                img = parts[0]
+                score = float(parts[1])
+                poly = [float(v) for v in parts[2:10]]
+                per_image.setdefault(img, []).append((cls, score, poly))
+    os.makedirs(save_dir, exist_ok=True)
+    classes = sorted({c for dets in per_image.values()
+                      for c, _, _ in dets})
+    cls_idx = {c: i + 1 for i, c in enumerate(classes)}
+    for img_name, dets in per_image.items():
+        for ext in (".png", ".jpg", ".tif"):
+            path = os.path.join(images_dir, img_name + ext)
+            if os.path.exists(path):
+                break
+        else:
+            continue
+        with Image.open(path) as img:
+            out = draw_bboxes(
+                img.convert("RGB"), np.asarray([d[2] for d in dets]),
+                np.asarray([d[1] for d in dets]),
+                np.asarray([cls_idx[d[0]] for d in dets]), classes,
+                score_thr)
+        out.save(os.path.join(save_dir, img_name + ".png"))

@@ -164,10 +164,10 @@ def test_eval_step_on_an_uneven_batch_equals_predict(worlds):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """``run_net --task train --cpu`` of ``make_run``'s config in one
-    process and in two (torchrun's environment, gloo)."""
+    process, in two and in three (torchrun's environment, gloo)."""
     root = tmp_path_factory.mktemp("dp_run")
     out = {}
-    for world in (1, 2):
+    for world in (1, 2, 3):
         work = root / f"w{world}"
         cfg = make_run(str(root), work)
         d = root / f"procs{world}"
@@ -189,8 +189,29 @@ def test_run_net_two_ranks_equals_one_process(runs):
     pads them to its shape and the RPN takes the global batch's border."""
     (one,), _, _ = runs[1]
     two, _, _ = runs[2]
+    _check_against_one_process(one, two)
+
+
+def test_run_net_three_ranks_on_a_batch_of_four(runs):
+    """Three ranks on a global batch of 4 train as the JAX runner does,
+    on the most ranks that divide the batch: ranks 0 and 1 step on two
+    rows each, as two ranks do (the same bounds against one process),
+    rank 2 takes no rows and logs nothing, and after the run (its val
+    over all three ranks, each serving its rows) every rank holds rank
+    0's parameters bit for bit; the three exited 0."""
+    (one,), _, _ = runs[1]
+    three, _, d3 = runs[3]
+    _check_against_one_process(one, three[:2])
+    assert three[2]["history"] == []
+    assert three[2]["digest"] == three[0]["digest"]
+    assert three[2]["aps"] == three[0]["aps"]
+    with open(d3 / "rank2.log") as f:
+        assert "loss_rpn_cls" not in f.read()
+
+
+def _check_against_one_process(one, ranks):
     assert len(one["history"]) == 2
-    for r in two:
+    for r in ranks:
         assert len(r["history"]) == 2
         for a, b in zip(r["history"], one["history"]):
             assert a["iter"] == b["iter"] and a["lr"] == b["lr"]
@@ -200,16 +221,16 @@ def test_run_net_two_ranks_equals_one_process(runs):
         assert set(r["aps"]) == set(one["aps"]) and one["aps"]
         for k, v in one["aps"].items():
             assert abs(r["aps"][k] - v) <= 1e-6, k
-    assert two[0]["digest"] == two[1]["digest"]
+    assert all(r["digest"] == ranks[0]["digest"] for r in ranks)
     lrs = [rec["lr"] for rec in one["history"]]
     n_sure = n_off = 0
     for k, p in one["params"].items():
         g = one["grads"][k]
-        diff = np.abs(two[0]["params"][k] - p)
+        diff = np.abs(ranks[0]["params"][k] - p)
         assert diff.max() <= 2 * sum(lrs) + 1e-6, (k, diff.max())
         if _before_bn(k):
             continue
-        assert _close(two[0]["grads"][k], g), k
+        assert _close(ranks[0]["grads"][k], g), k
         sure = np.abs(g) > 1e-3 * max(np.abs(g).max(), 1e-12)
         assert (diff[sure] <= min(lrs) / 10).all(), (k, diff[sure].max())
         n_sure += sure.sum()

@@ -126,14 +126,13 @@ def _tiny_cfg(**changes):
 
 
 @pytest.mark.parametrize("changes,error", [
-    ({"bbox_head.reg_class_agnostic": False}, NotImplementedError),
     ({"neck.add_extra_convs": "on_bogus"}, ValueError),
     ({"rpn.num_classes": 2}, NotImplementedError),
     ({"rpn.reg_dim": 5}, NotImplementedError),
     ({"compute_dtype": "int32"}, ValueError),
     ({"rpn.anchor_generator.octave_base_scale": 4}, TypeError),
     ({"bbox_head.bbox_roi_extractor.impl": "pallas"}, TypeError),
-], ids=["reg_per_class", "fpn_extra_convs", "rpn_classes", "rpn_reg_dim",
+], ids=["fpn_extra_convs", "rpn_classes", "rpn_reg_dim",
         "int_dtype", "anchor_octaves", "extractor_impl"])
 def test_unsupported_config_values_raise(changes, error):
     """A value the JAX package honours and the port cannot is refused,

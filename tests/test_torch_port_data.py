@@ -269,6 +269,23 @@ def test_mergebypoly_serial_equals_parallel(tmp_path):
     assert _tree(str(tmp_path / "after1")) == _tree(str(tmp_path / "after4"))
 
 
+def test_merge_workers_load_no_torch():
+    """A spawned merge worker imports ``result_merge`` and what it needs
+    (numpy, the native NMS core), not torch: the workers start in a
+    fraction of the time (the merge's fixed cost a class file)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "import rs_detection_tpu_torch.data.devkits.result_merge\n"
+            "assert 'torch' not in sys.modules\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo),
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+
+
 def test_tile_name_parse_matches_jax():
     for name in ("P0003__1.0__824___0", "S1__0.5__0___1648",
                  "img_x__1.5__12___34"):

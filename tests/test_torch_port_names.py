@@ -9,22 +9,9 @@ import os
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-ITEM_14 = "ROADMAP Queue 1, item 14: host utilities, not on a model path"
 FLAX = ("a flax idiom: the port builds torch modules and their arguments "
         "directly")
 UNPORTED = {
-    # item 14, still to port
-    **{name: ITEM_14 for name in (
-        "ActivationRecorder", "check_diff", "compare_data",
-        "compare_recordings", "format_report",             # check_diff.py
-        "compare_trees", "convert_tensor", "load_reference_checkpoint",
-        "torch_state_to_flax",                             # checkpoint_convert
-        "colors_val", "draw_hbb", "draw_obb", "draw_poly",
-        "get_img_from_fig", "plt_init", "random_colors",
-        "single_color_val",                                # draw.py
-        "visualize_dota",                                  # visualization.py
-        "parse_losses", "set_random_seed", "sync", "to_np", "unmap",
-        "multi_apply")},                                   # general.py
     # the TPU's own, with the port's counterpart named
     "fast_top_k": "the TPU's approximate top-k; the port's ops/nms.py:top_k "
                   "is exact",

@@ -193,8 +193,9 @@ def test_preprocess_tool_matches_jax(tmp_path, monkeypatch):
 
 def test_fair_to_dota_grey_jpg_and_wide_tiff(tmp_path):
     """8-bit grey TIFF and JPEG sources convert to cv2's pixels (RGB
-    PNGs), the select variant takes its list; a 16-bit TIFF raises
-    naming the file."""
+    PNGs), the select variant takes its list; a 16-bit grey TIFF converts
+    to cv2's pixels too, and a 32-bit float TIFF, which the port does not
+    read, raises naming the file."""
     src = tmp_path / "src"
     render_fair_split(str(src), ["1"], 120, 3, seed=5)
     rng = np.random.RandomState(6)
@@ -218,7 +219,14 @@ def test_fair_to_dota_grey_jpg_and_wide_tiff(tmp_path):
     (wide / "images").mkdir(parents=True)
     Image.fromarray(rng.randint(0, 65535, (16, 16)).astype(np.uint16)).save(
         wide / "images" / "9.tif")
-    with pytest.raises(NotImplementedError, match="9.tif"):
+    for mod, out in ((fair, "wide_port"), (jfair, "wide_jax")):
+        mod.fair_to_dota(str(wide), str(tmp_path / out))
+    np.testing.assert_array_equal(
+        _png(tmp_path / "wide_port" / "images" / "P0009.png"),
+        _png(tmp_path / "wide_jax" / "images" / "P0009.png"))
+    Image.fromarray(rng.rand(16, 16).astype(np.float32)).save(
+        wide / "images" / "8.tif")
+    with pytest.raises(NotImplementedError, match="8.tif"):
         fair.fair_to_dota(str(wide), str(tmp_path / "wide_out"))
 
 
