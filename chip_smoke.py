@@ -361,7 +361,7 @@ Phases, each of which raises (exit code 1) on failure:
      each one's ms, K1-K7 0 launches over the phase
  59. a reference checkpoint and the golden streams. 59a: the model of
      ``configs/orcnn_van3_7_anchor_swa_1.py`` (VAN-b3 at its published
-     widths, served in bf16) with seeded weights, exported as a
+     widths, served as written: f32) with seeded weights, exported as a
      JDet-style pickle (JDet names, OIHW, the first shared FC over (C, P,
      P)); the port's
      ``convert_checkpoint --config`` (read back bit for bit) and
@@ -380,6 +380,22 @@ Phases, each of which raises (exit code 1) on failure:
      lock-step stream on the card without cuDNN); then the card's own
      four-step stream (reported); K1 and K3 launches from the two RoIAlign
      families
+ 60. VAN and LSKNet at every width and dtype. 60a: K2, K2r, K2q and
+     K2q's residual form at every stage width of the registered VAN and
+     LSKNet variants (``VAN_WIDTHS``), f32 and bf16, each on its stage's
+     map at batch 8 and 1024^2, against its plain version, with
+     ``kernel_plan`` against the library's shared memory; each form's
+     ms per f32 VAN-b3 forward beside its bound, and at C = 160 in bf16.
+     60b: ``run_net --task test`` of
+     ``configs/orcnn_van3_7_anchor_swa_1.py`` as written (f32, its test
+     batch) over 8 seeded 1024^2 tiles: K2 38 / K1 1 a forward, finite
+     results, one tile's backbone and FPN outputs on the card against
+     the CPU (``F32_TASK_TOL``). 60c: VAN-b3 in f32 at batch 8, one
+     counted ``predict`` in each of the default, fused, int8 and fused
+     int8 modes, fused against default (``F32_FUSED_TOL``). 60d:
+     Oriented R-CNN on VAN-b0 and LSKNet-T in bf16 at batch 8, default
+     and int8 (K2 / K2q 13, K1 1 a forward), one tile's backbone against
+     the CPU (``NARROW_BF16_TOL``, ``NARROW_INT8``)
 Each phase prints its seconds and the card's peak memory since its
 start; a phase that raises prints ``phase N failed: <type>: <message>``
 and its traceback to stderr, and the script stops with exit code 1. The
@@ -407,8 +423,12 @@ grouped step and eval step, ``data_parallel_train_launches`` and
 ``data_parallel_eval_launches``, in phase 57's (rank 0's),
 ``data_parallel_two_ranks_*_launches``, in phase 58,
 ``toolbox_launches``, all 0, in phase 59a's ``--record`` run,
-``reference_checkpoint_launches``, and in phase 59b's streams on the
-card, ``golden_stream_launches``), the card's name and power limit, and last
+``reference_checkpoint_launches``, in phase 59b's streams on the
+card, ``golden_stream_launches``, and in phases 60b-60d's forwards,
+``van_widths_launches``; for K2, K2r, K2q and K2q's residual form phase
+60a's time, plain time, bound and error per f32 VAN-b3 forward,
+``f32_*``, and a call at C = 160 in bf16, ``c160_bf16_*``), the card's
+name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3647,11 +3667,9 @@ def phase_reference_checkpoint(torch, dev, tmp, kernels, card):
     work = os.path.join(tmp, "ref_ckpt")
     tiles = os.path.join(work, "tiles")
     write_tiles(tiles, [f"t{i}.png" for i in range(REF_TILES)], TILE, 59)
-    # served in bf16, as phase 22 serves VAN-b3: the f32 form of K2 has
-    # too little shared memory at C = 320
+    # served as written: f32, JDet's own dtype
     config = write_config(os.path.join(work, "ref_config.py"),
-                          _base_=REF_CONFIG,
-                          model=dict(compute_dtype="bfloat16"))
+                          _base_=REF_CONFIG)
     original, cfg = pc.build_model(config)
     init_weights(original, torch.Generator().manual_seed(59))
     fc = pc.head_fc_spatial(cfg.model)
@@ -6393,6 +6411,357 @@ def phase_other_backbones(torch, card):
         torch.cuda.empty_cache()
 
 
+# phase 60: every stage width of the registered VAN and LSKNet variants as
+# (C, Ch, H = W at 1024^2 tiles): VAN-b0 and LSKNet-T, then VAN-b1 to b3,
+# VAN and LSKNet-S (VAN-b3's four stages, STAGES)
+VAN_WIDTHS = [(32, 256, 256), (64, 512, 128), (160, 640, 64),
+              (256, 1024, 32)] + [(c, ch, h) for h, c, ch, _ in STAGES]
+VAN_FORMS = ("K2", "K2r", "K2q", "K2q residual")
+# phase 60b: one tile's backbone and FPN outputs, card against the CPU, f32
+# with TF32 off on both: the kernels', cuDNN's and the CPU's sums in other
+# orders through 38 blocks and the FPN, as max|diff| / max|CPU| a level
+# (3e-6 at worst on the card)
+F32_TASK_TOL = 1e-4
+# phase 60c: fused against default at full width in f32 (the fused blocks
+# fold bn2 and the layer scale into the MLP weights and bn1 into the
+# attention's, which rounds differently), as max|diff| / max|default| of a
+# backbone level (1.4e-6 at worst on the card)
+F32_FUSED_TOL = 1e-4
+# phase 60d: the narrow variants, one tile's backbone on the card against
+# the CPU in bf16 (both round at their own points through 13 blocks: the
+# bf16 tolerance of the kernels); in int8 the two carry independent
+# quantization noise after a few blocks (phase 18) and agree only as
+# closely as int8 agrees with float: the JAX package's own bound
+# (tests/test_int8_serving.py: relative difference, correlation)
+NARROW_BF16_TOL = REL_TOL["bfloat16"]
+NARROW_INT8 = (0.15, 0.995)
+NARROW_BLOCKS = 13  # depths (3, 3, 5, 2) of VAN-b0 and LSKNet-T
+
+
+def mlp_bound(pixels, c, ch, dtype_name, int8, nbytes_moved):
+    """Bound of one MLP call: the two 1x1 products on the tensor cores in
+    bf16 (int8 in the int8 form) or on the CUDA cores in f32, the 3x3 taps
+    in f32, and the bytes."""
+    prod, taps = 4.0 * pixels * c * ch, 18.0 * pixels * ch
+    if int8:
+        return bound(nbytes_moved, 0.0, taps, prod)
+    if dtype_name == "float32":
+        return bound(nbytes_moved, 0.0, prod + taps)
+    return bound(nbytes_moved, prod, taps)
+
+
+def per_forward(out, name, dname):
+    """(max error, ms, plain ms, bound) of ``name`` summed over the MLP
+    calls of one VAN-b3 forward, from ``phase_van_widths``."""
+    res = [(n, out[name, c, ch, h, dname]) for h, c, ch, n in STAGES]
+    return (max(r[0] for _, r in res), sum(n * r[1] for n, r in res),
+            sum(n * r[2] for n, r in res),
+            add_bounds([r[3] for n, r in res for _ in range(n)]))
+
+
+def phase_van_widths(torch, vm, lib, dev, card):
+    """Phase 60a: K2, K2r, K2q and K2q's residual form at every width of
+    ``VAN_WIDTHS`` in f32 and bf16, each on its stage's map at batch 8 and
+    1024^2, against its plain version (``REL_TOL``; ``INT8_TOL`` and
+    ``INT8_SHARE``), with ``kernel_plan`` against the library's shared
+    memory. Returns {(form, C, Ch, H, dtype): (max error, ms, plain ms,
+    bound)}."""
+    g = torch.Generator(device=dev).manual_seed(60)
+    limit = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    forms = {"K2": (vm.van_mlp_cuda, vm.van_mlp_reference, None),
+             "K2r": (vm.van_mlp_residual_cuda, vm.van_mlp_residual_reference,
+                     None),
+             "K2q": (vm.van_mlp_int8_cuda, vm.van_mlp_int8_reference,
+                     vm.van_mlp_reference),
+             "K2q residual": (vm.van_mlp_residual_int8_cuda,
+                              vm.van_mlp_residual_int8_reference,
+                              vm.van_mlp_residual_reference)}
+    out = {}
+    for c, ch, h in VAN_WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            code = 0 if dt == torch.float32 else 1
+            plans = []
+            for int8 in (False, True):
+                plan = vm.kernel_plan(c, ch, dt, limit, int8=int8)
+                smem = (lib.rs_van_mlp_int8_smem_bytes if int8
+                        else lib.rs_van_mlp_smem_bytes)(c, ch, code)
+                if plan["smem"] != smem or not 0 < smem <= limit:
+                    raise AssertionError(
+                        f"C={c} Ch={ch} {dname} int8={int8}: kernel_plan "
+                        f"{plan['smem']} B, the library {smem} B, limit "
+                        f"{limit}")
+                plans.append(f"{plan['design']} {smem} B")
+            log(f"  C={c} Ch={ch} {dname}: float form {plans[0]}, int8 form "
+                f"{plans[1]} of shared memory (kernel_plan = library)")
+            args = mlp_inputs(torch, g, BATCH, h, h, c, ch, dt)
+            moved = nbytes(*args) + nbytes(args[0])
+            for name, (kernel, plain, fp) in forms.items():
+                label = f"{name} [{BATCH},{h},{h},{c}] Ch={ch} {dname}"
+                if fp is None:
+                    err = compare(label, kernel(*args), plain(*args), dname)
+                else:
+                    err = compare_int8(torch, label, kernel(*args),
+                                       plain(*args), fp(*args), dname)
+                t_kernel = cuda_ms(lambda: kernel(*args), 3)
+                t_plain = cuda_ms(lambda: plain(*args), 2)
+                b = mlp_bound(BATCH * h * h, c, ch, dname, fp is not None,
+                              moved)
+                log(f"    kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, "
+                    f"bound {b[0]:.3f} ms by {b[1]}")
+                out[name, c, ch, h, dname] = (err, t_kernel, t_plain, b)
+            del args
+            torch.cuda.empty_cache()
+    for name in VAN_FORMS:
+        for dname in ("float32", "bfloat16"):
+            _, ms, plain_ms, b = per_forward(out, name, dname)
+            log(f"  {name} per VAN-b3 forward ({sum(s[3] for s in STAGES)} "
+                f"calls), {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {b[0]:.3f} ms by {b[1]} [{card}]")
+        r = out[name, 160, 640, 64, "bfloat16"]
+        log(f"  {name} at stage 3 of VAN-b0 / LSKNet-T (C=160, Ch=640, "
+            f"[{BATCH},64,64]) bf16: {r[1]:.3f} ms a call, bound "
+            f"{r[3][0]:.4f} ms by {r[3][1]} [{card}]")
+    return out
+
+
+def level_error(torch, got, ref):
+    """max|got - ref| / max|ref| and the correlation of two feature maps."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    corr = torch.corrcoef(torch.stack([ref.flatten(),
+                                       got.flatten()]))[0, 1].item()
+    return rel, corr
+
+
+def phase_flagship_f32_task(torch, dev, tmp, kernels, card):
+    """Phase 60b: ``run_net --task test`` of ``REF_CONFIG`` as written (no
+    dtype override: f32, the config's test batch and transforms) with
+    seeded random weights over 8 seeded 1024^2 PNG tiles; checks the
+    launches (K2 38, K1 1 a forward), the results pickle, then one tile's
+    backbone and FPN outputs on the card against a CPU copy of the model.
+    Returns the task's launches."""
+    import copy
+    import pickle
+
+    import numpy as np
+
+    from rs_detection_tpu_torch.tools import run_net
+
+    root = os.path.join(tmp, "f32_task")
+    tiles = os.path.join(root, "tiles")
+    names = [f"F{i}.png" for i in range(8)]
+    write_tiles(tiles, names, TILE, 60)
+    work = os.path.join(root, "work")
+    cfg = write_config(
+        os.path.join(root, "orcnn_van3_7_anchor_swa_1_chip.py"),
+        _base_=REF_CONFIG,
+        dataset=dict(test=dict(images_dir=tiles), train=None, val=None),
+        allow_random_init=True, work_dir=work)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        runner = run_net.main(["--config-file", cfg, "--task", "test"])
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    model = runner.model
+    dtype = next(model.parameters()).dtype
+    batch = runner.test_dataset.batch_size
+    forwards = -(-len(names) // batch)
+    want = dict.fromkeys(kernels, 0)
+    want.update(van_mlp=38 * forwards, roi_align_rotated_pyramid=forwards)
+    if dtype != torch.float32 or launches != want:
+        raise AssertionError(f"f32 test task: parameters {dtype}, launches "
+                             f"{launches}, expected {want}")
+    with open(os.path.join(work, "test", "test_0.pkl"), "rb") as f:
+        results = pickle.load(f)
+    n_det = 0
+    for (polys, scores, labels), meta in results:
+        if not (np.isfinite(polys).all() and np.isfinite(scores).all()
+                and polys.shape == (len(scores), 8)
+                and ((labels >= 1) & (labels <= 10)).all()):
+            raise AssertionError(f"f32 test task: bad detections for {meta}")
+        n_det += len(scores)
+    stats = runner.test_stats
+    if len(results) != len(names) or stats["tiles"] != len(names):
+        raise AssertionError(f"f32 test task: {len(results)} results")
+    log(f"  run_net --task test of configs/orcnn_van3_7_anchor_swa_1.py as "
+        f"written (f32, test batch {batch}): {len(names)} tiles of {TILE}^2 "
+        f"in {forwards} forwards, {stats['inference_s']:.3f} s = "
+        f"{len(names) / stats['inference_s']:.2f} tiles/s of inference; "
+        f"{n_det} detections; whole task {wall:.1f} s; launches {launches} "
+        f"[{card}]")
+
+    images, _, _ = next(iter(runner.test_dataset.batches()))
+    x = torch.as_tensor(images[:1], device=dev)
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        feats = model.backbone(x)
+        outs = {"backbone": feats, "FPN": model.neck(feats)}
+        ref_feats = cpu.backbone(x.cpu())
+        refs = {"backbone": ref_feats, "FPN": cpu.neck(ref_feats)}
+    worst = 0.0
+    for part in ("backbone", "FPN"):
+        for lvl, (a, b) in enumerate(zip(outs[part], refs[part])):
+            rel, corr = level_error(torch, a, b)
+            worst = max(worst, rel)
+            log(f"  one tile, {part} level {lvl} {tuple(b.shape)}, card vs "
+                f"CPU (f32): max|diff| / max|CPU| {rel:.3e} (tolerance "
+                f"{F32_TASK_TOL}), correlation {corr:.8f}")
+    if not worst <= F32_TASK_TOL:
+        raise AssertionError(f"f32 test task: card and CPU differ by {worst}")
+    del runner, model, cpu
+    return launches
+
+
+def phase_f32_modes(torch, build_flagship, normalize, kernels, dev, card):
+    """Phase 60c: VAN-b3 Oriented R-CNN in f32 at batch 8 of 1024^2 tiles
+    (seeded weights and tiles): one counted ``predict`` (after a warm-up)
+    in the default, fused, int8 and fused int8 modes; checks every
+    mode's launches, shapes and finite outputs, and the fused backbone
+    against the default one (``F32_FUSED_TOL``). Returns the launches of
+    the four counted forwards together."""
+    rng = torch.Generator().manual_seed(61)
+    tiles = torch.randint(0, 256, (BATCH, TILE, TILE, 3), generator=rng,
+                          dtype=torch.uint8)
+    images = normalize(tiles.to(dev))
+    n = sum(s[3] for s in STAGES)
+    total = dict.fromkeys(kernels, 0)
+    feats = {}
+    for mode, fused, int8 in (("default", False, False),
+                              ("fused", True, False), ("int8", False, True),
+                              ("fused int8", True, True)):
+        model = build_flagship(tiny=False, device=dev, dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0),
+                               fused=fused, int8=int8)
+        with torch.no_grad():
+            model.predict(images)
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = model.predict(images)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            feats[mode] = [f.cpu() for f in model.backbone(images[:2])]
+        want = dict.fromkeys(kernels, 0)
+        want["roi_align_rotated_pyramid"] = 1
+        want["van_mlp" + ("_residual" if fused else "")
+             + ("_int8" if int8 else "")] = n
+        if fused:
+            want.update(van_attn=n, depthwise_conv2d=2 * n)
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if launches != want or shapes != {
+                "polys": (BATCH, 2000, 8), "scores": (BATCH, 2000, 10),
+                "valid": (BATCH, 2000)} or not (
+                torch.isfinite(out["polys"]).all()
+                and torch.isfinite(out["scores"]).all()):
+            raise AssertionError(f"f32 {mode}: launches {launches} (want "
+                                 f"{want}), shapes {shapes} or not finite")
+        for k in total:
+            total[k] += launches[k]
+        log(f"  VAN-b3 Oriented R-CNN f32, {mode} mode: one request of "
+            f"{BATCH}x{TILE}^2 in {ms:.1f} ms (host clock, after a warm-up), "
+            f"{int(out['valid'].sum())} valid slots; launches {launches} "
+            f"[{card}]")
+        del model, out
+        torch.cuda.empty_cache()
+    # the fused blocks compute the default function; the int8 modes
+    # another one (their distance from float is printed, not held)
+    for mode, ref in (("fused", "default"), ("int8", "default"),
+                      ("fused int8", "fused")):
+        for lvl, (a, b) in enumerate(zip(feats[mode], feats[ref])):
+            rel, corr = level_error(torch, a, b)
+            held = mode == "fused"
+            log(f"  f32 backbone level {lvl}, {mode} vs {ref}: relative "
+                f"difference {rel:.3e}"
+                + (f" (tolerance {F32_FUSED_TOL})" if held else "")
+                + f", correlation {corr:.8f}")
+            if held and not rel <= F32_FUSED_TOL:
+                raise AssertionError(f"f32 {mode} backbone differs from "
+                                     f"{ref}")
+    return total
+
+
+def phase_narrow_variants(torch, normalize, kernels, dev, card):
+    """Phase 60d: Oriented R-CNN on VAN-b0 and on LSKNet-T (the flagship's
+    head and neck on their widths, 32 / 64 / 160 / 256) in bf16 at batch 8
+    of 1024^2 tiles, default and int8 mode: one counted ``predict`` each
+    (K2 or K2q 13, K1 1), finite outputs, and one tile's backbone outputs
+    on the card against a CPU copy in bf16 (``NARROW_BF16_TOL``; int8:
+    ``NARROW_INT8``). Returns the launches of the four forwards."""
+    import copy
+
+    from rs_detection_tpu_torch.flagship import flagship_cfg, init_weights
+    from rs_detection_tpu_torch.utils.registry import MODELS, build_from_cfg
+
+    rng = torch.Generator().manual_seed(62)
+    tiles = torch.randint(0, 256, (BATCH, TILE, TILE, 3), generator=rng,
+                          dtype=torch.uint8)
+    images = normalize(tiles.to(dev))
+    total = dict.fromkeys(kernels, 0)
+    for arch in ("van_b0", "lsknet_t"):
+        for int8 in (False, True):
+            cfg = flagship_cfg()
+            cfg["backbone"] = dict(type=arch, int8=int8)
+            cfg["neck"].update(in_channels=[32, 64, 160, 256], int8=int8)
+            cfg["rpn"]["int8"] = int8
+            cpu = build_from_cfg(dict(cfg, compute_dtype=torch.bfloat16),
+                                 MODELS)
+            init_weights(cpu, torch.Generator().manual_seed(62))
+            cpu.to(dtype=torch.bfloat16).eval()
+            model = copy.deepcopy(cpu).to(dev)
+            with torch.no_grad():
+                for fn in kernels.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                out = model.predict(images)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                launches = {k: fn.launches for k, fn in kernels.items()}
+                x1 = images[:1].to(torch.bfloat16)
+                got = [f.cpu() for f in model.backbone(x1)]
+                t0 = time.perf_counter()
+                ref = cpu.backbone(x1.cpu())
+                cpu_s = time.perf_counter() - t0
+            want = dict.fromkeys(kernels, 0)
+            want.update({"van_mlp_int8" if int8 else "van_mlp":
+                         NARROW_BLOCKS, "roi_align_rotated_pyramid": 1})
+            finite = bool(torch.isfinite(out["polys"]).all()
+                          and torch.isfinite(out["scores"]).all())
+            if launches != want or not finite:
+                raise AssertionError(f"{arch} int8={int8}: launches "
+                                     f"{launches} (want {want}), finite "
+                                     f"{finite}")
+            for k in total:
+                total[k] += launches[k]
+            mode = "int8" if int8 else "default"
+            log(f"  Oriented R-CNN on {arch}, bf16, {mode} mode: one request "
+                f"of {BATCH}x{TILE}^2 in {ms:.1f} ms (host clock, the first), "
+                f"{int(out['valid'].sum())} valid slots; launches {launches}; "
+                f"the CPU's backbone on one tile {cpu_s:.1f} s [{card}]")
+            max_rel, min_corr = NARROW_INT8 if int8 else (NARROW_BF16_TOL,
+                                                          0.0)
+            for lvl, (a, b) in enumerate(zip(got, ref)):
+                rel, corr = level_error(torch, a, b)
+                log(f"    backbone level {lvl} {tuple(b.shape)}, card vs "
+                    f"CPU: relative difference {rel:.3e} (<= {max_rel}), "
+                    f"correlation {corr:.8f} (>= {min_corr})")
+                if not (rel <= max_rel and corr >= min_corr):
+                    raise AssertionError(f"{arch} int8={int8}: backbone "
+                                         f"level {lvl} differs")
+            del cpu, model, out
+            torch.cuda.empty_cache()
+    return total
+
+
 def main():
     import torch
 
@@ -6673,7 +7042,27 @@ def main():
             "the CPU, in lock step",
             lambda: phase_golden_streams(torch, dev, dict(
                 both, dw_chw=dw.dw_chw_cuda), card))
-    log(f"all 59 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
+        t_60 = time.perf_counter()
+        widths = run_phase(
+            torch, "60a", "K2, K2r, K2q and K2q's residual form at every "
+            "stage width of the VAN and LSKNet variants, f32 and bf16, "
+            "against their plain versions",
+            lambda: phase_van_widths(torch, vm, _build.kernel_library(), dev,
+                                     card))
+        f32_task = run_phase(
+            torch, "60b", "configs/orcnn_van3_7_anchor_swa_1.py as written "
+            "(f32) through run_net --task test, one tile card vs CPU",
+            lambda: phase_flagship_f32_task(torch, dev, tmp, serving, card))
+        f32_modes = run_phase(
+            torch, "60c", "VAN-b3 in f32 at batch 8: default, fused, int8, "
+            "fused int8", lambda: phase_f32_modes(
+                torch, build_flagship, normalize, serving, dev, card))
+        narrow = run_phase(
+            torch, "60d", "VAN-b0 and LSKNet-T Oriented R-CNN in bf16, "
+            "default and int8", lambda: phase_narrow_variants(
+                torch, normalize, serving, dev, card))
+        log(f"  phase 60: {time.perf_counter() - t_60:.1f} s [{card}]")
+    log(f"all 60 phases in {time.perf_counter() - t_run:.1f} s [{card}]")
 
     csrc = "rs_detection_tpu_torch/csrc/"
     jops = "rs_detection_tpu/ops/"
@@ -6792,6 +7181,22 @@ def main():
         k["toolbox_launches"] = toolbox[k["name"]]
         k["reference_checkpoint_launches"] = ref_launches[k["name"]]
         k["golden_stream_launches"] = golden_launches[k["name"]]
+        k["van_widths_launches"] = sum(
+            part.get(k["name"], 0) for part in (f32_task, f32_modes, narrow))
+    # phase 60a: each MLP form per f32 VAN-b3 forward and at C = 160 in bf16
+    forms = {"van_mlp": "K2", "van_mlp_residual": "K2r",
+             "van_mlp_int8": "K2q", "van_mlp_residual_int8": "K2q residual"}
+    for k in kernels:
+        form = forms.get(k["name"])
+        if form is None:
+            continue
+        err, ms, plain_ms, (b_ms, b_by) = per_forward(widths, form,
+                                                      "float32")
+        c160 = widths[form, 160, 640, 64, "bfloat16"]
+        k.update(f32_ms=ms, f32_plain_ms=plain_ms, f32_bound_ms=b_ms,
+                 f32_bound_by=b_by, f32_max_abs_err=err, c160_bf16_ms=c160[1],
+                 c160_bf16_plain_ms=c160[2], c160_bf16_bound_ms=c160[3][0],
+                 c160_bf16_max_abs_err=c160[0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

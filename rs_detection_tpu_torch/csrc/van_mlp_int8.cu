@@ -11,10 +11,16 @@
 // `residual` flag, quantizes the weights per output channel on the card and
 // picks the design by shape: bf16 at the widths van_mlp_q_wgmma_takes() names
 // runs the wgmma design (van_mlp_int8_wgmma.cu), every other shape
-// `van_mlp_q_kernel` below, the first design:
+// `van_mlp_q_kernel` below: the first design in bf16 (C = 32 and 160), the
+// f32 design in f32 (any C).
 // Both 1x1 products run s8 x s8 -> s32 (WMMA 16x16x16 `signed char` fragments
-// with `int` accumulators in bf16 mode, integer multiply-adds in f32 mode);
-// the depthwise 3x3 and the GELU stay in f32. The weights are quantized per
+// with `int` accumulators in bf16, dp4a in f32); the depthwise 3x3 and the
+// GELU stay in f32. In f32 the fc2 sums live in registers as in the float
+// form's f32 design (van_mlp_f32.cu, van_mlp_f32_slots): a thread holds 8
+// output pixels x J channels, a block 32 J (at most 512, C wider than that is
+// split over gridDim.z), so shared memory stays bounded (the s8 patch grows
+// with C, 116 KB at C = 1024, and one staging buffer is kept where two do not
+// fit). The weights are quantized per
 // output channel by `quantize_rows_kernel`, bit for bit as ops/quant.py:
 // qweight does (w1q [Ch, C] s8 with sw1 [Ch] f32, w2q [C, Ch] s8 with sw2 [C]
 // f32, in the launch's scratch); the activations are quantized here, dynamically and
@@ -23,10 +29,11 @@
 // group of an activation scale is what a block holds, not the TPU's row
 // block:
 //   fc1: one scale per tile, over its 10x10 haloed x patch (zero outside the
-//        image). The patch is read twice from global memory (max, then
-//        quantize into shared memory as s8), because a bf16 copy beside the
-//        s8 one does not fit at C = 512; the residual's x comes from global
-//        memory at the end for the same reason.
+//        image), over all C whatever block of output channels a block makes.
+//        The patch is read twice from global memory (max, then quantize into
+//        shared memory as s8), because a bf16 copy beside the s8 one does not
+//        fit at C = 512; the residual's x comes from global memory at the end
+//        for the same reason.
 //   fc2: one scale per (tile, 32-channel hidden chunk), over the f32 GELU
 //        output of the tile's in-image pixels. The kernel never holds a
 //        tile's whole hidden tensor (64 x 2048 values at stage 4), so a scale
@@ -78,9 +85,11 @@ struct QLayout {
 
 // `vs` holds a chunk's b1, bdw and 3x3 taps (T), `sw` its sw1 (f32); `hs` the
 // fc1 chunk, first as s32 sums and then as f32 values; `red` the block
-// reduction's per-warp maxima; `extra` as in `layout_of`.
+// reduction's per-warp maxima; `extra` the per-warp output staging tiles
+// (bf16; none in f32, whose sums stay in registers). `rows2`: the w2q rows a
+// chunk stages, C in bf16 and the block's 32 J output channels in f32.
 template <typename T>
-__host__ __device__ inline QLayout qlayout_of(int c, int nbuf) {
+__host__ __device__ inline QLayout qlayout_of(int c, int nbuf, int rows2) {
   QLayout l;
   size_t o = 0;
   l.xq = o;
@@ -88,7 +97,7 @@ __host__ __device__ inline QLayout qlayout_of(int c, int nbuf) {
   l.w1q_buf = up128(static_cast<size_t>(KC) * ld_q(c));
   l.w1q = o;
   o += nbuf * l.w1q_buf;
-  l.w2q_buf = up128(static_cast<size_t>(c) * GQ_LD);
+  l.w2q_buf = up128(static_cast<size_t>(rows2) * GQ_LD);
   l.w2q = o;
   o += nbuf * l.w2q_buf;
   l.vs_buf = up128(static_cast<size_t>(KC) * 11 * sizeof(T));
@@ -104,10 +113,15 @@ __host__ __device__ inline QLayout qlayout_of(int c, int nbuf) {
   l.red = o;
   o += up128(static_cast<size_t>(WARPS) * sizeof(float));
   l.extra = o;
-  o += up128(sizeof(T) == 2 ? static_cast<size_t>(WARPS) * 256 * sizeof(float)
-                            : static_cast<size_t>(NOUT) * c * sizeof(float));
+  o += sizeof(T) == 2 ? up128(static_cast<size_t>(WARPS) * 256 * sizeof(float))
+                      : 0;
   l.total = o;
   return l;
+}
+
+// w2q rows a chunk stages: all C in bf16, the block's channels in f32
+template <typename T, int NFW> __host__ __device__ constexpr int rows2_of(int c) {
+  return sizeof(T) == 2 ? c : 32 * NFW;
 }
 
 // Max of v (>= 0) over the block, returned to every thread. `red` holds one
@@ -133,6 +147,8 @@ __device__ __forceinline__ signed char quant8(float v, float inv) {
       fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f)));
 }
 
+// NFW: in bf16 the fc2 accumulator fragments per warp (C = 32 NFW); in f32
+// the output channels per thread (J of van_mlp_f32_slots).
 template <typename T, int NFW>
 __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
     van_mlp_q_kernel(const T* __restrict__ x,
@@ -146,7 +162,7 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
   using namespace nvcuda;
   constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const QLayout L = qlayout_of<T>(C, nbuf);
+  const QLayout L = qlayout_of<T>(C, nbuf, rows2_of<T, NFW>(C));
   signed char* xq = reinterpret_cast<signed char*>(smem + L.xq);
   float* hs = reinterpret_cast<float*>(smem + L.hs);
   signed char* gq = reinterpret_cast<signed char*>(smem + L.gq);
@@ -154,6 +170,8 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
   float* extra = reinterpret_cast<float*>(smem + L.extra);
 
   const int ldq = ld_q(C);
+  const int cw = (C + 15) / 16 * 16;     // the dp4a loops' 16-byte end
+  const int c0 = blockIdx.z * 32 * NFW;  // f32: the block's first channel
   const int n = blockIdx.y;
   const int ty0 = (blockIdx.x / tiles_x) * TILE;
   const int tx0 = (blockIdx.x % tiles_x) * TILE;
@@ -205,17 +223,23 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
           KC / 4, sw1, [&](int i) { return sw1 + k0 + i * 4; },
           [&](int i) { return sws + i * 4; });
     } else {
-      for (int i = tid; i < KC * C; i += THREADS) {
-        const int j = i / C;
-        const int c = i - j * C;
-        w1s[j * ldq + c] =
-            k0 + j < Ch ? w1q[static_cast<size_t>(k0 + j) * C + c] : 0;
+      // zero past Ch and past C up to the dp4a loops' 16-byte end; w2q rows
+      // of the block's output channels
+      for (int i = tid; i < KC * cw; i += THREADS) {
+        const int j = i / cw;
+        const int c = i - j * cw;
+        w1s[j * ldq + c] = k0 + j < Ch && c < C
+                               ? w1q[static_cast<size_t>(k0 + j) * C + c]
+                               : 0;
       }
-      for (int i = tid; i < C * KC; i += THREADS) {
-        const int c = i / KC;
-        const int j = i - c * KC;
-        w2s[c * GQ_LD + j] =
-            k0 + j < Ch ? w2q[static_cast<size_t>(c) * Ch + k0 + j] : 0;
+      const int rows2 = rows2_of<T, NFW>(C);
+      for (int i = tid; i < rows2 * KC; i += THREADS) {
+        const int r = i / KC;
+        const int j = i - r * KC;
+        w2s[r * GQ_LD + j] =
+            k0 + j < Ch && c0 + r < C
+                ? w2q[static_cast<size_t>(c0 + r) * Ch + k0 + j]
+                : 0;
       }
       for (int i = tid; i < KC * 11; i += THREADS) {
         const int j = i < 2 * KC ? i % KC : (i - 2 * KC) / 9;
@@ -260,7 +284,6 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
       const T* src = pixel(p);
       if (src != nullptr) amax = fmaxf(amax, fabsf(to_f(src[i - p * C])));
     }
-    for (int i = tid; i < NOUT * C; i += THREADS) extra[i] = 0.f;
   }
   amax = block_max(amax, red);
   const float sx = scale_of(amax);
@@ -284,17 +307,25 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
       *reinterpret_cast<uint2*>(xq + p * ldq + (i - p * vpp) * 8) = out;
     }
   } else {
-    for (int i = tid; i < MROWS * C; i += THREADS) {
-      const int p = i / C;
+    for (int i = tid; i < MROWS * cw; i += THREADS) {
+      const int p = i / cw;
+      const int c = i - p * cw;
       const T* src = pixel(p);
-      xq[p * ldq + i - p * C] =
-          src != nullptr ? quant8(to_f(src[i - p * C]), xinv) : 0;
+      xq[p * ldq + c] = src != nullptr && c < C ? quant8(to_f(src[c]), xinv)
+                                                : 0;
     }
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFW > 0 ? NFW : 1];
+  // bf16: the fc2 sums in fragments; f32: 8 pixels x NFW channels a thread
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBf16 ? NFW : 1];
 #pragma unroll
-  for (int f = 0; f < NFW; ++f) wmma::fill_fragment(acc[f], 0.f);
+  for (int f = 0; f < (kBf16 ? NFW : 0); ++f) wmma::fill_fragment(acc[f], 0.f);
+  constexpr int PX2 = kBf16 ? 1 : NOUT / 8;
+  float acc2[PX2][kBf16 ? 1 : NFW];
+#pragma unroll
+  for (int i = 0; i < PX2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < (kBf16 ? 1 : NFW); ++jj) acc2[i][jj] = 0.f;
 
   for (int k0 = 0, it = 0; k0 < Ch; k0 += KC, ++it) {
     const int buf = nbuf == 2 ? (it & 1) : 0;
@@ -355,15 +386,36 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
         }
       }
     } else {
-      for (int i = tid; i < NPIX_H * KC; i += THREADS) {
-        const int p = i / KC;
-        const int j = i - p * KC;
-        const signed char* xr = xq + p * ldq;
-        const signed char* wr = w1s + j * ldq;
-        int s = 0;
-        for (int c = 0; c < C; ++c)
-          s += static_cast<int>(xr[c]) * static_cast<int>(wr[c]);
-        hs[p * HS_LD + j] = finish_h1(p, j, s);
+      // 7 haloed pixels x 2 hidden channels a thread, four products a dp4a,
+      // 16-byte loads along the input channels (a quarter warp reads the
+      // same pixel rows: a broadcast)
+      const int pg = tid >> 4, cg = tid & 15;
+      int hsum[MROWS / 16][2] = {};
+      const signed char* xr = xq + pg * (MROWS / 16) * ldq;
+      const signed char* wr = w1s + cg * ldq;
+      for (int c = 0; c < cw; c += 16) {
+        const int4 wa = *reinterpret_cast<const int4*>(wr + c);
+        const int4 wb = *reinterpret_cast<const int4*>(wr + 16 * ldq + c);
+#pragma unroll
+        for (int i = 0; i < MROWS / 16; ++i) {
+          const int4 v = *reinterpret_cast<const int4*>(xr + i * ldq + c);
+          hsum[i][0] = __dp4a(v.x, wa.x, hsum[i][0]);
+          hsum[i][0] = __dp4a(v.y, wa.y, hsum[i][0]);
+          hsum[i][0] = __dp4a(v.z, wa.z, hsum[i][0]);
+          hsum[i][0] = __dp4a(v.w, wa.w, hsum[i][0]);
+          hsum[i][1] = __dp4a(v.x, wb.x, hsum[i][1]);
+          hsum[i][1] = __dp4a(v.y, wb.y, hsum[i][1]);
+          hsum[i][1] = __dp4a(v.z, wb.z, hsum[i][1]);
+          hsum[i][1] = __dp4a(v.w, wb.w, hsum[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MROWS / 16; ++i) {
+        const int p = pg * (MROWS / 16) + i;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (p < NPIX_H)
+            hs[p * HS_LD + cg + 16 * e] = finish_h1(p, cg + 16 * e, hsum[i][e]);
       }
     }
     __syncthreads();
@@ -425,15 +477,30 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
               acc[f].x[t], __fmul_rn(sg, static_cast<float>(part.x[t])));
       }
     } else {
-      for (int i = tid; i < NOUT * C; i += THREADS) {
-        const int q = i / C;
-        const int c = i - q * C;
-        const signed char* gr = gq + q * GQ_LD;
-        const signed char* wr = w2s + c * GQ_LD;
-        int s = 0;
-        for (int j = 0; j < KC; ++j)
-          s += static_cast<int>(gr[j]) * static_cast<int>(wr[j]);
-        extra[i] = __fadd_rn(extra[i], __fmul_rn(sg, static_cast<float>(s)));
+      // a channel's s32 sum over the chunk (eight dp4a a pixel), then scaled
+      // by sg into its f32 accumulator
+      const int qg = tid & 7, og = tid >> 3;
+#pragma unroll
+      for (int jj = 0; jj < NFW; ++jj) {
+        const signed char* wr = w2s + (og + 32 * jj) * GQ_LD;
+        const int4 wa = *reinterpret_cast<const int4*>(wr);
+        const int4 wb = *reinterpret_cast<const int4*>(wr + 16);
+#pragma unroll
+        for (int i = 0; i < PX2; ++i) {
+          const signed char* gr = gq + (qg + 8 * i) * GQ_LD;
+          const int4 ga = *reinterpret_cast<const int4*>(gr);
+          const int4 gb = *reinterpret_cast<const int4*>(gr + 16);
+          int s = __dp4a(ga.x, wa.x, 0);
+          s = __dp4a(ga.y, wa.y, s);
+          s = __dp4a(ga.z, wa.z, s);
+          s = __dp4a(ga.w, wa.w, s);
+          s = __dp4a(gb.x, wb.x, s);
+          s = __dp4a(gb.y, wb.y, s);
+          s = __dp4a(gb.z, wb.z, s);
+          s = __dp4a(gb.w, wb.w, s);
+          acc2[i][jj] = __fadd_rn(acc2[i][jj],
+                                  __fmul_rn(sg, static_cast<float>(s)));
+        }
       }
     }
     if (nbuf == 1 && k0 + KC < Ch) {
@@ -471,24 +538,32 @@ __global__ void __launch_bounds__(THREADS, NFW <= 2 ? 3 : NFW <= 4 ? 2 : 1)
       __syncwarp();
     }
   } else {
-    __syncthreads();
-    for (int i = tid; i < NOUT * C; i += THREADS) {
-      const int q = i / C;
-      const int c = i - q * C;
+    const int qg = tid & 7, og = tid >> 3;
+#pragma unroll
+    for (int i = 0; i < PX2; ++i) {
+      const int q = qg + 8 * i;
       const int gy = ty0 + q / TILE;
       const int gx = tx0 + q % TILE;
-      if (gy < H && gx < W) {
+      if (gy >= H || gx >= W) continue;
+#pragma unroll
+      for (int jj = 0; jj < NFW; ++jj) {
+        const int c = c0 + og + 32 * jj;
+        if (c >= C) continue;
         const size_t at = (static_cast<size_t>(gy) * W + gx) * C + c;
-        yn[at] = finish_y(at, c, extra[i]);
+        yn[at] = finish_y(at, c, acc2[i][jj]);
       }
     }
   }
 }
 
-template <typename T> int pick_qnbuf(int C) {
-  return qlayout_of<T>(C, 2).total <= static_cast<size_t>(smem_optin_limit())
+template <typename T, int NFW> int pick_qnbuf(int C) {
+  return qlayout_of<T>(C, 2, rows2_of<T, NFW>(C)).total <=
+                 static_cast<size_t>(smem_optin_limit())
              ? 2
              : 1;
+}
+template <typename T, int NFW> size_t qsmem_of(int C) {
+  return qlayout_of<T>(C, pick_qnbuf<T, NFW>(C), rows2_of<T, NFW>(C)).total;
 }
 
 // Where the first design keeps its quantized weights in the scratch: w1q
@@ -556,8 +631,8 @@ int launch_q(const void* x, const void* w1, const void* b1, const void* wdw,
   if (qerr != 0) return qerr;
   const QScratch S = qscratch_of(C, Ch);
   const unsigned char* base = static_cast<const unsigned char*>(scratch);
-  const int nbuf = pick_qnbuf<T>(C);
-  const size_t smem = qlayout_of<T>(C, nbuf).total;
+  const int nbuf = pick_qnbuf<T, NFW>(C);
+  const size_t smem = qsmem_of<T, NFW>(C);
   auto kernel = van_mlp_q_kernel<T, NFW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -565,7 +640,8 @@ int launch_q(const void* x, const void* w1, const void* b1, const void* wdw,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = (W + TILE - 1) / TILE;
   const int tiles_y = (H + TILE - 1) / TILE;
-  kernel<<<dim3(tiles_x * tiles_y, N), THREADS, smem, stream>>>(
+  const int splits = sizeof(T) == 2 ? 1 : van_mlp_f32_splits(C);
+  kernel<<<dim3(tiles_x * tiles_y, N, splits), THREADS, smem, stream>>>(
       static_cast<const T*>(x),
       reinterpret_cast<const signed char*>(base + S.w1q),
       reinterpret_cast<const float*>(base + S.sw1), static_cast<const T*>(b1),
@@ -579,25 +655,42 @@ int launch_q(const void* x, const void* w1, const void* b1, const void* wdw,
 }  // namespace
 
 // Which design rs_van_mlp_int8_fwd runs for this shape: 0 = none takes it, 1 =
-// the first design (f32: any width; bf16: C = 32), 2 = the wgmma design (bf16
-// at C in {64, 128, 256, 320, 512}). dtype: 0 = f32, 1 = bf16.
+// `van_mlp_q_kernel` (f32: any width, the f32 design; bf16: C in {32, 160},
+// the first design), 2 = the wgmma design (bf16 at C in {64, 128, 256, 320,
+// 512}). dtype: 0 = f32, 1 = bf16.
 extern "C" int rs_van_mlp_int8_design(int C, int Ch, int dtype) {
   if (C <= 0 || Ch <= 0) return 0;
   if (dtype == 0) return 1;
   if (dtype != 1) return 0;
   if (rs::van_mlp_q_wgmma_takes(C, Ch)) return 2;
-  return C == 32 ? 1 : 0;
+  return C == 32 || C == 160 ? 1 : 0;
 }
+
+// f32: the design's instantiation for C's output channels a thread
+#define RS_VAN_MLP_Q_F32_SWITCH(C, CASE) \
+  switch (van_mlp_f32_slots(C)) {        \
+    CASE(1)                              \
+    CASE(2)                              \
+    CASE(4)                              \
+    CASE(5)                              \
+    CASE(8)                              \
+    CASE(10)                             \
+    CASE(16)                             \
+  }
 
 // Shared memory of one block of that design (0 where none takes the shape).
 extern "C" size_t rs_van_mlp_int8_smem_bytes(int C, int Ch, int dtype) {
   switch (rs_van_mlp_int8_design(C, Ch, dtype)) {
     case 2: return rs::van_mlp_q_wgmma_smem_bytes(C);
     case 1:
-      return dtype == 0
-                 ? qlayout_of<float>(C, pick_qnbuf<float>(C)).total
-                 : qlayout_of<__nv_bfloat16>(C, pick_qnbuf<__nv_bfloat16>(C))
-                       .total;
+      if (dtype == 1)
+        return C == 32 ? qsmem_of<__nv_bfloat16, 1>(C)
+                       : qsmem_of<__nv_bfloat16, 5>(C);
+#define RS_CASE(j) \
+  case j:          \
+    return qsmem_of<float, j>(C);
+      RS_VAN_MLP_Q_F32_SWITCH(C, RS_CASE)
+#undef RS_CASE
   }
   return 0;
 }
@@ -643,13 +736,21 @@ extern "C" int rs_van_mlp_int8_fwd(const void* x, const void* w1,
   if (design == 2)
     return rs::van_mlp_q_wgmma_launch(x, w1, b1, wdw, bdw, w2, b2, y, scratch,
                                       N, H, W, C, Ch, residual, s);
-  if (dtype == 0)
-    return launch_q<float, 0>(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N, H,
+  if (dtype == 0) {
+#define RS_CASE(j)                                                          \
+  case j:                                                                   \
+    return launch_q<float, j>(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N, H, \
                               W, C, Ch, residual, s);
-  // the one bf16 width the wgmma design leaves: a 32-channel row is
-  // narrower than a swizzled one
+    RS_VAN_MLP_Q_F32_SWITCH(C, RS_CASE)
+#undef RS_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the two bf16 widths the wgmma design leaves: a 32-channel row is
+  // narrower than a swizzled one, and 160 is no whole number of 64-channel
+  // k blocks
   if (C == 32)
     return launch_q<__nv_bfloat16, 1>(x, w1, b1, wdw, bdw, w2, b2, y, scratch,
                                       N, H, W, C, Ch, residual, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_q<__nv_bfloat16, 5>(x, w1, b1, wdw, bdw, w2, b2, y, scratch, N,
+                                    H, W, C, Ch, residual, s);
 }

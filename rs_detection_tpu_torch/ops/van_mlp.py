@@ -3,7 +3,8 @@
 Counterpart of ``rs_detection_tpu/ops/pallas_van_mlp.py``. On a CUDA
 tensor ``van_mlp`` launches the fused kernel (``csrc/van_mlp.cu``, whose
 launcher picks the wgmma design of ``csrc/van_mlp_wgmma.cu`` for bf16 at
-VAN's widths; ``kernel_plan`` says which shape runs what), which keeps
+VAN's widths and the f32 design of ``csrc/van_mlp_f32.cu`` for f32 at any
+width; ``kernel_plan`` says which shape runs what), which keeps
 the 4-8x wide hidden tensor out of device memory; on a CPU tensor
 it runs ``van_mlp_reference``, the plain composition (the JAX
 ``_ref_mlp``). ``van_mlp_residual`` is the same kernel with its residual
@@ -184,12 +185,26 @@ def van_mlp_residual_int8_reference(x, w1, b1, wdw, bdw, w2, b2,
 
 
 H100_SMEM = 232448  # the largest dynamic shared memory of one block
-BF16_WIDTHS = (32, 64, 128, 256, 320, 512)
+# the bf16 widths, one list with csrc/van_mlp.cu:bf16_width_supported: every
+# stage width of the registered VAN and LSKNet variants
+BF16_WIDTHS = (32, 64, 128, 160, 256, 320, 512)
 WGMMA_WIDTHS = (64, 128, 256, 320, 512)
+F32_SLOTS = (1, 2, 4, 5, 8, 10, 16)  # the f32 designs' instantiations
 
 
 def _up128(v):
     return (v + 127) // 128 * 128
+
+
+def f32_slots(c):
+    """(J, splits) of the f32 designs, mirrored from
+    ``csrc/van_mlp.cuh:van_mlp_f32_slots``: a thread sums 8 output pixels
+    x J output channels in registers, a block 32 J channels, and C is split
+    over ``splits`` blocks (``gridDim.z``) of at most 512 channels each."""
+    per_part = -(-c // -(-c // 512))
+    need = -(-per_part // 32)
+    j = next((j for j in F32_SLOTS if j >= need), F32_SLOTS[-1])
+    return j, -(-c // (32 * j))
 
 
 def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM, int8=False):
@@ -199,11 +214,13 @@ def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM, int8=False):
     ``csrc/van_mlp_int8.cu`` / ``csrc/van_mlp_int8_wgmma.cu``: the design
     the shape picks (``"wgmma"``: bf16 at C in ``WGMMA_WIDTHS`` and, in
     float, Ch a multiple of 8; ``"wmma"``: every other bf16 shape;
-    ``"fma"``: f32, integer multiply-adds in the int8 form), the hidden
-    channels it holds at a time, one block's shared memory and the bytes
-    of scratch (the wgmma designs' repacked weights; in the int8 form
-    always the quantized weights and their scales). Raises
-    ``ValueError`` for a width no kernel takes."""
+    ``"fma"``: the f32 design at any C, f32 multiply-adds, dp4a in the
+    int8 form, the fc2 sums in registers), the hidden channels it holds at
+    a time, one block's shared memory and the bytes of scratch (the wgmma
+    designs' repacked weights; in the int8 form always the quantized
+    weights and their scales); for ``"fma"`` also ``slots`` and
+    ``splits`` (``f32_slots``). Raises ``ValueError`` for a width no
+    kernel takes."""
     if dtype == torch.bfloat16 and c not in BF16_WIDTHS or c <= 0 or ch <= 0:
         raise ValueError(f"van_mlp kernel does not take C={c}, Ch={ch} in "
                          f"{dtype} (bf16 widths: {BF16_WIDTHS})")
@@ -218,20 +235,26 @@ def kernel_plan(c, ch, dtype, smem_limit=H100_SMEM, int8=False):
                 + 4 * 8 + 1024)
         return dict(design="wgmma", chunk=kc, smem=smem,
                     scratch=-(-ch // kc) * (w1_chunk + taps + w2_chunk))
-    size = 2 if dtype == torch.bfloat16 else 4
-    ld_x, ld_w2 = (c + 8, 40) if size == 2 else (c + 1, 33)
+    if dtype != torch.bfloat16:
+        # two buffers of the x slab [112, 36] and of the chunk's w1 [32, 36],
+        # w2 [32 J, 36] and b1 | bdw | taps [32, 11], then hs [112, 36] and
+        # gs [64, 36], all f32: 69,632 + 9,216 J bytes
+        j, splits = f32_slots(c)
+        smem = 4 * (2 * 112 * 36 + 2 * 32 * 36 + 2 * 32 * j * 36
+                    + 2 * 32 * 11 + 112 * 36 + 64 * 36)
+        return dict(design="fma", chunk=CHUNK, smem=smem, scratch=0,
+                    slots=j, splits=splits)
+    ld_x = c + 8
 
     def total(nbuf):
-        staged = (_up128(32 * ld_x * size) + _up128(c * ld_w2 * size)
-                  + _up128(32 * 11 * size))
-        extra = 8 * 256 * 4 if size == 2 else 64 * c * 4
-        return (_up128(112 * ld_x * size) + nbuf * staged
-                + _up128(112 * 36 * 4) + _up128(64 * 40 * size)
-                + _up128(extra))
+        staged = (_up128(32 * ld_x * 2) + _up128(c * 40 * 2)
+                  + _up128(32 * 11 * 2))
+        return (_up128(112 * ld_x * 2) + nbuf * staged
+                + _up128(112 * 36 * 4) + _up128(64 * 40 * 2)
+                + _up128(8 * 256 * 4))
 
     smem = total(2) if total(2) <= smem_limit else total(1)
-    return dict(design="wmma" if size == 2 else "fma", chunk=CHUNK,
-                smem=smem, scratch=0)
+    return dict(design="wmma", chunk=CHUNK, smem=smem, scratch=0)
 
 
 def int8_round(c):
@@ -260,19 +283,26 @@ def _int8_plan(c, ch, dtype, smem_limit):
                     scratch=-(-ch // kc) * _int8_packed(c)[2] + 4 * c)
     size = 2 if dtype == torch.bfloat16 else 4
     ld_q = -(-c // 16) * 16 + 16
+    # w2q rows a chunk stages: all C (bf16), the block's 32 J channels (f32,
+    # whose fc2 sums stay in registers: no output staging)
+    j, splits = f32_slots(c)
+    rows2 = c if size == 2 else 32 * j
 
     def total(nbuf):
-        staged = (_up128(32 * ld_q) + _up128(c * 48) + _up128(32 * 11 * size)
-                  + _up128(32 * 4))
-        extra = 8 * 256 * 4 if size == 2 else 64 * c * 4
+        staged = (_up128(32 * ld_q) + _up128(rows2 * 48)
+                  + _up128(32 * 11 * size) + _up128(32 * 4))
+        extra = 8 * 256 * 4 if size == 2 else 0
         return (_up128(112 * ld_q) + nbuf * staged + _up128(112 * 36 * 4)
                 + _up128(64 * 48) + _up128(8 * 4) + _up128(extra))
 
     smem = total(2) if total(2) <= smem_limit else total(1)
     up16 = -(-c * ch // 16) * 16
-    return dict(design="wmma" if size == 2 else "fma", chunk=CHUNK,
+    plan = dict(design="wmma" if size == 2 else "fma", chunk=CHUNK,
                 smem=smem,
                 scratch=2 * up16 + -(-4 * ch // 16) * 16 + 4 * c)
+    if size == 4:
+        plan.update(slots=j, splits=splits)
+    return plan
 
 
 def _int8_pack_offsets(c, ch, device):

@@ -550,6 +550,57 @@ def _mlp_args(dev, shape, dtype, seed=0):
             r(c, ch, scale=ch ** -0.5), r(c, scale=0.1))
 
 
+# (C, Ch, dtype) of every stage of the registered VAN and LSKNet variants
+# in both dtypes, and f32 widths past one block's 512 output channels
+VARIANT_WIDTHS = [(c, ch, dt) for c, ch in ((32, 256), (64, 512), (160, 640),
+                                            (256, 1024), (128, 1024),
+                                            (320, 1280), (512, 2048))
+                  for dt in (torch.float32, torch.bfloat16)] + [
+    (600, 100, torch.float32), (1024, 4096, torch.float32)]
+
+
+@pytest.mark.parametrize("form", ["K2", "K2r", "K2q", "K2q_residual"])
+@pytest.mark.parametrize("shape,dtype", [
+    # the f32 design at every stage width, border tiles, a partial last
+    # chunk; C no multiple of 4 (4-byte copies) or of 32 (a partial slab);
+    # C split over two and three blocks of output channels
+    *[((2, 21, 19, c, ch), torch.float32) for c, ch in (
+        (32, 256), (64, 512), (128, 1024), (160, 640), (256, 1024),
+        (320, 1280), (512, 2048))],
+    ((1, 9, 70, 20, 40), torch.float32), ((1, 9, 70, 100, 72), torch.float32),
+    ((1, 9, 11, 600, 100), torch.float32),
+    ((1, 3, 5, 1100, 64), torch.float32),
+    # bf16 at C = 160: whole chunks, a partial one, Ch no multiple of 8
+    ((2, 21, 19, 160, 640), torch.bfloat16),
+    ((1, 9, 70, 160, 100), torch.bfloat16)], ids=str)
+def test_van_mlp_forms_at_the_variant_widths_match_plain(dev, shape, dtype,
+                                                         form):
+    """K2, K2r, K2q and K2q's residual form at the widths the f32 design
+    and C = 160 in bf16 added, against their plain versions (REL_TOL;
+    INT8_TOL with at most 3% of the elements past one unit)."""
+    args = _mlp_args(dev, shape, dtype, seed=24)
+    kernel, plain = {
+        "K2": (van_mlp_cuda, van_mlp_reference),
+        "K2r": (van_mlp_residual_cuda, van_mlp_residual_reference),
+        "K2q": (van_mlp_int8_cuda, van_mlp_int8_reference),
+        "K2q_residual": (van_mlp_residual_int8_cuda,
+                         van_mlp_residual_int8_reference)}[form]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    ref = plain(*args).float()
+    if form.startswith("K2q"):
+        diff = (got.float() - ref).abs()
+        scale = ref.abs().max().item()
+        assert diff.max().item() <= INT8_TOL[dtype] * scale
+        unit = 1e-5 * scale if dtype == torch.float32 \
+            else ref.abs() * 2 ** -7
+        assert (diff > unit).float().mean().item() <= 0.03
+    else:
+        _assert_close(got, ref, dtype)
+    assert torch.equal(got, kernel(*args))      # same launch, same bits
+
+
 @pytest.mark.parametrize("residual", [False, True], ids=["mlp", "residual"])
 @pytest.mark.parametrize("shape", [
     # H, W no multiples of the 8x8 tile, at every bf16 width; Ch a whole
@@ -580,7 +631,9 @@ def test_van_mlp_bf16_designs_match_plain(dev, shape, residual):
     (256, 72, torch.bfloat16), (320, 1280, torch.bfloat16),
     (512, 2048, torch.bfloat16), (320, 100, torch.bfloat16),
     (512, 100, torch.bfloat16), (32, 96, torch.bfloat16),
-    (20, 40, torch.float32), (320, 64, torch.float32)])
+    (20, 40, torch.float32), (320, 64, torch.float32),
+    # every stage width of the VAN and LSKNet variants, and past 512
+    *VARIANT_WIDTHS])
 def test_van_mlp_plan_mirrors_the_launcher(dev, c, ch, dtype):
     lib = kernel_library()
     limit = torch.cuda.get_device_properties(dev) \
@@ -697,7 +750,7 @@ def test_van_mlp_int8_designs_match_plain(dev, shape, residual):
     (256, 72, torch.bfloat16), (320, 1280, torch.bfloat16),
     (512, 2048, torch.bfloat16), (320, 100, torch.bfloat16),
     (64, 100, torch.bfloat16), (32, 96, torch.bfloat16),
-    (20, 40, torch.float32), (320, 64, torch.float32)])
+    (20, 40, torch.float32), (320, 64, torch.float32), *VARIANT_WIDTHS])
 def test_van_mlp_int8_plan_mirrors_the_launcher(dev, c, ch, dtype):
     lib = kernel_library()
     limit = torch.cuda.get_device_properties(dev) \
